@@ -1,0 +1,33 @@
+"""Per-pixel ray direction grids (counterpart of `evoworld_tpu/geometry/rays.py`).
+
+RDF convention: X right, Y down, Z forward; the panorama centre maps to +Z,
+the top row to -Y.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def equirect_ray_grid(height: int, width: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """Unit ray directions for every pixel of an equirectangular image.
+
+    Pixel (x, y) maps to longitude phi = (x/W - 0.5) * 2*pi and latitude
+    theta = (y/H - 0.5) * pi; the direction is
+    [cos(theta) sin(phi), sin(theta), cos(theta) cos(phi)].
+
+    Returns:
+        (height, width, 3) fp32 unit vectors.
+    """
+    ys = torch.arange(height, dtype=torch.float32, device=device)
+    xs = torch.arange(width, dtype=torch.float32, device=device)
+    theta = (ys / height - 0.5) * math.pi
+    phi = (xs / width - 0.5) * (2.0 * math.pi)
+    cos_t, sin_t = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+    cos_p, sin_p = torch.cos(phi)[None, :], torch.sin(phi)[None, :]
+    d_x = cos_t * sin_p
+    d_y = sin_t.expand(height, width)
+    d_z = cos_t * cos_p
+    return torch.stack([d_x, d_y, d_z], dim=-1)

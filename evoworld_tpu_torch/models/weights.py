@@ -1,0 +1,156 @@
+"""Weights for the port's modules: carried across from the JAX package's Flax
+trees, or drawn at random.
+
+`params_from_jax` inverts the layout rules of `evoworld_tpu/models/weights.py`
+(whose converters map diffusers/transformers names onto Flax trees):
+  - Flax conv kernels HWIO / THWIO -> torch OIHW / OITHW;
+  - Flax dense kernels (I, O) -> torch Linear (O, I);
+  - norm `scale` -> `weight`, dropping the fp32-norm wrapper's inner `norm`;
+  - module lists `resnets_0` -> `resnets.0`, `to_out` -> `to_out.0`, the
+    GEGLU MLP's `proj_in`/`proj_out` -> `net.0.proj`/`net.2`;
+  - the VAE's flat names (`down_blocks_1_resnets_0`, `mid_attn`) and CLIP's
+    `vision_model.` prefix.
+It takes numpy leaves (any array with `np.asarray`) and returns a state dict
+that `load_state_dict(strict=True)` accepts.
+
+`init_random_` fills a module in place with deterministic role-aware random
+values, the rules of `host_random_params`: norm weights 1, `mix_factor` 0.5,
+biases and the class embedding 0, weights of rank >= 2 normal with std
+sqrt(1 / fan_in) (fan_in from torch's OIHW layout: every axis but the first),
+other vectors normal with std 0.02.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_LIST_SEGMENT = re.compile(
+    r"(down_blocks|up_blocks|resnets|attentions|transformer_blocks|temporal_transformer_blocks"
+    r"|downsamplers|upsamplers|layers)_(\d+)"
+)
+_VAE_SEGMENT = (
+    (re.compile(r"(down|up)_blocks_(\d+)_resnets_(\d+)"), r"\1_blocks.\2.resnets.\3"),
+    (re.compile(r"down_blocks_(\d+)_downsamplers_0"), r"down_blocks.\1.downsamplers.0"),
+    (re.compile(r"up_blocks_(\d+)_upsamplers_0"), r"up_blocks.\1.upsamplers.0"),
+    (re.compile(r"mid_resnets_(\d+)"), r"mid_block.resnets.\1"),
+    (re.compile(r"mid_attn"), r"mid_block.attentions.0"),
+)
+_CLIP_SUBMODULE = {
+    "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
+    "out_proj": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = np.asarray(v)
+    return out
+
+
+def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    """Flax leaf -> (torch leaf name, torch-layout value)."""
+    if name == "scale":
+        return "weight", value
+    if name == "kernel":
+        if value.ndim == 2:
+            return "weight", value.T
+        if value.ndim == 4:
+            return "weight", value.transpose(3, 2, 0, 1)
+        if value.ndim == 5:
+            return "weight", value.transpose(4, 3, 0, 1, 2)
+        raise ValueError(f"unexpected kernel rank {value.ndim}")
+    return name, value
+
+
+def _segments(path: tuple, kind: str) -> list[str]:
+    """Rename the module segments of one Flax path (leaf excluded)."""
+    segs = list(path)
+    if len(segs) >= 2 and segs[-1] == "norm":  # our fp32-norm wrapper's inner module
+        segs = segs[:-1]
+    out = []
+    for i, s in enumerate(segs):
+        parent = segs[i - 1] if i else ""
+        if kind == "vae":
+            for pat, rep in _VAE_SEGMENT:
+                if pat.fullmatch(s):
+                    s = pat.sub(rep, s)
+                    break
+        elif kind == "clip":
+            if _LIST_SEGMENT.fullmatch(s):
+                s = "encoder." + _LIST_SEGMENT.sub(r"\1.\2", s)
+            s = _CLIP_SUBMODULE.get(s, s)
+        if kind != "clip":
+            s = _LIST_SEGMENT.sub(r"\1.\2", s) if _LIST_SEGMENT.fullmatch(s) else s
+        if s == "to_out":
+            s = "to_out.0"
+        elif parent in ("ff", "ff_in") and s in ("proj_in", "proj_out"):
+            s = "net.0.proj" if s == "proj_in" else "net.2"
+        out.append(s)
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax params of the UNet, VAE or CLIP tower (`{"params": ...}` or the
+    inner dict) -> the port's state dict (fp32 CPU tensors unless the leaves
+    carry another float dtype)."""
+    tree = tree.get("params", tree)
+    if "encoder" in tree and "decoder" in tree:
+        kind = "vae"
+    elif "patch_embedding" in tree:
+        kind = "clip"
+    else:
+        kind = "unet"
+    sd = {}
+    for path, value in _flatten(tree).items():
+        leaf, value = _leaf(path[-1], value)
+        segs = _segments(path[:-1], kind)
+        if kind == "vae" and segs == ["encoder", "quant_conv"]:
+            segs = ["quant_conv"]
+        if kind == "clip":
+            if path[0] == "visual_projection":
+                segs = ["visual_projection"]
+            elif path[0] in ("patch_embedding", "class_embedding", "position_embedding"):
+                segs = ["vision_model", "embeddings"] + (segs or [])
+                if path[0] == "class_embedding":
+                    leaf = "class_embedding"
+                elif path[0] == "position_embedding":
+                    segs, leaf = segs + ["position_embedding"], "weight"
+            else:
+                segs = ["vision_model"] + segs
+        name = ".".join(segs + [leaf])
+        if value.dtype.kind != "f" or value.dtype.itemsize < 4:
+            value = value.astype(np.float32)
+        sd[name] = torch.tensor(value)
+    return sd
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill `module`'s parameters in place with role-aware random values.
+
+    Draws on the generator's device in fp32 and casts into each parameter.
+    """
+    norms = (nn.GroupNorm, nn.LayerNorm)
+    for mod in module.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, norms) and name == "weight":
+                p.fill_(1.0)
+            elif name == "mix_factor":
+                p.fill_(0.5)
+            elif name in ("bias", "class_embedding"):
+                p.zero_()
+            else:
+                fan_in = int(np.prod(p.shape[1:])) if p.dim() >= 2 else 0
+                std = float(np.sqrt(1.0 / max(fan_in, 1))) if p.dim() >= 2 else 0.02
+                draw = torch.randn(p.shape, generator=generator, device=generator.device, dtype=torch.float32)
+                p.copy_(draw.mul_(std))
+    return module
