@@ -5,14 +5,17 @@ against it by the tests in `tests/test_torch_port_*.py`. This package imports
 torch, numpy and the standard library only; it never imports JAX or
 `evoworld_tpu`.
 
-Layer map (bottom-up), the first slice of the port (one clip):
+Layer map (bottom-up), the slices ported so far (one clip; EDM fine-tuning):
   geometry/   camera poses, equirectangular ray grids, Pluecker embeddings
   ops/        attention dispatch, the hand-written Hopper flash-attention
-              kernel (csrc/flash_attn_fwd.cu) and its plain version, resize
+              kernels (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) joined
+              by an autograd Function, their plain versions, resize
   models/     nn.Modules with diffusers/transformers parameter names:
               spatio-temporal UNet, temporal VAE, CLIP vision tower
-  diffusion/  Euler/Karras scheduler and the single-clip pipeline
-  runtime.py  build_pipeline: the entry point
+  diffusion/  Euler/Karras scheduler, EDM helpers, the single-clip pipeline
+  data/, utils/  batch prefetching, the JSONL metrics tracker
+  train/      the EDM loss, optimizer and step; the training loop
+  runtime.py  build_pipeline and build_trainer: the entry points
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without a
 card they raise instead of falling back.

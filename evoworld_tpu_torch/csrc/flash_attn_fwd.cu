@@ -31,69 +31,29 @@
 //                P V, and split the 32-key tile (8 keys each) for Q K^T; row
 //                maxima and sums meet in shared memory.
 // Both use dynamic shared memory (above 48 KB for D >= 128).
+//
+// With a non-null `lse` the rows kernel also writes each row's natural-log
+// log-sum-exp of the scaled scores, fp32 (B, H, Sq), once per row at the end:
+// the residual the backward kernels (flash_attn_bwd.cu) recompute P from.
+// The serving path passes null and writes nothing more. The split kernel has
+// no backward, so it takes no `lse`.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_attn_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D(16x8 fp32) += A(16x16 bf16, row) * B(16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 b16 matrices: the B fragments of two adjacent 8-column
-// blocks of a row-major (keys x D) V tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+using namespace flash;
 
 __device__ __forceinline__ float softmax_exp(float x, bool use_exp2) {
   return use_exp2 ? exp2f(x) : expf(x);
+}
+
+// Natural-log log-sum-exp of a row from its running max (in the exp or exp2
+// domain of the scores) and its sum of exponentials.
+__device__ __forceinline__ float row_lse(float m, float sum, bool use_exp2) {
+  return use_exp2 ? (m + log2f(sum)) * kLn2 : m + logf(sum);
 }
 
 struct Params {
@@ -101,6 +61,7 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // (B, H, Sq) or null; rows kernel only
   int sq, kv_len, heads;
   float scale;  // already multiplied by log2(e) when use_exp2
   bool use_exp2;
@@ -109,20 +70,6 @@ struct Params {
   int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
 };
-
-// Stage `rows` rows of D bf16 (row stride `ss` elements) into shared memory
-// with row pitch LD; rows at or past `limit` are zero-filled.
-template <int D, int LD, int NT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base, int64_t ss,
-                                          int row0, int rows, int limit) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += NT) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + r < limit;
-    const __nv_bfloat16* src = ok ? base + (int64_t)(row0 + r) * ss + c * 8 : base;
-    cp_async16(dst + r * LD + c * 8, src, ok ? 16 : 0);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // rows kernel: D = 64 or 128.
@@ -250,8 +197,12 @@ __global__ void __launch_bounds__(128) flash_fwd_rows(Params p) {
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const float sum = quad_sum(l[r]);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int row = q0 + warp * 16 + g + r * 8;
+    if (p.lse != nullptr && row < p.sq && t4 == 0) {
+      p.lse[((int64_t)b * p.heads + h) * p.sq + row] = row_lse(m[r], sum, p.use_exp2);
+    }
     if (row < p.sq) {
       __nv_bfloat16* orow = ob + (int64_t)row * p.o_ss;
 #pragma unroll
@@ -405,15 +356,6 @@ __global__ void __launch_bounds__(128) flash_fwd_split(Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int bm, size_t smem, const Params& p, int batch, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.sq + bm - 1) / bm, p.heads, batch);
-  kernel<<<grid, 128, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int D>
 size_t rows_smem() { return (size_t)(64 + 64 + 64) * (D + 8) * sizeof(__nv_bfloat16); }
 
@@ -428,7 +370,7 @@ size_t split_smem() {
 // C entry point. Strides are in elements; the last (D) stride must be 1 and
 // every other stride a multiple of 8, with 16-byte aligned base pointers (the
 // Python wrapper checks this). Returns the launch's cudaError_t.
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int batch, int sq,
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
                               int heads, int head_dim, int kv_len, float scale, int use_exp2, long long q_sb,
                               long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                               long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss,
@@ -438,6 +380,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   p.sq = sq;
   p.kv_len = kv_len;
   p.heads = heads;
@@ -448,10 +391,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto grid = [&](int bm) { return dim3((sq + bm - 1) / bm, heads, batch); };
   switch (head_dim) {
-    case 64: return (int)launch(flash_fwd_rows<64>, 64, rows_smem<64>(), p, batch, s);
-    case 128: return (int)launch(flash_fwd_rows<128>, 64, rows_smem<128>(), p, batch, s);
-    case 512: return (int)launch(flash_fwd_split<512>, 16, split_smem<512>(), p, batch, s);
+    case 64: return (int)launch(flash_fwd_rows<64>, grid(64), rows_smem<64>(), p, s);
+    case 128: return (int)launch(flash_fwd_rows<128>, grid(64), rows_smem<128>(), p, s);
+    case 512:
+      if (lse != nullptr) return (int)cudaErrorInvalidValue;
+      return (int)launch(flash_fwd_split<512>, grid(16), split_smem<512>(), p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

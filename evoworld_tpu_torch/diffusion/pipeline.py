@@ -204,7 +204,8 @@ class PanoDiffusionPipeline:
         return torch.clamp(frames.permute(0, 2, 3, 1) / 2.0 + 0.5, 0.0, 1.0)
 
 
-def _random_model(cls, config, generator, device, dtype):
+def random_model(cls, config, generator, device, dtype):
+    """`cls(config)` on `device` in `dtype`, filled by `init_random_` from `generator`."""
     with torch.device("meta"):
         model = cls(config)
     model = model.to_empty(device=device).to(dtype)
@@ -231,7 +232,7 @@ def make_random_pipeline(
     def gen(salt):
         return torch.Generator(device=dev).manual_seed(seed * 3 + salt)
 
-    unet = _random_model(UNetSpatioTemporal, unet_config or UNetConfig(), gen(0), dev, compute_dtype)
-    vae = _random_model(AutoencoderKLTemporal, vae_config or VAEConfig(), gen(1), dev, compute_dtype)
-    clip = _random_model(CLIPVisionTower, clip_config or CLIPVisionConfig(), gen(2), dev, compute_dtype)
+    unet = random_model(UNetSpatioTemporal, unet_config or UNetConfig(), gen(0), dev, compute_dtype)
+    vae = random_model(AutoencoderKLTemporal, vae_config or VAEConfig(), gen(1), dev, compute_dtype)
+    clip = random_model(CLIPVisionTower, clip_config or CLIPVisionConfig(), gen(2), dev, compute_dtype)
     return PanoDiffusionPipeline(unet, vae, clip, config, compute_dtype)

@@ -1,7 +1,7 @@
 """Euler discrete scheduler with Karras sigmas, as pure functions.
 
-Counterpart of `evoworld_tpu/diffusion/scheduler.py` (inference half; the
-training-side EDM helpers are not ported yet). v-prediction with
+Counterpart of `evoworld_tpu/diffusion/scheduler.py`: the Euler sampler and
+the training-side EDM helpers. v-prediction with
     c_in = 1 / sqrt(sigma^2 + 1), c_skip = 1 / (sigma^2 + 1),
     c_out = -sigma / sqrt(sigma^2 + 1), t = 0.25 * log(sigma).
 """
@@ -59,3 +59,27 @@ def euler_step(
     denoised = denoised_from_v(model_output, sample, sigma)
     derivative = (sample - denoised) / sigma
     return sample + derivative * (sigma_next - sigma)
+
+
+def edm_precondition(sigma: torch.Tensor):
+    """(c_in, c_skip, c_out, timestep) of training-side EDM."""
+    c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
+    c_skip = 1.0 / (sigma**2 + 1.0)
+    c_out = -sigma / torch.sqrt(sigma**2 + 1.0)
+    return c_in, c_skip, c_out, sigma_to_timestep(sigma)
+
+
+def edm_loss_weight(sigma: torch.Tensor) -> torch.Tensor:
+    """EDM MSE weighting (1 + sigma^2) / sigma^2."""
+    return (1.0 + sigma**2) / sigma**2
+
+
+def rand_log_normal(
+    shape: tuple[int, ...],
+    loc: float,
+    scale: float,
+    generator: torch.Generator | None = None,
+    device: str | torch.device = "cpu",
+) -> torch.Tensor:
+    """sigma ~ exp(N(loc, scale^2)), fp32, drawn from `generator` on `device`."""
+    return torch.exp(loc + scale * torch.randn(shape, generator=generator, device=device, dtype=torch.float32))

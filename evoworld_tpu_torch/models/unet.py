@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from evoworld_tpu_torch.models.layers import (
     Downsample2D,
@@ -40,6 +41,9 @@ class UNetConfig:
     transformer_layers_per_block: int = 1
     # Down/up block types by level: 0..2 cross-attention, 3 plain.
     cross_attn_blocks: Tuple[bool, ...] = (True, True, True, False)
+    # Recompute every down, mid and up block in the backward pass instead of
+    # keeping its activations (gradient checkpointing) while grad is enabled.
+    remat: bool = False
 
 
 def _st_res(in_ch: int, out_ch: int, temb_ch: int) -> SpatioTemporalResBlock:
@@ -94,8 +98,9 @@ class UpBlock(nn.Module):
         self.upsamplers = nn.ModuleList([Upsample2D(out_ch)]) if add_upsample else None
 
     def forward(self, x, skips, temb, context, num_frames, indicator):
+        """`skips`: this block's skip activations, the last consumed first."""
         for i, resnet in enumerate(self.resnets):
-            x = torch.cat([x, skips.pop()], dim=1)
+            x = torch.cat([x, skips[-1 - i]], dim=1)
             x = resnet(x, temb, num_frames, indicator)
             if self.attentions is not None:
                 x = self.attentions[i](x, context, num_frames, indicator)
@@ -193,14 +198,21 @@ class UNetSpatioTemporal(nn.Module):
         if image_only_indicator is None:
             image_only_indicator = torch.zeros((batch, num_frames), dtype=dtype, device=sample.device)
 
+        def run(block, *args):
+            if cfg.remat and torch.is_grad_enabled():
+                return checkpoint(block, *args, use_reentrant=False)
+            return block(*args)
+
         x = self.conv_in(sample.flatten(0, 1))
         skips = [x]
         for block in self.down_blocks:
-            x, s = block(x, emb, context, num_frames, image_only_indicator)
+            x, s = run(block, x, emb, context, num_frames, image_only_indicator)
             skips.extend(s)
-        x = self.mid_block(x, emb, context, num_frames, image_only_indicator)
+        x = run(self.mid_block, x, emb, context, num_frames, image_only_indicator)
         for block in self.up_blocks:
-            x = block(x, skips, emb, context, num_frames, image_only_indicator)
+            n = len(block.resnets)
+            x = run(block, x, skips[-n:], emb, context, num_frames, image_only_indicator)
+            del skips[-n:]
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.view(batch, num_frames, *x.shape[1:])

@@ -162,6 +162,19 @@ class AutoencoderKLTemporal(nn.Module):
         """Deterministic latent (the distribution's mode): the first 4 channels."""
         return self.encode_moments(images)[:, : self.config.latent_channels]
 
+    def encode_sample(self, images: torch.Tensor, noise: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+        """A sample of the posterior, fp32: mean + exp(0.5 * clip(logvar, -30, 20)) * noise.
+
+        `images` (N, 3, H, W) are encoded `chunk` at a time (0: all at once) in
+        the module's dtype; `noise` is (N, 4, h, w) standard normal.
+        """
+        dtype = next(self.parameters()).dtype
+        moments = torch.cat([
+            self.encode_moments(part.to(dtype)).float() for part in images.split(chunk or images.shape[0])
+        ])
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean + torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0)) * noise
+
     def decode(self, latents: torch.Tensor, num_frames: int) -> torch.Tensor:
         """(B*F, 4, h, w) unscaled latents -> (B*F, 3, H, W) in [-1, 1]."""
         return self.decoder(latents, num_frames)

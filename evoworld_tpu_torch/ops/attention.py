@@ -4,7 +4,9 @@ Routes of `multi_head_attention` on (B, S, H, D) tensors:
   - one key (the SVD cross-attention on one CLIP token): softmax over one key
     is 1, so the output is V broadcast over the queries; exact;
   - CUDA tensors with 4096 tokens or more (UNet level-0 and VAE mid-block
-    attention at 9216 tokens): the hand-written Hopper flash kernel;
+    attention at 9216 tokens): the hand-written Hopper flash kernel, and
+    under grad its backward kernel through `FlashAttentionFunction` (never a
+    fallback to plain attention on CUDA);
   - `impl="flash"`: the flash wrapper on any device (its plain version on
     the CPU);
   - everything else (2304-token level-1 attention, 25-frame temporal

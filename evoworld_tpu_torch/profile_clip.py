@@ -28,6 +28,7 @@ from evoworld_tpu_torch.runtime import build_pipeline
 #: Kernel-name substrings -> category, first match wins.
 CATEGORIES = (
     ("flash_attn_fwd (ours)", ("flash_fwd_",)),
+    ("flash_attn_bwd (ours)", ("flash_bwd_",)),
     ("softmax", ("softmax",)),
     ("norm", ("group_norm", "groupnorm", "layer_norm", "layernorm", "rowwisemoments", "welford",
               "computefusedparams", "compute_stats")),
@@ -74,7 +75,9 @@ def main(argv=None) -> dict:
 
     kernels: dict[str, list] = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # device kernels only: a record_function range (e.g. Optimizer.step) is mirrored
+        # on the device timeline as a user annotation that spans its kernels
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
             k = kernels.setdefault(evt.name, [0.0, 0])
             k[0] += evt.time_range.elapsed_us() / 1e6
             k[1] += 1

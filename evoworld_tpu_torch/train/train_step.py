@@ -1,0 +1,289 @@
+"""EDM fine-tuning step (counterpart of `evoworld_tpu/train/train_step.py`).
+
+One step of the reference training loop body, on one device:
+
+  - latents   = vae.encode(frames).sample() * 0.18215
+  - cond lat  = vae.encode(frames + sigma_aug * eps) (unscaled),
+                sigma_aug ~ LogNormal(-3, 0.5)
+  - sigma     ~ LogNormal(0.7, 1.6); noisy = latents + sigma * eps
+  - unet([c_in * noisy; first-frame lat; memory lat; Pluecker],
+         t = 0.25 log sigma, CLIP ctx, added_time_ids [7, 127, sigma_aug])
+  - denoised  = c_out * pred + c_skip * noisy
+  - loss      = mean((1 + sigma^2) / sigma^2 * (denoised - latents)^2)
+  - conditioning dropout: p zeroes CLIP + first-frame latents, 2p memory latents
+  - only temporal transformer blocks, conv_in/out and every norm train;
+    AdamW with global-norm clipping over the trainable set and a
+    warmup-cosine learning rate.
+
+Mixed precision as in the reference: trainable parameters keep fp32 masters,
+frozen ones are stored in the compute dtype (`freeze_master_cast`), and the
+UNet runs under autocast so every matmul and convolution computes in the
+compute dtype while the norms keep fp32 statistics. The VAE and CLIP are
+frozen and run without grad. Torch and JAX draw different random numbers, so
+`edm_loss` takes each draw as an optional input (`draws`).
+
+The JAX package's mesh options (data and frame sharding, ZeRO stages) are not
+part of this single-card port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Mapping, Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from evoworld_tpu_torch.diffusion.scheduler import edm_loss_weight, edm_precondition, rand_log_normal
+from evoworld_tpu_torch.models.clip import clip_preprocess
+from evoworld_tpu_torch.ops.resize import resize_antialiased
+
+#: A parameter trains when its name contains one of these (lower-cased), the
+#: reference's partial unfreeze.
+TRAINABLE_KEYS = ("temporal_transformer_block", "conv_in", "conv_out", "norm")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-5
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    weight_decay: float = 1e-2
+    max_grad_norm: float = 1.0
+    conditioning_dropout_prob: float = 0.1
+    sigma_loc: float = 0.7
+    sigma_scale: float = 1.6
+    cond_sigma_loc: float = -3.0
+    cond_sigma_scale: float = 0.5
+    vae_scaling: float = 0.18215
+    fps_cond: float = 7.0
+    motion_bucket_id: float = 127.0
+    total_steps: int = 30000
+    warmup_steps: int = 500
+    lr_schedule: str = "cosine"  # "cosine" | "constant"
+    # Frames per VAE-encoder call inside the loss (0 = all at once); chunking
+    # is exact because frames encode independently.
+    vae_encode_chunk: int = 8
+
+
+def trainable_mask(module: nn.Module) -> dict[str, bool]:
+    """{parameter name: trains?} over `module`'s parameters."""
+    return {name: any(key in name.lower() for key in TRAINABLE_KEYS) for name, _ in module.named_parameters()}
+
+
+def freeze_master_cast(module: nn.Module, compute_dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """In place: trainable parameters become fp32 masters with grad, frozen ones
+    `compute_dtype` without grad. Idempotent. Returns `module`."""
+    mask = trainable_mask(module)
+    for name, p in module.named_parameters():
+        p.data = p.data.to(torch.float32 if mask[name] else compute_dtype)
+        p.requires_grad_(mask[name])
+    return module
+
+
+def make_lr_schedule(config: TrainConfig) -> Callable[[int], float]:
+    """Learning rate by update count: optax's warmup_cosine_decay_schedule(0,
+    lr, warmup, total) (linear from 0, then cosine to 0), or a constant."""
+    lr, warmup, total = config.learning_rate, config.warmup_steps, config.total_steps
+    if config.lr_schedule != "cosine":
+        return lambda count: lr
+    if total - warmup <= 0:
+        raise ValueError(f"the cosine schedule needs total_steps > warmup_steps, got {total} and {warmup}")
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return lr * count / warmup
+        t = min(count - warmup, total - warmup)
+        return lr * 0.5 * (1.0 + math.cos(math.pi * t / (total - warmup)))
+
+    return schedule
+
+
+class AdamW(torch.optim.Optimizer):
+    """optax's chain(clip_by_global_norm, adamw) over one parameter list.
+
+    Per step: the gradients' global norm g; if g >= max_grad_norm each
+    gradient becomes grad / g * max_grad_norm; then Adam moments, bias
+    correction, update m_hat / (sqrt(v_hat) + eps) + weight_decay * p, and
+    p -= lr(count) * update with the count before the step (so the warmup's
+    first update has lr 0). A missing gradient counts as zeros. The update
+    count lives in the param group and travels with `state_dict()`.
+    """
+
+    def __init__(self, params, schedule: Callable[[int], float], b1: float, b2: float, eps: float,
+                 weight_decay: float, max_grad_norm: float):
+        super().__init__(list(params), dict(count=0))
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Apply one update; returns the global norm of the gradients before clipping."""
+        group = self.param_groups[0]
+        params = group["params"]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        clip = not bool(norm < self.max_grad_norm)
+        lr = self.schedule(group["count"])
+        group["count"] += 1
+        bc1, bc2 = 1.0 - self.b1 ** group["count"], 1.0 - self.b2 ** group["count"]
+        for p, g in zip(params, grads):
+            if clip:
+                g = g / norm * self.max_grad_norm
+            state = self.state[p]
+            if not state:
+                state["mu"], state["nu"] = torch.zeros_like(p), torch.zeros_like(p)
+            mu, nu = state["mu"], state["nu"]
+            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p
+            p.add_(update, alpha=-lr)
+        return norm
+
+
+def make_optimizer(config: TrainConfig, unet: nn.Module) -> AdamW:
+    """AdamW with clipping over the trainable parameters only; frozen ones get no state."""
+    mask = trainable_mask(unet)
+    return AdamW(
+        [p for name, p in unet.named_parameters() if mask[name]],
+        make_lr_schedule(config), config.adam_b1, config.adam_b2, config.adam_eps,
+        config.weight_decay, config.max_grad_norm,
+    )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The UNet (its parameters are the trained state), its optimizer and the step count."""
+
+    unet: nn.Module
+    optimizer: AdamW
+    step: int = 0
+
+
+def make_train_state(config: TrainConfig, unet: nn.Module, compute_dtype: torch.dtype = torch.bfloat16) -> TrainState:
+    freeze_master_cast(unet, compute_dtype)
+    return TrainState(unet, make_optimizer(config, unet), 0)
+
+
+def edm_loss(
+    unet: nn.Module,
+    vae: nn.Module,
+    clip_tower: nn.Module,
+    batch: Mapping[str, torch.Tensor],
+    config: TrainConfig,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    draws: Optional[Mapping[str, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """EDM denoising loss for one batch, differentiable in the UNet's trainable parameters.
+
+    batch (the JAX package's channels-last layouts):
+      pixel_values: (B, F, H, W, 3) in [-1, 1]
+      memory_values: (B, F, H, W, 3) in [-1, 1]
+      plucker: (B, F, h, w, 6)
+    draws: optional fp32 random inputs; each one missing is drawn from
+      `generator` on the UNet's device. Names and shapes (h, w the latent size):
+      latent_eps (B*F, h, w, 4) and cond_latent_eps (B*(1+F), h, w, 4) normal:
+        the VAE posterior samples of the frames and of the conditioning frames;
+      cond_sigma_eps (B,) normal: sigma_aug = exp(-3 + 0.5 * eps);
+      cond_noise (B, 1+F, H, W, 3) normal: the conditioning frames' noise;
+      drop (B,) uniform: conditioning dropout;
+      sigma_eps (B,) normal: sigma = exp(0.7 + 1.6 * eps);
+      noise (B, F, h, w, 4) normal: the EDM noise.
+    """
+    dev = next(unet.parameters()).device
+    px = batch["pixel_values"].to(dev, torch.float32)
+    mem = batch["memory_values"].to(dev, torch.float32)
+    plucker = batch["plucker"].to(dev, torch.float32).permute(0, 1, 4, 2, 3)   # (B, F, 6, h, w)
+    b, f = px.shape[:2]
+    lh, lw = plucker.shape[-2:]
+    draws = draws or {}
+
+    def draw(name, shape, uniform=False):
+        t = draws.get(name)
+        if t is None:
+            return (torch.rand if uniform else torch.randn)(shape, generator=generator, device=dev)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"draw {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        return t.to(dev, torch.float32)
+
+    def log_normal(name, loc, scale):  # (B,) exp(loc + scale * eps)
+        if draws.get(name) is None:
+            return rand_log_normal((b,), loc, scale, generator, dev)
+        return torch.exp(loc + scale * draw(name, (b,)))
+
+    def sample_latents(images, name):  # (B, N, H, W, 3) -> (B, N, 4, h, w) fp32
+        n = images.shape[0] * images.shape[1]
+        eps = draw(name, (n, lh, lw, 4)).permute(0, 3, 1, 2)
+        z = vae.encode_sample(images.flatten(0, 1).permute(0, 3, 1, 2), eps, config.vae_encode_chunk)
+        return z.view(*images.shape[:2], *z.shape[1:])
+
+    with torch.no_grad():
+        latents = sample_latents(px, "latent_eps") * config.vae_scaling
+        cond_imgs = torch.cat([px[:, :1], mem], dim=1)
+        cond_sigma = log_normal("cond_sigma_eps", config.cond_sigma_loc, config.cond_sigma_scale)
+        cond_imgs = cond_imgs + cond_sigma.view(b, 1, 1, 1, 1) * draw("cond_noise", cond_imgs.shape)
+        cond_lat = sample_latents(cond_imgs, "cond_latent_eps")
+        first_lat = cond_lat[:, :1].expand(-1, f, -1, -1, -1)
+        mem_lat = cond_lat[:, 1:]
+
+        x224 = resize_antialiased(px[:, 0], (224, 224))
+        clip_in = clip_preprocess((x224 + 1.0) / 2.0).permute(0, 3, 1, 2)
+        context = clip_tower(clip_in.to(compute_dtype)).float()[:, None, :]     # (B, 1, D)
+
+        p = config.conditioning_dropout_prob
+        rand = draw("drop", (b,), uniform=True)
+        img_keep, mem_keep = (rand >= p).float(), (rand >= 2.0 * p).float()
+        context = context * img_keep.view(b, 1, 1)
+        first_lat = first_lat * img_keep.view(b, 1, 1, 1, 1)
+        mem_lat = mem_lat * mem_keep.view(b, 1, 1, 1, 1)
+
+    sigma = log_normal("sigma_eps", config.sigma_loc, config.sigma_scale)
+    c_in, c_skip, c_out, timesteps = edm_precondition(sigma)
+    c_in, c_skip, c_out, sig = (t.view(b, 1, 1, 1, 1) for t in (c_in, c_skip, c_out, sigma))
+    noisy = latents + draw("noise", (b, f, lh, lw, 4)).permute(0, 1, 4, 2, 3) * sig
+    unet_in = torch.cat([noisy * c_in, first_lat, mem_lat, plucker], dim=2)        # (B, F, 18, h, w)
+    time_ids = torch.stack([torch.full((b,), config.fps_cond, device=dev),
+                            torch.full((b,), config.motion_bucket_id, device=dev), cond_sigma], dim=-1)
+    with torch.autocast(dev.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32):
+        pred = unet(unet_in.to(compute_dtype), timesteps, context.to(compute_dtype), time_ids).float()
+    denoised = pred * c_out + c_skip * noisy
+    return torch.mean(edm_loss_weight(sig) * (denoised - latents) ** 2)
+
+
+def train_step(
+    state: TrainState,
+    vae: nn.Module,
+    clip_tower: nn.Module,
+    micro_batches: Sequence[Mapping[str, torch.Tensor]],
+    config: TrainConfig,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    draws: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> dict[str, float]:
+    """One optimizer update over `micro_batches` (gradient accumulation).
+
+    Each micro-batch's gradients accumulate; their sum is divided by the count
+    (the mean over micro-batches), then the optimizer runs once and
+    `state.step` advances. `draws[i]` are micro-batch i's random inputs (see
+    `edm_loss`). Returns the mean loss and the gradients' global norm before
+    clipping.
+    """
+    state.optimizer.zero_grad(set_to_none=True)
+    loss_sum = 0.0
+    for i, batch in enumerate(micro_batches):
+        loss = edm_loss(state.unet, vae, clip_tower, batch, config, compute_dtype,
+                        draws[i] if draws is not None else None, generator)
+        loss.backward()
+        loss_sum += loss.detach()
+    n = len(micro_batches)
+    if n > 1:
+        for p in state.optimizer.param_groups[0]["params"]:
+            if p.grad is not None:
+                p.grad.div_(n)
+    grad_norm = state.optimizer.step()
+    state.step += 1
+    return {"loss": float(loss_sum / n), "grad_norm": float(grad_norm)}

@@ -1,7 +1,7 @@
-"""The port's Hopper flash-attention kernel on the card.
+"""The port's Hopper flash-attention kernels (forward and backward) on the card.
 
-Held against `flash_attention_plain` (fp32 on the same bf16 inputs) with the
-limits `chip_smoke.py` uses: the error over the RMS of the plain output at
+Held against `flash_attention_plain` and `flash_attention_backward_plain`
+(fp32 on the same bf16 inputs) with the limits `chip_smoke.py` uses: the error over the RMS of the plain output at
 most 0.1 (max) and 0.01 (mean). Keys and values past `kv_len` are set so
 large (K = 10, V = 100) that a missed mask would swamp the output. Every test
 carries the `cuda` marker and skips without a card. The file imports no JAX,
@@ -13,7 +13,13 @@ so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from evoworld_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_forward,
+    flash_attention_plain,
+)
 
 MAX_REL_ERR, MEAN_REL_ERR = 0.1, 0.01
 
@@ -61,3 +67,54 @@ def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda):
         flash_attention(q.float(), k.float(), v.float())  # fp32: the kernel takes bf16 only
     with pytest.raises(ValueError):
         flash_attention(q[..., :48], k[..., :48], v[..., :48])  # head dim 48
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,skv,kv_len,h,d",
+    [(2, 300, 333, 333, 2, 64), (1, 1041, 1041, 1041, 4, 64), (2, 300, 500, 200, 2, 64),
+     (2, 130, 300, 77, 2, 128), (1, 257, 257, 257, 3, 128)],
+)
+def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
+    """dQ, dK, dV on strided views (q a head-major transpose, k and v halves of
+    one packed tensor), with keys past `kv_len` that must get zero rows."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((b, h, sq, d), generator=g, device=cuda).bfloat16().transpose(1, 2)
+    k, v = torch.randn((b, skv, 2, h, d), generator=g, device=cuda).bfloat16().unbind(2)
+    k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
+    out, lse = flash_attention_forward(q, k, v, d ** -0.5, kv_len, with_lse=True)
+    do = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, do, lse, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    ref = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), do.float(), lse,
+                                         kv_len=kv_len)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        max_rel, mean_rel = _rel_errors(a, r)
+        assert max_rel <= MAX_REL_ERR and mean_rel <= MEAN_REL_ERR, (name, max_rel, mean_rel)
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_exp2", [False, True])
+def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, s, 2, 64), generator=g, device=cuda).bfloat16() for s in (200, 300, 300))
+    _, lse = flash_attention_forward(q, k, v, 0.125, 250, use_exp2, with_lse=True)
+    want = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, :250].float()) * 0.125, dim=-1)
+    assert lse.shape == (2, 2, 200) and (lse - want).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_autograd_function_uses_the_backward_kernel_and_d512_raises(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((1, 300, 2, 64), generator=g, device=cuda).bfloat16().requires_grad_() for _ in range(3))
+    before = flash_attention_backward.launches
+    out = flash_attention(q, k, v)
+    out.float().pow(2).sum().backward()
+    assert flash_attention_backward.launches == before + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+    big = torch.randn((1, 64, 1, 512), device=cuda).bfloat16().requires_grad_()
+    with pytest.raises(RuntimeError, match="backward"):
+        flash_attention(big, big, big)
