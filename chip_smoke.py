@@ -5,12 +5,14 @@
 
 Phases, each fatal on failure:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build the port's CUDA source with nvcc for sm_90a;
+  2. build the port's CUDA sources with nvcc for sm_90a and print ptxas's
+     registers and spills for each kernel entry (a spill fails the run);
   3. hold each kernel against its plain PyTorch version at the shapes the
-     main path gives it (plus a ragged length with padded, masked keys),
-     within limits relative to the plain output's RMS that a deliberately
-     wrong result must fail, and time the kernel, the plain version and, as
-     a yardstick only, one PyTorch library call;
+     main path gives it (plus a ragged length with padded, masked keys, and
+     the training shape with its log-sum-exp), within limits relative to the
+     plain output's RMS that a deliberately wrong result must fail, and time
+     the kernel, the plain version and, as a yardstick only, one PyTorch
+     library call; each row prints its TFLOP/s and its share of the bound;
   4. a small clip on the card against the same clip on the CPU (tiny widths,
      fp32), the port's own reference check;
   5. two full-width clips (1024x576, 25 frames, bf16, random weights from
@@ -115,60 +117,93 @@ def check_flash_kernel(dev) -> dict:
     The padded case gives the kernel keys and values past `kv_len` that would
     swamp the output if the mask missed them (K = 10, V = 100). Each case also
     checks that the limits catch a wrong result: the plain version without
-    the last DROPPED_KEYS keys must fail them.
+    the last DROPPED_KEYS keys must fail them. The training row also writes
+    the log-sum-exp, held against the plain one within LSE_ATOL.
     """
     import torch
     import torch.nn.functional as F
 
-    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from evoworld_tpu_torch.ops.flash_attention import _plain_forward, flash_attention_forward
 
-    cases = [  # (label, B, Sq, Skv, H, D, kv_len, use_exp2)
-        ("unet_l0_spatial", 50, 9216, 9216, 5, 64, 9216, False),
-        ("vae_encoder_mid", 2, 9216, 9216, 1, 512, 9216, False),
-        ("vae_encoder_mid_train", 8, 9216, 9216, 1, 512, 9216, False),  # training encodes in chunks of 8
-        ("vae_decoder_mid", 5, 9216, 9216, 1, 512, 9216, False),
+    cases = [  # (label, B, Sq, Skv, H, D, kv_len, use_exp2, with_lse)
+        ("unet_l0_spatial", 50, 9216, 9216, 5, 64, 9216, False, False),
+        # the training step's level-0 attention (batch 1 x 25 frames), with the LSE the backward reads
+        ("unet_l0_train_lse", 25, 9216, 9216, 5, 64, 9216, False, True),
+        ("vae_encoder_mid", 2, 9216, 9216, 1, 512, 9216, False, False),
+        ("vae_encoder_mid_train", 8, 9216, 9216, 1, 512, 9216, False, False),  # training encodes in chunks of 8
+        ("vae_decoder_mid", 5, 9216, 9216, 1, 512, 9216, False, False),
         # VGGT's global attention over 5 frames x 1041 tokens, keys padded to
         # K1's 512-key block multiple and masked past the real length
-        ("ragged_padded_kv", 1, 5205, 5632, 16, 64, 5205, False),
-        ("ragged_padded_kv_exp2", 1, 5205, 5632, 16, 64, 5205, True),
+        ("ragged_padded_kv", 1, 5205, 5632, 16, 64, 5205, False, False),
+        ("ragged_padded_kv_exp2", 1, 5205, 5632, 16, 64, 5205, True, False),
         # UNet level-1 attention (plain torch on the main path), the shape of
         # scripts/exp_l1_attn.py's shipped-flash experiment
-        ("unet_l1_spatial", 50, 2304, 2304, 10, 64, 2304, False),
+        ("unet_l1_spatial", 50, 2304, 2304, 10, 64, 2304, False, False),
     ]
     g = torch.Generator(device=dev).manual_seed(1234)
     shapes = []
-    for label, b, sq, skv, h, d, kv_len, use_exp2 in cases:
+    for label, b, sq, skv, h, d, kv_len, use_exp2, with_lse in cases:
+        scale = d ** -0.5
         q = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
         k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16() for _ in range(2))
         k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
-        out = flash_attention(q, k, v, kv_len=kv_len, use_exp2=use_exp2)
+
+        def run():
+            return flash_attention_forward(q, k, v, scale, kv_len, use_exp2, with_lse=with_lse)
+
+        out, lse = run()
         torch.cuda.synchronize()
         qf, kf, vf = q.float(), k.float(), v.float()
-        ref = flash_attention_plain(qf, kf, vf, kv_len=kv_len, use_exp2=use_exp2)
+        ref, ref_lse = _plain_forward(qf, kf, vf, scale, kv_len, use_exp2)
         err = errors(out, ref)
-        cut = errors(flash_attention_plain(qf, kf, vf, kv_len=kv_len - DROPPED_KEYS, use_exp2=use_exp2), ref)
-        del ref
+        cut = errors(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[0], ref)
+        lse_err = (lse - ref_lse).abs().max().item() if with_lse else None
+        del ref, ref_lse
         flops = 4 * b * h * sq * kv_len * d
-        nbytes = (2 * sq + 2 * kv_len) * b * h * d * 2
+        nbytes = (2 * sq + 2 * kv_len) * b * h * d * 2 + (b * h * sq * 4 if with_lse else 0)
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        ms = cuda_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, use_exp2=use_exp2), reps=5)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(qf, kf, vf, kv_len=kv_len, use_exp2=use_exp2), reps=1)
+        ms = cuda_ms(run, reps=5)
+        plain_ms = cuda_ms(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2), reps=1)
         qt, kt, vt = q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=5)
-        row = dict(label=label, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2, **err,
+        bound_ms = max(ops_ms, bytes_ms)
+        row = dict(label=label, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2,
+                   with_lse=with_lse, **err, lse_max_abs_err=lse_err,
                    dropped_keys_rel_err=[cut["max_rel_err"], cut["mean_rel_err"]],
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   tflops=flops / ms / 1e9)
+                   bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
         log("kernel flash_attn_fwd " + json.dumps(row))
         if not within_limits(err):
             raise AssertionError(f"flash kernel disagrees with its plain version at {label}: {err}")
         if within_limits(cut):
             raise AssertionError(f"the limits do not catch {DROPPED_KEYS} dropped keys at {label}: {cut}")
+        if with_lse and not lse_err <= LSE_ATOL:
+            raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {LSE_ATOL})")
         shapes.append(row)
-        del q, k, v, qf, kf, vf, out
+        del q, k, v, qf, kf, vf, out, lse
         torch.cuda.empty_cache()
     return {"shapes": shapes}
+
+
+def ptxas_report(log_text: str) -> list[dict]:
+    """Registers and spill bytes of each kernel entry in an nvcc -Xptxas -v log."""
+    import re
+
+    rows = []
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            rows.append(dict(entry=entry.group(1)))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and rows:
+            rows[-1].update(spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and rows:
+            rows[-1]["registers"] = int(regs.group(1))
+        if "wgmma" in line and "serialized" in line and rows:
+            rows[-1]["wgmma_serialized"] = line.strip()
+    return rows
 
 
 def check_flash_backward(dev) -> dict:
@@ -681,9 +716,10 @@ def main() -> int:
         list(pool.map(_build.load, (SOURCE, BWD_SOURCE)))
     log(f"nvcc build of {SOURCE} and {BWD_SOURCE}: {time.perf_counter() - t0:.3f} s")
     for source in (SOURCE, BWD_SOURCE):
-        for line in _build.build_log(source).splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
-                log(f"  {source}: " + line.strip())
+        for row in ptxas_report(_build.build_log(source)):
+            log(f"ptxas {source} " + json.dumps(row))
+            if row.get("spill_stores") or row.get("spill_loads") or "wgmma_serialized" in row:
+                raise AssertionError(f"{source}: a kernel entry spills or serializes its wgmma: {row}")
 
     flash = check_flash_kernel(dev)
     flash_bwd = check_flash_backward(dev)

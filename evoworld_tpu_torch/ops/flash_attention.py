@@ -35,6 +35,7 @@ HEAD_DIMS = (64, 128, 512)
 BWD_HEAD_DIMS = (64, 128)
 _LOG2_E = 1.4426950408889634  # log2(e)
 _GRID_LIMIT = 65535  # heads on grid.y, batch on grid.z
+_ENCODE_ERROR = 10000  # flash_attn_fwd returns this + the CUresult when a TMA tensor map fails
 _PLAIN_BLOCK_K = 512  # keys per step of the plain versions
 
 
@@ -218,6 +219,8 @@ def flash_attention_forward(q, k, v, scale, kv_len, use_exp2=False, with_lse=Fal
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"flash_attn_fwd could not encode a TMA tensor map: CUresult {err - _ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with cudaError {err}")
     flash_attention.launches += 1

@@ -42,7 +42,14 @@ def _rel_errors(out, ref):
     "b,sq,skv,kv_len,h,d,use_exp2",
     [(2, 300, 333, 333, 2, 64, False), (1, 1041, 1041, 1041, 16, 64, True), (1, 200, 177, 177, 1, 512, False),
      (2, 130, 130, 130, 2, 128, True), (2, 300, 500, 200, 2, 64, False), (1, 200, 400, 150, 1, 512, True),
-     (2, 130, 300, 77, 2, 128, False)],
+     (2, 130, 300, 77, 2, 128, False),
+     # key-tile edges of the wgmma kernel (128 keys a tile): kv_len a whole
+     # tile, one key past it, under half a tile
+     (2, 300, 400, 128, 2, 64, False), (2, 200, 400, 129, 2, 128, True), (1, 130, 300, 50, 3, 64, False),
+     # VGGT's ragged length, keys padded to 5632
+     (1, 5205, 5632, 5205, 16, 64, False),
+     # 4 x 4 x 16 blocks of 128 queries: more than one wave of 132 SMs
+     (4, 2048, 2048, 2048, 4, 64, False)],
 )
 def test_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d, use_exp2):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -56,9 +63,10 @@ def test_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d, use_exp2):
 
 
 @pytest.mark.cuda
-def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda):
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda, d):
     g = torch.Generator(device=cuda).manual_seed(1)
-    qkv = torch.randn((1, 500, 3, 4, 64), generator=g, device=cuda).bfloat16()
+    qkv = torch.randn((1, 500, 3, 4, d), generator=g, device=cuda).bfloat16()
     q, k, v = qkv.unbind(2)  # strided views of one packed tensor
     ref = flash_attention_plain(q.float(), k.float(), v.float())
     max_rel, mean_rel = _rel_errors(flash_attention(q, k, v), ref)
@@ -97,10 +105,10 @@ def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use_exp2", [False, True])
-def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2):
+@pytest.mark.parametrize("use_exp2,d", [(False, 64), (True, 64), (False, 128)])
+def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2, d):
     g = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v = (torch.randn((2, s, 2, 64), generator=g, device=cuda).bfloat16() for s in (200, 300, 300))
+    q, k, v = (torch.randn((2, s, 2, d), generator=g, device=cuda).bfloat16() for s in (200, 300, 300))
     _, lse = flash_attention_forward(q, k, v, 0.125, 250, use_exp2, with_lse=True)
     want = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, :250].float()) * 0.125, dim=-1)
     assert lse.shape == (2, 2, 200) and (lse - want).abs().max().item() < 1e-3
