@@ -24,8 +24,11 @@ The training slice (EDM fine-tuning) adds:
      (flash_attn_bwd.cu) against the plain forward and backward: the LSE,
      dQ, dK, dV at the training shape, at D = 128 and at the ragged row,
      within the same RMS-relative limits, which the plain backward without
-     its last DROPPED_KEYS keys must fail; timed beside its bound, its plain
-     version and scaled_dot_product_attention's backward;
+     its last DROPPED_KEYS keys must fail; a second call on the same inputs
+     must give the same dK and dV bit for bit and dQ within one bf16 step
+     (the fused D = 64 pass sums dQ with global reductions in no fixed
+     order); timed beside its bound, its plain version and
+     scaled_dot_product_attention's backward, each kernel of the call apart;
   6. one full-width level-0 TransformerSpatioTemporalModel (320 channels,
      5 heads, 9216 tokens, 5 frames, bf16 under autocast), forward and
      backward through the kernels against the dispatch's plain route;
@@ -77,6 +80,20 @@ TRAIN_STEPS = 3  # full-width training steps, the first cold
 # attention output at different places (about 1% of a gradient's RMS); a
 # gradient that missed the attention would be off by 100%.
 BLOCK_REL_RMS = 0.05
+# The backward's kernels by head dim, as named in a profiler trace: the fused
+# wgmma pass between its two small passes, or the mma.sync pair.
+BWD_DESIGNS = {
+    64: ("fused wgmma pass", ("flash_bwd_fused", "flash_bwd_store_dq", "flash_bwd_delta")),
+    128: ("mma.sync dK/dV and dQ kernels", ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")),
+}
+# Two calls of the fused backward add the same fp32 terms into dQ in another
+# order, which can move a sum across a bf16 rounding boundary: one bf16 step
+# (2^-7 of the value), beside 1e-4 of dQ's RMS for sums that nearly cancel.
+DQ_REPEAT_RTOL, DQ_REPEAT_RMS_ATOL = 2.0 ** -7, 1e-4
+# The lines the D = 64 backward is held to in PERF.md, in ms on an H100 at its
+# full power limit: printed beside the times, not asserted (a card set below
+# its limit runs slower).
+BWD_MS_LINES = {"unet_l0_train": 19.5, "ragged_padded_kv": 0.95}
 STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5  # a tenth of one update at lr 1e-4
 
 
@@ -216,10 +233,12 @@ def check_flash_backward(dev) -> dict:
     at the training shape, a D = 128 shape and the ragged row (keys past
     `kv_len` set to K = 10, V = 100, whose dK and dV rows must be exactly
     zero); the plain backward
-    without the last DROPPED_KEYS keys must fail them. Times: the kernels'
-    sum with CUDA events, dK/dV and dQ apart from a profiler trace, the plain
-    version, and as a yardstick only `scaled_dot_product_attention`
-    forward + backward less its forward.
+    without the last DROPPED_KEYS keys must fail them. A second call must
+    repeat dK and dV exactly and dQ within DQ_REPEAT_RTOL. Times: the whole
+    call with CUDA events (the zeroing of the dQ buffer included), each of
+    its kernels apart from a profiler trace, the plain version, and as a
+    yardstick only `scaled_dot_product_attention` forward + backward less
+    its forward.
     """
     import torch
     import torch.nn.functional as F
@@ -246,7 +265,14 @@ def check_flash_backward(dev) -> dict:
         out, lse = flash_attention_forward(q, k, v, scale, kv_len, with_lse=True)
         do = torch.randn(out.shape, generator=g, device=dev).bfloat16()
         grads = flash_attention_backward(q, k, v, out, do, lse, scale, kv_len)
+        again = flash_attention_backward(q, k, v, out, do, lse, scale, kv_len)
         torch.cuda.synchronize()
+        dq_gap = (again[0].float() - grads[0].float()).abs()
+        dq_rms = grads[0].float().pow(2).mean().sqrt()
+        repeat = dict(dkdv_equal=torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2]),
+                      dq_max_abs_gap=dq_gap.max().item(),
+                      dq_ok=bool((dq_gap <= DQ_REPEAT_RTOL * grads[0].float().abs() + DQ_REPEAT_RMS_ATOL * dq_rms).all()))
+        del again, dq_gap
         # The reference chain is plain end to end: the plain forward's own
         # output and log-sum-exp on the same bf16 inputs feed the plain backward.
         ref_out, ref_lse = _plain_forward(q, k, v, scale, kv_len, False)
@@ -265,7 +291,8 @@ def check_flash_backward(dev) -> dict:
             flash_attention_backward(q, k, v, out, do, lse, scale, kv_len)
 
         ms = cuda_ms(bwd, reps=3)
-        split = kernel_ms_from_trace(bwd, ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta"))
+        design, names = BWD_DESIGNS[d]
+        split = kernel_ms_from_trace(bwd, names)
         plain_ms = cuda_ms(lambda: flash_attention_backward_plain(*f32, ref_lse, scale, kv_len), reps=1)
         del f32, ref_lse
         torch.cuda.empty_cache()
@@ -286,11 +313,13 @@ def check_flash_backward(dev) -> dict:
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()),
                    lse_max_abs_err=lse_err, dropped_keys_lse_err=cut_lse_err,
                    dropped_keys_rel_err={n: [e["max_rel_err"], e["mean_rel_err"]] for n, e in cut_errs.items()},
-                   masked_rows_zero=masked_zero, ms=ms, dkdv_ms=split["flash_bwd_dkdv"],
-                   dq_ms=split["flash_bwd_dq"], delta_ms=split["flash_bwd_delta"], plain_ms=plain_ms,
+                   masked_rows_zero=masked_zero, repeat=repeat, design=design, ms=ms,
+                   kernel_ms={n.removeprefix("flash_bwd_"): t for n, t in split.items()}, plain_ms=plain_ms,
                    library_ms=library_ms, library_fwd_ms=sdpa_fwd_ms,
                    bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   tflops=flops / ms / 1e9)
+                   tflops=flops / ms / 1e9, bound_share=max(ops_ms, bytes_ms) / ms,
+                   ms_line=BWD_MS_LINES.get(label), within_ms_line=ms <= BWD_MS_LINES.get(label, math.inf),
+                   at_most_library=ms <= library_ms)
         log("kernel flash_attn_bwd " + json.dumps(row))
         if not all(within_limits(e) for e in errs.values()):
             raise AssertionError(f"backward kernel disagrees with its plain version at {label}: {errs}")
@@ -301,6 +330,8 @@ def check_flash_backward(dev) -> dict:
                                  f"{DROPPED_KEYS} dropped keys give {cut_lse_err})")
         if not masked_zero:
             raise AssertionError(f"dK/dV rows past kv_len are not zero at {label}")
+        if not (repeat["dkdv_equal"] and repeat["dq_ok"]):
+            raise AssertionError(f"a second backward call differs from the first at {label}: {repeat}")
         shapes.append(row)
         del q, k, v, out, lse, do, grads, qt, kt, vt, dot
         torch.cuda.empty_cache()
@@ -761,8 +792,8 @@ def main() -> int:
         "launches_by_path": {"train_steps": bwd_total, "clip": 0},
         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"]),
         "ms": bwd_row["ms"],
-        "dkdv_ms": bwd_row["dkdv_ms"],
-        "dq_ms": bwd_row["dq_ms"],
+        "design": bwd_row["design"],
+        "kernel_ms": bwd_row["kernel_ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],
         "bound_by": bwd_row["bound_by"],

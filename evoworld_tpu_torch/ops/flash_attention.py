@@ -15,9 +15,27 @@ output and its per-row log-sum-exp; its backward is `flash_attention_backward`.
 For CUDA tensors the forward launches `csrc/flash_attn_fwd.cu` and the
 backward `csrc/flash_attn_bwd.cu`; tensors on the CPU take
 `flash_attention_plain` and `flash_attention_backward_plain`. On a CUDA tensor
-each wrapper launches its kernel or raises; it never falls back. The backward
-kernel takes head dims 64 and 128: a CUDA call at D = 512 that needs a
-gradient raises.
+each wrapper launches its kernel or raises; it never falls back.
+
+Both directions are bound by bf16 tensor-core operations at the paths' 9216
+tokens, with one exp2 per score beside them. Which head dim takes which kernel:
+  - forward, D = 64 and 128: `flash_fwd_wgmma` (wgmma, a TMA ring of K and V
+    tiles, a producer warpgroup and two consumers); D = 512: `flash_fwd_split`
+    (mma.sync, the warps split D);
+  - backward, D = 64 (every attention with a gradient on the port's paths):
+    `flash_bwd_fused`, one pass per 128-key tile whose two consumer
+    warpgroups keep their K and V fragments and their dK and dV sums in
+    registers, stream query tiles through a TMA ring, do the five products
+    with wgmma and exp2 once, and add the tile's part of dQ into a zeroed
+    fp32 buffer with asynchronous bulk reductions, between `flash_bwd_delta`
+    (rowsum(dO * O) and the log-sum-exp in the exp2 domain) and
+    `flash_bwd_store_dq` (scale, to bf16). The order of those fp32 sums is
+    not fixed, so dQ may differ in its last bf16 bit between two calls; dK
+    and dV are repeatable;
+  - backward, D = 128 (no path runs it): the mma.sync kernels `flash_bwd_dkdv`
+    and `flash_bwd_dq`, which recompute the scores in each and need no
+    reduction across blocks;
+  - backward, D = 512: no kernel; a CUDA call that needs a gradient raises.
 """
 
 from __future__ import annotations
@@ -35,7 +53,8 @@ HEAD_DIMS = (64, 128, 512)
 BWD_HEAD_DIMS = (64, 128)
 _LOG2_E = 1.4426950408889634  # log2(e)
 _GRID_LIMIT = 65535  # heads on grid.y, batch on grid.z
-_ENCODE_ERROR = 10000  # flash_attn_fwd returns this + the CUresult when a TMA tensor map fails
+_ENCODE_ERROR = 10000  # the C entry points return this + the CUresult when a TMA tensor map fails
+_BWD_QUERY_TILE = 64  # the fused backward's fp32 scratch is padded to whole query tiles
 _PLAIN_BLOCK_K = 512  # keys per step of the plain versions
 
 
@@ -187,8 +206,8 @@ def _bwd_fn():
     fn = _build.load(BWD_SOURCE).flash_attn_bwd
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 12
+            + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -239,10 +258,13 @@ def flash_attention_backward(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dQ, dK, dV from the forward's inputs, output `o`, row log-sum-exp `lse` and `do`.
 
-    CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16,
-    D in 64/128; one launch counts the delta, dK/dV and dQ kernels);
-    CPU tensors to `flash_attention_backward_plain`. Returns contiguous
-    tensors shaped like q, k and v.
+    CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16;
+    the fused wgmma pass at D = 64, the mma.sync pair at D = 128); one launch
+    counts every kernel of a call. At D = 64 the call allocates a zeroed fp32
+    buffer shaped like q (padded to whole 64-query tiles) that the fused pass
+    sums dQ into; dQ may differ in its last bf16 bit between two calls. CPU
+    tensors go to `flash_attention_backward_plain`. Returns contiguous tensors
+    shaped like q, k and v.
     """
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -257,16 +279,25 @@ def flash_attention_backward(
     _check(q, k, v, kv_len, grads={"o": o, "do": do, "lse": lse})
     b, sq, h, _ = q.shape
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if d == 64:
+        sq_pad = -(-sq // _BWD_QUERY_TILE) * _BWD_QUERY_TILE
+        delta, lse2 = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
+        dq_acc = torch.zeros((b, h, sq_pad, d), dtype=torch.float32, device=q.device)
+    else:
+        sq_pad, lse2, dq_acc = sq, None, None
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     fn = _bwd_fn()
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, k.shape[1], h, d, kv_len, scale, strides,
+            delta.data_ptr(), None if lse2 is None else lse2.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, sq_pad, k.shape[1], h, d, kv_len, scale, strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"flash_attn_bwd could not encode a TMA tensor map: CUresult {err - _ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed with cudaError {err}")
     flash_attention_backward.launches += 1

@@ -35,7 +35,7 @@ def _arrays(seed, *shapes):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("kv_len", [None, 157])
+@pytest.mark.parametrize("kv_len", [None, 157, 129])  # 129: one key past the kernel's 128-key tile
 def test_plain_backward_matches_jax_vjp(d, kv_len):
     b, sq, skv, h = 2, 130, 300, 2
     q, k, v, do = _arrays(d + (kv_len or 0), (b, sq, h, d), (b, skv, h, d), (b, skv, h, d), (b, sq, h, d))

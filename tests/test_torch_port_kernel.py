@@ -104,6 +104,64 @@ def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
 
 
+def _backward_inputs(cuda, seed, b, sq, skv, kv_len, h, d=64):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).bfloat16() for _ in range(2))
+    k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
+    out, lse = flash_attention_forward(q, k, v, d ** -0.5, kv_len, with_lse=True)
+    do = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    return q, k, v, out, do, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,skv,kv_len,h",
+    [(1, 200, 128, 128, 2),     # kv_len a whole 128-key tile
+     (1, 200, 300, 129, 2),     # one key past a tile; the third key tile is all padding
+     (2, 64, 130, 50, 3),       # under half a key tile; Sq a whole 64-query tile
+     (1, 65, 256, 256, 2),      # one query past a tile
+     (1, 1, 130, 130, 2),       # a single query
+     (2, 200, 400, 250, 2),     # kv_len < Skv inside the second key tile, Skv inside the fourth
+     (4, 1024, 2048, 2048, 4)],  # 16 x 4 x 4 blocks: more than one wave of 132 SMs
+)
+def test_fused_backward_tile_edges_on_card(cuda, b, sq, skv, kv_len, h):
+    """The D = 64 fused pass at its tile edges (128 keys a block, 64 queries a tile).
+
+    With a single query dK and dV are one row of P times dO: their largest
+    entries are many times their RMS, so beside the RMS-relative limits each
+    entry is allowed two bf16 steps of its own size (P and the output are each
+    rounded to bf16, 2^-8 of the value at most, on both sides).
+    """
+    q, k, v, out, do, lse = _backward_inputs(cuda, 5, b, sq, skv, kv_len, h)
+    got = flash_attention_backward(q, k, v, out, do, lse, kv_len=kv_len)
+    torch.cuda.synchronize()
+    ref = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), do.float(), lse,
+                                         kv_len=kv_len)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err, rms = (a.float() - r).abs(), r.pow(2).mean().sqrt()
+        assert bool((err <= MAX_REL_ERR * rms + (2.0 ** -6 * r.abs() if sq == 1 else 0.0)).all()), name
+        assert (err.mean() / rms).item() <= MEAN_REL_ERR, name
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.cuda
+def test_fused_backward_twice_repeats_on_card(cuda):
+    """Two calls on the same inputs: dK and dV are equal bit for bit. dQ is
+    summed across key tiles with global fp32 reductions in no fixed order,
+    which can move a sum across a bf16 rounding boundary: one bf16 step (2^-7
+    of the value), beside 1e-4 of dQ's RMS for sums that nearly cancel. A dQ
+    buffer that was not zeroed would double dQ in the second call."""
+    q, k, v, out, do, lse = _backward_inputs(cuda, 6, 2, 1000, 1100, 1041, 4)
+    first = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
+    second = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    dq = first[0].float()
+    gap = (second[0].float() - dq).abs()
+    assert bool((gap <= 2.0 ** -7 * dq.abs() + 1e-4 * dq.pow(2).mean().sqrt()).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_exp2,d", [(False, 64), (True, 64), (False, 128)])
 def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2, d):
