@@ -144,26 +144,12 @@ __global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_ro
 // ---------------------------------------------------------------------------
 // D = 64: the fused pass.
 // ---------------------------------------------------------------------------
-// Tuning knobs, set with -D by `python -m evoworld_tpu_torch.bench_flash_bwd`.
-#ifndef FLASH_BWD_STAGES
-#define FLASH_BWD_STAGES 4  // buffers of the query ring
-#endif
-#ifndef FLASH_BWD_ROTATE
-#define FLASH_BWD_ROTATE 1  // each key tile starts its sweep at another query tile
-#endif
-// Timing only, the results are wrong: a bit mask of work to leave out. 1: the
-// dV and dK products; 2: the dQ product and its reduction; 4: the S^T and dP^T
-// products; 8: exp2 and the dS arithmetic.
-#ifndef FLASH_BWD_ABLATE
-#define FLASH_BWD_ABLATE 0
-#endif
-
 constexpr int kKeys = 128;          // keys per block, 64 per consumer warpgroup
 constexpr int kQ = 64;              // queries per tile
 constexpr int kFusedThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;   // arrivals that free a ring buffer or fill a dS^T buffer
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kStages = FLASH_BWD_STAGES;
+constexpr int kStages = 4;                  // buffers of the query ring
 constexpr int kDsBufs = 2;                  // dS^T buffers
 constexpr uint32_t kKVBytes = kKeys * 128;  // one 128-key x 64-column bf16 tile (K, V, dS^T)
 constexpr uint32_t kTileBytes = kQ * 128;   // one 64-row x 64-column bf16 tile (Q, dO)
@@ -265,7 +251,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
   const int n_tiles = a.sq_pad / kQ;
   // Each key tile of a head starts its sweep at another query tile, so the
   // blocks in flight add into different rows of dQ.
-  const int t0 = FLASH_BWD_ROTATE ? (int)((int64_t)blockIdx.x * n_tiles / gridDim.x) : 0;
+  const int t0 = (int)((int64_t)blockIdx.x * n_tiles / gridDim.x);
   const int64_t row_base = ((int64_t)b * a.heads + h) * a.sq_pad;
   const int wg = threadIdx.x / 128;
 
@@ -377,7 +363,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       // keys and one reduction into global memory, not two. It is started one
       // tile late, behind the next tile's dV and dK, when the other consumer's
       // half of dS^T has long arrived.
-      const bool has_dq = t > 0 && ((t - 1) & 1) == cw && !(FLASH_BWD_ABLATE & 2);
+      const bool has_dq = t > 0 && ((t - 1) & 1) == cw;
       const int qt = t + t0 < n_tiles ? t + t0 : t + t0 - n_tiles;
       const float* lt = lse_s + st * kQ + 2 * t4;
       const float* dt = dlt_s + st * kQ + 2 * t4;
@@ -389,12 +375,12 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < ((FLASH_BWD_ABLATE & 4) ? 0 : 4); ++kk) {
+      for (int kk = 0; kk < 4; ++kk) {
         wgmma_rs_n64_acc<0>(s, kf[kk], q_tile + kk * 2, kk > 0);
       }
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < ((FLASH_BWD_ABLATE & 4) ? 0 : 4); ++kk) {
+      for (int kk = 0; kk < 4; ++kk) {
         wgmma_rs_n64_acc<0>(dp, vf[kk], do_tile + kk * 2, kk > 0);
       }
       wgmma_commit();
@@ -402,7 +388,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       wgmma_wait<1>();  // S^T done; dP^T may still run
       fence_regs(s);
 #pragma unroll
-      for (int j = 0; j < ((FLASH_BWD_ABLATE & 8) ? 0 : 8); ++j) {
+      for (int j = 0; j < 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j);
         s[4 * j + 0] = fast_exp2(fmaf(s[4 * j + 0], a.scale_log2, -l2.x));
         s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], a.scale_log2, -l2.y));
@@ -421,7 +407,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       wgmma_wait<0>();  // dP^T done
       fence_regs(dp);
 #pragma unroll
-      for (int j = 0; j < ((FLASH_BWD_ABLATE & 8) ? 0 : 8); ++j) {
+      for (int j = 0; j < 8; ++j) {
         const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * j);
         dp[4 * j + 0] = s[4 * j + 0] * (dp[4 * j + 0] - d2.x);
         dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d2.y);
@@ -430,7 +416,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       }
       to_bf16(dp, dsa);
       // dS^T into shared memory for the dQ product, once tile t - kDsBufs's product has read the buffer.
-      if (!(FLASH_BWD_ABLATE & 2)) mbar_wait(ds_empty + buf, ((t / kDsBufs) & 1) ^ 1);
+      mbar_wait(ds_empty + buf, ((t / kDsBufs) & 1) ^ 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -448,9 +434,9 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       fence_regs(dv);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < ((FLASH_BWD_ABLATE & 1) ? 0 : 4); ++kk) wgmma_rs_n64(dv, pa[kk], do_tile + kk * 128);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(dv, pa[kk], do_tile + kk * 128);
 #pragma unroll
-      for (int kk = 0; kk < ((FLASH_BWD_ABLATE & 1) ? 0 : 4); ++kk) wgmma_rs_n64(dk, dsa[kk], q_tile + kk * 128);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(dk, dsa[kk], q_tile + kk * 128);
       wgmma_commit();
       if (has_dq) start_dq(t - 1);
       wgmma_wait<0>();
@@ -461,7 +447,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       }
       qt_prev = qt;
     }
-    if (((n_tiles - 1) & 1) == cw && !(FLASH_BWD_ABLATE & 2)) {  // the last tile's dQ
+    if (((n_tiles - 1) & 1) == cw) {  // the last tile's dQ
       start_dq(n_tiles - 1);
       wgmma_wait<0>();
       drain_dq(qt_prev);
