@@ -12,7 +12,11 @@ Phases, each fatal on failure:
      the training shape with its log-sum-exp), within limits relative to the
      plain output's RMS that a deliberately wrong result must fail, and time
      the kernel, the plain version and, as a yardstick only, one PyTorch
-     library call; each row prints its TFLOP/s and its share of the bound;
+     library call (short calls repeated to fill FILL_MS); each row prints
+     its TFLOP/s, its share of the bound and the kernel that served it, read
+     from a profiler trace (flash_fwd_wgmma at D = 64/128, flash_fwd_wide at
+     512, or the run fails); on a card at its full power limit the D = 512
+     rows must keep to FWD_MS_LINES;
   4. a small clip on the card against the same clip on the CPU (tiny widths,
      fp32), the port's own reference check;
   5. two full-width clips (1024x576, 25 frames, bf16, random weights from
@@ -30,7 +34,10 @@ The training slice (EDM fine-tuning) adds:
      order); timed beside its bound, its plain version and
      scaled_dot_product_attention's backward, each kernel of the call apart;
      on a card at its full power limit the D = 64 rows must keep to
-     BWD_MS_LINES;
+     BWD_MS_LINES; then, as a yardstick for the D = 512 backward that the
+     port has not ported, scaled_dot_product_attention's backward at the
+     VAE's (8, 9216, 1, 512) and (2, 9216, 1, 512), with the backend that
+     took it and those that refused;
   6. one full-width level-0 TransformerSpatioTemporalModel (320 channels,
      5 heads, 9216 tokens, 5 frames, bf16 under autocast), forward and
      backward through the kernels against the dispatch's plain route;
@@ -83,6 +90,10 @@ TRAIN_STEPS = 3  # full-width training steps, the first cold
 # attention output at different places (about 1% of a gradient's RMS); a
 # gradient that missed the attention would be off by 100%.
 BLOCK_REL_RMS = 0.05
+# The forward's kernel by head dim, as named in a profiler trace: the wgmma
+# kernel at D = 64/128, the wide kernel (D split across the consumers, K and V
+# shared by a 2-block cluster) at D = 512.
+FWD_KERNELS = {64: "flash_fwd_wgmma", 128: "flash_fwd_wgmma", 512: "flash_fwd_wide"}
 # The backward's kernels by head dim, as named in a profiler trace: the fused
 # wgmma pass between its two small passes, or the mma.sync pair.
 BWD_DESIGNS = {
@@ -97,7 +108,10 @@ DQ_REPEAT_RTOL, DQ_REPEAT_RMS_ATOL = 2.0 ** -7, 1e-4
 # full power limit, FULL_POWER_W: asserted there, only printed on a card set
 # below it (which runs slower under load).
 BWD_MS_LINES = {"unet_l0_train": 19.5, "ragged_padded_kv": 0.95}
+# The same for the D = 512 forward at the VAE's three shapes.
+FWD_MS_LINES = {"vae_encoder_mid": 1.7, "vae_encoder_mid_train": 5.0, "vae_decoder_mid": 3.3}
 FULL_POWER_W = 700.0
+FILL_MS = 20.0  # a timing repeats a call until about this much device time has passed
 STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5  # a tenth of one update at lr 1e-4
 
 
@@ -105,13 +119,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of `fn` over `reps` launches, after one warm-up."""
+def cuda_ms(fn, reps: int | None) -> float:
+    """Mean device milliseconds of `fn` over `reps` launches, after one warm-up;
+    with `reps` None, over as many launches as fill FILL_MS (at least 3)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if reps is None:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        reps = max(3, math.ceil(FILL_MS / max(start.elapsed_time(end), 1e-3)))
     start.record()
     for _ in range(reps):
         fn()
@@ -132,14 +153,17 @@ def within_limits(e: dict) -> bool:
     return e["max_rel_err"] <= MAX_REL_ERR and e["mean_rel_err"] <= MEAN_REL_ERR
 
 
-def check_flash_kernel(dev) -> dict:
+def check_flash_kernel(dev, power_limit_w: float) -> dict:
     """Flash kernel against flash_attention_plain (fp32 on the same bf16 inputs).
 
     The padded case gives the kernel keys and values past `kv_len` that would
     swamp the output if the mask missed them (K = 10, V = 100). Each case also
     checks that the limits catch a wrong result: the plain version without
     the last DROPPED_KEYS keys must fail them. The training row also writes
-    the log-sum-exp, held against the plain one within LSE_ATOL.
+    the log-sum-exp, held against the plain one within LSE_ATOL. A profiler
+    trace names the kernel that served each row, which must be FWD_KERNELS'
+    for its head dim; with the card at FULL_POWER_W the D = 512 rows must
+    keep to FWD_MS_LINES.
     """
     import torch
     import torch.nn.functional as F
@@ -183,18 +207,26 @@ def check_flash_kernel(dev) -> dict:
         flops = 4 * b * h * sq * kv_len * d
         nbytes = (2 * sq + 2 * kv_len) * b * h * d * 2 + (b * h * sq * 4 if with_lse else 0)
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        ms = cuda_ms(run, reps=5)
+        ms = cuda_ms(run, reps=None)
+        traced = kernel_ms_from_trace(run, sorted(set(FWD_KERNELS.values())))
+        served = [n for n, t in traced.items() if t > 0]
         plain_ms = cuda_ms(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2), reps=1)
         qt, kt, vt = q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=5)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=None)
         bound_ms = max(ops_ms, bytes_ms)
+        ms_line = FWD_MS_LINES.get(label)
         row = dict(label=label, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2,
-                   with_lse=with_lse, **err, lse_max_abs_err=lse_err,
-                   dropped_keys_rel_err=[cut["max_rel_err"], cut["mean_rel_err"]],
+                   with_lse=with_lse, kernel=served, kernel_ms=traced[FWD_KERNELS[d]], **err,
+                   lse_max_abs_err=lse_err, dropped_keys_rel_err=[cut["max_rel_err"], cut["mean_rel_err"]],
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
+                   tflops=flops / ms / 1e9, bound_share=bound_ms / ms, at_most_library=ms <= library_ms,
+                   ms_line=ms_line, within_ms_line=ms <= (ms_line or math.inf))
         log("kernel flash_attn_fwd " + json.dumps(row))
+        if served != [FWD_KERNELS[d]]:
+            raise AssertionError(f"{label} ran {served}, expected {FWD_KERNELS[d]}")
+        if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
+            raise AssertionError(f"forward kernel took {ms:.3f} ms at {label}, over its line of {ms_line} ms")
         if not within_limits(err):
             raise AssertionError(f"flash kernel disagrees with its plain version at {label}: {err}")
         if within_limits(cut):
@@ -208,11 +240,14 @@ def check_flash_kernel(dev) -> dict:
 
 
 def ptxas_report(log_text: str) -> list[dict]:
-    """Registers and spill bytes of each kernel entry in an nvcc -Xptxas -v log."""
-    import re
-
-    rows = []
+    """Registers and spill bytes of each kernel entry in an nvcc -Xptxas -v log,
+    and ptxas's warning where it serialized an entry's wgmma (printed before
+    the entries, naming the function)."""
+    rows, serialized = [], {}
     for line in log_text.splitlines():
+        warned = re.search(r"wgmma.*serialized.*in the function '(\w+)'", line)
+        if warned:
+            serialized[warned.group(1)] = line.strip()
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             rows.append(dict(entry=entry.group(1)))
@@ -222,8 +257,9 @@ def ptxas_report(log_text: str) -> list[dict]:
         regs = re.search(r"Used (\d+) registers", line)
         if regs and rows:
             rows[-1]["registers"] = int(regs.group(1))
-        if "wgmma" in line and "serialized" in line and rows:
-            rows[-1]["wgmma_serialized"] = line.strip()
+    for row in rows:
+        if row["entry"] in serialized:
+            row["wgmma_serialized"] = serialized[row["entry"]]
     return rows
 
 
@@ -295,7 +331,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         def bwd():
             flash_attention_backward(q, k, v, out, do, lse, scale, kv_len)
 
-        ms = cuda_ms(bwd, reps=3)
+        ms = cuda_ms(bwd, reps=None)
         design, names = BWD_DESIGNS[d]
         split = kernel_ms_from_trace(bwd, names)
         plain_ms = cuda_ms(lambda: flash_attention_backward_plain(*f32, ref_lse, scale, kv_len), reps=1)
@@ -308,8 +344,8 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
             F.scaled_dot_product_attention(qt, kt, vt).backward(dot)
 
         with torch.no_grad():
-            sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=3)
-        library_ms = cuda_ms(sdpa_fwd_bwd, reps=3) - sdpa_fwd_ms
+            sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=None)
+        library_ms = cuda_ms(sdpa_fwd_bwd, reps=None) - sdpa_fwd_ms
         flops = 10 * b * h * sq * kv_len * d
         nbytes = (4 * sq + 4 * kv_len) * b * h * d * 2 + 2 * b * h * sq * 4
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -343,6 +379,45 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         del q, k, v, out, lse, do, grads, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return {"shapes": shapes}
+
+
+def library_backward_d512(dev) -> list[dict]:
+    """scaled_dot_product_attention's backward (forward + backward less its
+    forward) at the VAE's D = 512 training shapes: a yardstick for the K1
+    backward at D = 512, which the port has not ported (no path runs it).
+    Backends are tried in PyTorch's order; the first that takes the call is
+    timed and the refusals of the others are kept."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(5678)
+    for label, b in (("vae_encoder_mid_train", 8), ("vae_encoder_mid", 2)):
+        q, k, v = (torch.randn((b, 1, 9216, 512), generator=g, device=dev).bfloat16().requires_grad_()
+                   for _ in range(3))
+        do = torch.randn((b, 1, 9216, 512), generator=g, device=dev).bfloat16()
+        refused, backend, fwd_ms, ms = {}, None, None, None
+        for candidate in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.MATH):
+            try:
+                with sdpa_kernel(candidate):
+                    with torch.no_grad():
+                        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=None)
+                    ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v).backward(do), reps=None) - fwd_ms
+            except RuntimeError as e:
+                refused[candidate.name] = str(e).strip().splitlines()[0][:160]
+                continue
+            backend = candidate.name
+            break
+        flops = 10 * b * 9216 * 9216 * 512
+        row = dict(label=label, shape=[b, 9216, 1, 512], backend=backend, library_ms=ms, library_fwd_ms=fwd_ms,
+                   refused=refused, bound_ms=flops / PEAK_BF16_FLOPS * 1e3)
+        log("library backward d512 " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_ms_from_trace(fn, names, reps: int = 3) -> dict:
@@ -759,9 +834,11 @@ def main() -> int:
             if row.get("spill_stores") or row.get("spill_loads") or "wgmma_serialized" in row:
                 raise AssertionError(f"{source}: a kernel entry spills or serializes its wgmma: {row}")
 
-    flash = check_flash_kernel(dev)
     watts = re.search(r",\s*([\d.]+) W", smi)  # "[N/A]" where the limit cannot be read
-    flash_bwd = check_flash_backward(dev, float(watts.group(1)) if watts else 0.0)
+    power_limit_w = float(watts.group(1)) if watts else 0.0
+    flash = check_flash_kernel(dev, power_limit_w)
+    flash_bwd = check_flash_backward(dev, power_limit_w)
+    library_backward_d512(dev)
     check_small_clip_against_cpu(dev, SEED)
     runs = full_clips(dev, STEPS, SEED)
     torch.cuda.empty_cache()
@@ -770,6 +847,7 @@ def main() -> int:
     train_run = full_train(dev, TRAIN_STEPS, SEED)
 
     fwd_row = flash["shapes"][0]  # UNet level-0 attention: 5 of every 5N + 18 launches of a clip
+    wide_row = next(r for r in flash["shapes"] if r["label"] == "vae_encoder_mid_train")  # 6 of 8 a step
     bwd_row = flash_bwd["shapes"][0]  # the training shape: 5 launches per step
     fwd_total, bwd_total = train_run["summary"]["launches_total"]
     kernels = [{
@@ -787,6 +865,9 @@ def main() -> int:
         "bound_by": fwd_row["bound_by"],
         "library_ms": fwd_row["library_ms"],
         "timed_at": fwd_row["shape"],
+        "designs": {str(d): n for d, n in FWD_KERNELS.items()},
+        "wide": {k: wide_row[k] for k in ("kernel", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                           "max_abs_err")},
         "shapes": flash["shapes"],
         "ok": True,
     }, {

@@ -44,12 +44,35 @@
 //     (B, H, Sq): the residual the backward kernels (flash_attn_bwd.cu)
 //     recompute P from. The serving path passes null and writes nothing more.
 //
-// split kernel (D = 512, the VAE's one head of 512): mma.sync m16n8k16, 4
-// warps, 16 query rows and 32-key tiles; a 16-row x 512 fp32 accumulator does
-// not fit one warp's registers, so the warps split D (128 columns each) for
-// P V and the key tile (8 keys each) for Q K^T, and row maxima and sums meet
-// in shared memory. It re-reads K and V from L2 once per 16 query rows and
-// takes no `lse` (the VAE has no backward).
+// wide kernel (D = 512, the VAE's one head of 512), `flash_fwd_wide`:
+//   - The same three warpgroups and register split, 64 query rows a block.
+//     ptxas holds a kernel of 288 or 384 threads to 168 registers a thread
+//     save where setmaxnreg raises it. A 64 x 512 fp32
+//     accumulator would take 256 registers a thread, so the consumers split
+//     D: consumer c owns output columns 256 c .. 256 c + 255 of all 64 rows
+//     (128 registers) and O += P V is wgmma m64n256k16 with P in registers
+//     and V through the transpose bit, four 64-column boxes in one product.
+//   - S = Q K^T contracts over all 512 columns: each consumer takes the
+//     partial sum over its own 256 (wgmma m64n64k16, tiles of 64 keys) and
+//     the two swap their 64 x 64 fp32 partials through shared memory under
+//     named barriers. Each adds the other's to its own; fp32 addition is
+//     commutative, so both hold the same S bit for bit, run the same online
+//     softmax and keep the same m and l with no further exchange, and each
+//     rescales only its half of O.
+//   - Q stays resident (64 KB). K and V come in 64-key x 64-column boxes
+//     (8 KB) through 16 ring slots, one K and one V tile: each consumer
+//     waits on and frees only the 4 + 4 boxes of its own half of D. The
+//     producer sends tile t's K before tile t - 1's V, whose slots free later.
+//   - Blocks of neighbouring query tiles of one (b, h) form clusters of
+//     kWCluster: each block's producer loads every kWCluster-th box of a tile
+//     with .multicast::cluster into all of them, which divides the K and V
+//     traffic out of L2 (once per 64 query rows without the cluster) by
+//     kWCluster. A slot is refilled only when the consumers of every block of
+//     the cluster have freed it (their arrivals reach each block's empty
+//     barrier through mapa). The grid's x is padded to whole clusters: a
+//     block past Sq loads, computes and frees like the others and stores
+//     nothing, so its partner never waits for it.
+//   - No log-sum-exp: the VAE, the only caller, has no backward.
 
 #include <math.h>
 
@@ -113,9 +136,11 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 2], const uint32_t (&p)[k
 }
 
 // Scores of keys at or past `limit` (relative to the tile) leave the softmax.
-__device__ __forceinline__ void mask_tile(float (&s)[64], int limit, int t4) {
+// F is the number of score registers of one thread: a tile of 2 F keys.
+template <int F>
+__device__ __forceinline__ void mask_tile(float (&s)[F], int limit, int t4) {
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
+  for (int j = 0; j < F / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (8 * j + 2 * t4 + (e & 1) >= limit) s[4 * j + e] = kNegInf;
@@ -126,11 +151,12 @@ __device__ __forceinline__ void mask_tile(float (&s)[64], int limit, int t4) {
 // Online softmax over one tile in the exp2 domain: s becomes
 // exp2(s * scale_log2 - m_new) in place, m and the thread's partial row sums
 // l move on, and alpha is the factor for the output accumulated so far.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2], float (&alpha)[2],
+template <int F>
+__device__ __forceinline__ void softmax_tile(float (&s)[F], float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              float scale_log2) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
+  for (int j = 0; j < F / 4; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -144,7 +170,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
+  for (int j = 0; j < F / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], scale_log2, neg_m[e >> 1]));
@@ -157,9 +183,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
 
 // Probabilities as bf16 A fragments: two adjacent 8-column accumulator blocks
 // make one 16-key k-step.
-__device__ __forceinline__ void to_bf16(const float (&s)[64], uint32_t (&p)[kBN / 16][4]) {
+template <int F>
+__device__ __forceinline__ void to_bf16(const float (&s)[F], uint32_t (&p)[F / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
+  for (int kk = 0; kk < F / 8; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
   }
@@ -321,179 +348,273 @@ int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap
   return (int)cudaGetLastError();
 }
 
-// Parameters of the split kernel (D = 512).
-struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+// ---------------------------------------------------------------------------
+// wide kernel: D = 512 (the VAE's mid-block attention, one head of 512).
+// ---------------------------------------------------------------------------
+constexpr int kWM = 64;                 // query rows per block
+constexpr int kWN = 64;                 // keys per tile
+constexpr int kWD = 512;                // head dim
+constexpr int kWBoxes = kWD / 64;       // 64-column boxes per row
+constexpr int kWHalfBoxes = kWBoxes / 2;  // boxes of one consumer's half of D
+constexpr uint32_t kWBox = 64 * 128;    // bytes of one box: 64 rows (queries or keys) x 128 bytes
+constexpr int kWSlots = 2 * kWBoxes;    // ring slots: a K and a V tile, 8 + 8 boxes
+// The slots in 4 groups of kWHalfBoxes, each with a full and an empty
+// barrier: group 2 c holds consumer c's K boxes, group 2 c + 1 its V boxes.
+constexpr int kWGroups = kWSlots / kWHalfBoxes;
+constexpr uint32_t kWGroupBytes = kWHalfBoxes * kWBox;
+constexpr int kWCluster = 2;            // blocks of one (b, h) sharing their K and V loads
+// 1024 bytes of slack to align the tiles, then Q, the ring, the two
+// consumers' 64 x 64 fp32 partial scores, and 1 + 2 * kWGroups mbarriers.
+constexpr size_t kWSmem = 1024 + kWBoxes * kWBox + kWSlots * kWBox + 2 * kWM * kWN * 4 + (1 + 2 * kWGroups) * 8;
+// Named barriers of the score exchange (0 is __syncthreads): both partials
+// written; consumer c's partial read by the other consumer.
+constexpr int kBarScores = 1, kBarRead = 2;
+
+struct WideArgs {
   __nv_bfloat16* o;
-  int sq, kv_len, heads;
-  float scale;  // already multiplied by log2(e) when use_exp2
-  bool use_exp2;
-  int64_t q_sb, q_ss, q_sh;
-  int64_t k_sb, k_ss, k_sh;
-  int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
+  int sq, kv_len;
+  float scale_log2;  // scale * log2(e)
 };
 
-__device__ __forceinline__ float softmax_exp(float x, bool use_exp2) {
-  return use_exp2 ? exp2f(x) : expf(x);
-}
-
-// ---------------------------------------------------------------------------
-// split kernel: D = 512 (VAE mid-block attention, one head of 512).
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_split(Params p) {
-  constexpr int BM = 16, BN = 32, NT = 128, NW = 4, LD = D + 8, LDP = BN + 8;
-  constexpr int DW = D / NW;  // output columns owned by each warp
+template <int Cluster>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const WideArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + BM * LD;
-  __nv_bfloat16* vs = ks + BN * LD;
-  __nv_bfloat16* ps = vs + BN * LD;
-  float* red = reinterpret_cast<float*>(ps + BM * LDP);  // [NW][BM]
+  unsigned char* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = qs + kWBoxes * kWBox;
+  float* xs = reinterpret_cast<float*>(ring + kWSlots * kWBox);  // [consumer][8][128 threads][4]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(xs + 2 * kWM * kWN);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWGroups;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const int n_tiles = (p.kv_len + BN - 1) / BN;
+  const int q0 = blockIdx.x * kWM, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (a.kv_len + kWN - 1) / kWN;
+  const int wg = threadIdx.x / 128;
+  const uint32_t rank = Cluster > 1 ? cluster_rank() : 0;
 
-  load_tile<D, LD, NT>(qs, qb, p.q_ss, q0, BM, p.sq);
-  load_tile<D, LD, NT>(ks, kb, p.k_ss, 0, BN, p.kv_len);
-  cp_async_commit();
-  load_tile<D, LD, NT>(vs, vb, p.v_ss, 0, BN, p.kv_len);
-  cp_async_commit();
-
-  float o[DW / 8][4];
-#pragma unroll
-  for (int i = 0; i < DW / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<1>();  // Q and K tile t have landed
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int gi = 0; gi < kWGroups; ++gi) {
+      mbar_init(full + gi, 1);
+      mbar_init(empty + gi, 4 * Cluster);  // the owning consumer's 4 warps in each block of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (Cluster > 1) {
+    cluster_sync();  // the partner's barriers exist before anything arrives on them
+  } else {
     __syncthreads();
+  }
 
-    // This warp's 8 key columns of the 16 x 32 score tile, over all of D.
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = ld32(qs + g * LD + kk * 16 + 2 * t4);
-      a[1] = ld32(qs + (g + 8) * LD + kk * 16 + 2 * t4);
-      a[2] = ld32(qs + g * LD + kk * 16 + 8 + 2 * t4);
-      a[3] = ld32(qs + (g + 8) * LD + kk * 16 + 8 + 2 * t4);
-      const __nv_bfloat16* kr = ks + (warp * 8 + g) * LD + kk * 16 + 2 * t4;
-      mma_bf16(s, a, ld32(kr), ld32(kr + 8));
-    }
-    float mx[2] = {kNegInf, kNegInf};
+  if (wg == 0) {
+    // Producer: one thread. Each block arms its own full barrier of a group
+    // for all of the group's bytes; with a cluster, block `rank` loads the
+    // boxes j with j % Cluster == rank into every block. A group is refilled
+    // once the owning consumers of every block of the cluster have freed it.
+    // K of tile t goes out before V of tile t - 1, whose slots free later.
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kWBoxes * kWBox);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = t * BN + warp * 8 + 2 * t4 + (e & 1);
-      s[e] = col < p.kv_len ? s[e] * p.scale : kNegInf;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[e]);
+      for (int x = 0; x < kWBoxes; ++x) tma_load(qs + x * kWBox, &tq, q_full, x * 64, q0, h, b);
+      // Rolled loops: the producer keeps to kProducerRegs registers.
+      auto load_boxes = [&](const CUtensorMap* map, int kv, int t) {
+        const uint32_t free_parity = (t & 1) ^ 1;  // the first round finds the ring free
+#pragma unroll 1
+        for (int c = 0; c < 2; ++c) {
+          const int gi = 2 * c + kv;
+          mbar_wait(empty + gi, free_parity);
+          mbar_expect_tx(full + gi, kWGroupBytes);
+#pragma unroll 1
+          for (int j = rank; j < kWHalfBoxes; j += Cluster) {
+            unsigned char* dst = ring + gi * kWGroupBytes + j * kWBox;
+            const int col = (c * kWHalfBoxes + j) * 64;
+            if constexpr (Cluster > 1) {
+              tma_load_multicast(dst, map, full + gi, (1 << Cluster) - 1, col, t * kWN, h, b);
+            } else {
+              tma_load(dst, map, full + gi, col, t * kWN, h, b);
+            }
+          }
+        }
+      };
+      for (int t = 0; t < n_tiles; ++t) {
+        load_boxes(&tk, 0, t);
+        if (t > 0) load_boxes(&tv, 1, t - 1);
+      }
+      load_boxes(&tv, 1, n_tiles - 1);
     }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-    if (t4 == 0) {
-      red[warp * BM + g] = mx[0];
-      red[warp * BM + g + 8] = mx[1];
-    }
-    __syncthreads();  // partial maxima visible; every warp is done with K tile t
-    const bool more = t + 1 < n_tiles;
-    if (more) load_tile<D, LD, NT>(ks, kb, p.k_ss, (t + 1) * BN, BN, p.kv_len);
-    cp_async_commit();
+    __syncwarp();
+  } else {
+    // Consumers: warpgroup c owns output columns 256 c .. 256 c + 255 of all
+    // 64 rows, and the matching half of the contraction of S = Q K^T.
+    reg_alloc<kConsumerRegs>();  // a consumer holds ~200 live registers: O alone is 128
+    const int c = wg - 1, ctid = threadIdx.x % 128, warp = ctid / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    uint64_t* k_full = full + 2 * c;
+    uint64_t* k_empty = empty + 2 * c;
+    uint64_t* v_full = k_full + 1;
+    uint64_t* v_empty = k_empty + 1;
+    const uint64_t q_desc = sw128_desc(qs + c * kWGroupBytes, 16, 1024);
+    const uint64_t k_desc = sw128_desc(ring + 2 * c * kWGroupBytes, 16, 1024);              // K-major
+    const uint64_t v_desc = sw128_desc(ring + (2 * c + 1) * kWGroupBytes, kWBox, 1024);     // MN-major
+    float4* mine = reinterpret_cast<float4*>(xs + c * kWM * kWN) + ctid;
+    const float4* theirs = reinterpret_cast<const float4*>(xs + (1 - c) * kWM * kWN) + ctid;
 
-    float alpha[2];
+    // The owning consumers of every block of the cluster free a group: one
+    // arrival per warp on each block's empty barrier (lane r on block r's).
+    auto release = [&](uint64_t* bar) {
+      if constexpr (Cluster > 1) {
+        if (lane < Cluster) mbar_arrive_cluster(bar, lane);
+      } else {
+        if (lane == 0) mbar_arrive(bar);
+      }
+    };
+
+    float s[32], o[128];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    uint32_t p[kWN / 16][4];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+
+    // This consumer's half of S = Q K^T: 16 k-steps over its 4 boxes.
+    auto qk = [&]() {
+      // The 32 descriptors are formed anew for each tile: held across the
+      // loop, they would not fit in the registers beside O.
+      uint64_t qd = q_desc, kd = k_desc;
+      asm volatile("" : "+l"(qd), "+l"(kd));
+#pragma unroll
+      for (int kk = 0; kk < 4 * kWHalfBoxes; ++kk) {
+        const uint32_t off = ((kk / 4) * kWBox + (kk % 4) * 32) / 16;
+        wgmma_ss_n64<0, 0>(s, qd + off, kd + off, kk > 0);
+      }
+    };
+    // Both halves meet in shared memory; each consumer adds the other's to
+    // its own. fp32 addition is commutative, so both hold the same S bit for
+    // bit, run the same softmax and agree on m and l with no more exchange.
+    auto exchange = [&](int t) {
+      if (t > 0) named_barrier_sync(kBarRead + c, 256);  // the other consumer has read tile t - 1's
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mine[i * 128] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      named_barrier_sync(kBarScores, 256);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 x = theirs[i * 128];
+        s[4 * i] += x.x;
+        s[4 * i + 1] += x.y;
+        s[4 * i + 2] += x.z;
+        s[4 * i + 3] += x.w;
+      }
+      if (t + 1 < n_tiles) named_barrier_arrive(kBarRead + 1 - c, 256);
+    };
+    // O (64 x 256) += P (64 x 64, registers) V (64 keys x this half's 256 columns).
+    auto pv = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kWN / 16; ++kk) wgmma_rs_n256(o, p[kk], v_desc + kk * 16 * 128 / 16);
+    };
+
+    // Tile 0: Q K^T alone.
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full, 0);
+    fence_regs(s);
+    wgmma_fence();
+    qk();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    release(k_empty);
+    exchange(0);
+    if (n_tiles == 1) mask_tile(s, a.kv_len, t4);
+    softmax_tile(s, m, l, alpha, a.scale_log2);
+    to_bf16(s, p);
+
+    for (int t = 1; t < n_tiles; ++t) {
+      // Tile t's Q K^T and tile t-1's P V go to the tensor cores together.
+      mbar_wait(k_full, t & 1);
+      mbar_wait(v_full, (t - 1) & 1);
+      fence_regs(s);
+      fence_regs(o);
+      wgmma_fence();
+      qk();
+      wgmma_commit();
+      pv();
+      wgmma_commit();
+      wgmma_wait<1>();  // Q K^T done; P V may still run
+      fence_regs(s);
+      release(k_empty);
+      exchange(t);
+      if (t == n_tiles - 1) mask_tile(s, a.kv_len - t * kWN, t4);
+      softmax_tile(s, m, l, alpha, a.scale_log2);
+      wgmma_wait<0>();  // P V done: o and p are free
+      fence_regs(o);
+      release(v_empty);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      to_bf16(s, p);
+    }
+    mbar_wait(v_full, (n_tiles - 1) & 1);
+    fence_regs(o);
+    wgmma_fence();
+    pv();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh + c * kWHalfBoxes * 64;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float tile_max = red[g + 8 * r];
+      const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < a.sq) {
+        __nv_bfloat16* orow = ob + (int64_t)row * a.o_ss;
 #pragma unroll
-      for (int w = 1; w < NW; ++w) tile_max = fmaxf(tile_max, red[w * BM + g + 8 * r]);
-      const float m_new = fmaxf(m[r], tile_max);
-      alpha[r] = softmax_exp(m[r] - m_new, p.use_exp2);
-      m[r] = m_new;
-    }
-    const float p0 = softmax_exp(s[0] - m[0], p.use_exp2);
-    const float p1 = softmax_exp(s[1] - m[0], p.use_exp2);
-    const float p2 = softmax_exp(s[2] - m[1], p.use_exp2);
-    const float p3 = softmax_exp(s[3] - m[1], p.use_exp2);
-    l[0] = l[0] * alpha[0] + p0 + p1;  // this warp's columns only; summed at the end
-    l[1] = l[1] * alpha[1] + p2 + p3;
-    *reinterpret_cast<uint32_t*>(ps + g * LDP + warp * 8 + 2 * t4) = pack_bf16(p0, p1);
-    *reinterpret_cast<uint32_t*>(ps + (g + 8) * LDP + warp * 8 + 2 * t4) = pack_bf16(p2, p3);
-#pragma unroll
-    for (int i = 0; i < DW / 8; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
-
-    if (more) cp_async_wait<1>(); else cp_async_wait<0>();  // V tile t has landed
-    __syncthreads();  // P tile visible
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      uint32_t a[4];
-      a[0] = ld32(ps + g * LDP + j * 16 + 2 * t4);
-      a[1] = ld32(ps + (g + 8) * LDP + j * 16 + 2 * t4);
-      a[2] = ld32(ps + g * LDP + j * 16 + 8 + 2 * t4);
-      a[3] = ld32(ps + (g + 8) * LDP + j * 16 + 8 + 2 * t4);
-#pragma unroll
-      for (int dn = 0; dn < DW / 8; dn += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + (j * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + warp * DW + dn * 8 +
-                                  (lane / 16) * 8);
-        mma_bf16(o[dn], a, bv[0], bv[1]);
-        mma_bf16(o[dn + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with V tile t, P and the maxima
-    if (more) load_tile<D, LD, NT>(vs, vb, p.v_ss, (t + 1) * BN, BN, p.kv_len);
-    cp_async_commit();
-  }
-
-  // Row sums: each warp holds the sum over its own columns.
-  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
-  if (t4 == 0) {
-    red[warp * BM + g] = l0;
-    red[warp * BM + g + 8] = l1;
-  }
-  __syncthreads();
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) sum += red[w * BM + g + 8 * r];
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-    const int row = q0 + g + r * 8;
-    if (row < p.sq) {
-      __nv_bfloat16* orow = ob + (int64_t)row * p.o_ss + warp * DW;
-#pragma unroll
-      for (int dn = 0; dn < DW / 8; ++dn) {
-        *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t4) =
-            pack_bf16(o[dn][2 * r] * inv, o[dn][2 * r + 1] * inv);
+        for (int j = 0; j < 32; ++j) {
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        }
       }
     }
   }
+  if constexpr (Cluster > 1) cluster_sync();  // no block leaves while its partner may still arrive on its barriers
 }
 
-template <int D>
-size_t split_smem() {
-  return (size_t)(16 + 32 + 32) * (D + 8) * sizeof(__nv_bfloat16) + 16 * (32 + 8) * sizeof(__nv_bfloat16) +
-         4 * 16 * sizeof(float);
+int launch_wide(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const WideArgs& a, int heads,
+                int batch, cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(flash_fwd_wide<kWCluster>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.sq + kWM - 1) / kWM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles + kWCluster - 1) / kWCluster * kWCluster, heads, batch);  // whole clusters
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kWSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kWCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  void* args[] = {const_cast<CUtensorMap*>(&tq), const_cast<CUtensorMap*>(&tk), const_cast<CUtensorMap*>(&tv),
+                  const_cast<WideArgs*>(&a)};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
-
 }  // namespace
 
 // C entry point. Strides are in elements; the last (D) stride must be 1 and
 // every other stride a multiple of 8, with 16-byte aligned base pointers (the
-// Python wrapper checks this). `use_exp2` selects nothing at D = 64/128,
-// where both modes are the same function. Returns the launch's cudaError_t,
+// Python wrapper checks this). `use_exp2` selects nothing: both modes are
+// the same function, computed in the exp2 domain. Returns the launch's cudaError_t,
 // or kEncodeError + the CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
                               int heads, int head_dim, int kv_len, float scale, int use_exp2, long long q_sb,
@@ -518,19 +639,16 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     return head_dim == 64 ? launch_wgmma<64>(tq, tk, tv, a, batch, s) : launch_wgmma<128>(tq, tk, tv, a, batch, s);
   }
   if (head_dim != 512 || lse != nullptr) return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.sq = sq;
-  p.kv_len = kv_len;
-  p.heads = heads;
-  p.use_exp2 = use_exp2 != 0;
-  p.scale = p.use_exp2 ? scale * kLog2e : scale;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
-  return (int)launch(flash_fwd_split<512>, dim3((sq + 15) / 16, heads, batch), split_smem<512>(), p, s);
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(&tq, q, head_dim, sq, heads, batch, q_ss, q_sh, q_sb, kWM);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, k, head_dim, kv_len, heads, batch, k_ss, k_sh, k_sb, kWN);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, v, head_dim, kv_len, heads, batch, v_ss, v_sh, v_sb, kWN);
+  if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
+  WideArgs a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
+  a.sq = sq;
+  a.kv_len = kv_len;
+  a.scale_log2 = scale * kLog2e;
+  return launch_wide(tq, tk, tv, a, heads, batch, s);
 }

@@ -20,8 +20,11 @@ each wrapper launches its kernel or raises; it never falls back.
 Both directions are bound by bf16 tensor-core operations at the paths' 9216
 tokens, with one exp2 per score beside them. Which head dim takes which kernel:
   - forward, D = 64 and 128: `flash_fwd_wgmma` (wgmma, a TMA ring of K and V
-    tiles, a producer warpgroup and two consumers); D = 512: `flash_fwd_split`
-    (mma.sync, the warps split D);
+    tiles, a producer warpgroup and two consumers); D = 512: `flash_fwd_wide`
+    (the same shape of block with 64 query rows; the two consumers split D,
+    each owning 256 output columns and half of the Q K^T contraction, and
+    swap their fp32 partial scores through shared memory; K and V come in
+    64-column TMA boxes, shared by a cluster of two blocks through multicast);
   - backward, D = 64 (every attention with a gradient on the port's paths):
     `flash_bwd_fused`, one pass per 128-key tile whose two consumer
     warpgroups keep their K and V fragments and their dK and dV sums in
