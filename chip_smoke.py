@@ -91,8 +91,7 @@ TRAIN_STEPS = 3  # full-width training steps, the first cold
 # gradient that missed the attention would be off by 100%.
 BLOCK_REL_RMS = 0.05
 # The forward's kernel by head dim, as named in a profiler trace: the wgmma
-# kernel at D = 64/128, the wide kernel (D split across the consumers, K and V
-# shared by a 2-block cluster) at D = 512.
+# kernel at D = 64/128, the wide kernel (D split across the consumers) at D = 512.
 FWD_KERNELS = {64: "flash_fwd_wgmma", 128: "flash_fwd_wgmma", 512: "flash_fwd_wide"}
 # The backward's kernels by head dim, as named in a profiler trace: the fused
 # wgmma pass between its two small passes, or the mma.sync pair.

@@ -45,11 +45,10 @@
 //     recompute P from. The serving path passes null and writes nothing more.
 //
 // wide kernel (D = 512, the VAE's one head of 512), `flash_fwd_wide`:
-//   - The same three warpgroups and register split, 64 query rows a block.
-//     ptxas holds a kernel of 288 or 384 threads to 168 registers a thread
-//     save where setmaxnreg raises it. A 64 x 512 fp32
-//     accumulator would take 256 registers a thread, so the consumers split
-//     D: consumer c owns output columns 256 c .. 256 c + 255 of all 64 rows
+//   - The same three warpgroups and register split, 64 query rows a block
+//     (ptxas holds a 384-thread kernel to 168 registers a thread except
+//     after setmaxnreg.inc). A 64 x 512 fp32 accumulator would take
+//     256 registers a thread, so the consumers split D: consumer c owns output columns 256 c .. 256 c + 255 of all 64 rows
 //     (128 registers) and O += P V is wgmma m64n256k16 with P in registers
 //     and V through the transpose bit, four 64-column boxes in one product.
 //   - S = Q K^T contracts over all 512 columns: each consumer takes the
@@ -63,15 +62,11 @@
 //     (8 KB) through 16 ring slots, one K and one V tile: each consumer
 //     waits on and frees only the 4 + 4 boxes of its own half of D. The
 //     producer sends tile t's K before tile t - 1's V, whose slots free later.
-//   - Blocks of neighbouring query tiles of one (b, h) form clusters of
-//     kWCluster: each block's producer loads every kWCluster-th box of a tile
-//     with .multicast::cluster into all of them, which divides the K and V
-//     traffic out of L2 (once per 64 query rows without the cluster) by
-//     kWCluster. A slot is refilled only when the consumers of every block of
-//     the cluster have freed it (their arrivals reach each block's empty
-//     barrier through mapa). The grid's x is padded to whole clusters: a
-//     block past Sq loads, computes and frees like the others and stores
-//     nothing, so its partner never waits for it.
+//   - K and V are read from L2 once per 64 query rows (21.7 GB at the
+//     training chunk's (8, 9216, 1, 512)). Pairing neighbouring query tiles
+//     in 2-block clusters that multicast each box to both halved that
+//     traffic and measured 1-4% slower on the H100 (PERF.md, PR 5): L2 does
+//     not bound this kernel, so it has no cluster.
 //   - No log-sum-exp: the VAE, the only caller, has no backward.
 
 #include <math.h>
@@ -362,7 +357,6 @@ constexpr int kWSlots = 2 * kWBoxes;    // ring slots: a K and a V tile, 8 + 8 b
 // barrier: group 2 c holds consumer c's K boxes, group 2 c + 1 its V boxes.
 constexpr int kWGroups = kWSlots / kWHalfBoxes;
 constexpr uint32_t kWGroupBytes = kWHalfBoxes * kWBox;
-constexpr int kWCluster = 2;            // blocks of one (b, h) sharing their K and V loads
 // 1024 bytes of slack to align the tiles, then Q, the ring, the two
 // consumers' 64 x 64 fp32 partial scores, and 1 + 2 * kWGroups mbarriers.
 constexpr size_t kWSmem = 1024 + kWBoxes * kWBox + kWSlots * kWBox + 2 * kWM * kWN * 4 + (1 + 2 * kWGroups) * 8;
@@ -377,7 +371,6 @@ struct WideArgs {
   float scale_log2;  // scale * log2(e)
 };
 
-template <int Cluster>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const WideArgs a) {
@@ -392,28 +385,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = blockIdx.x * kWM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (a.kv_len + kWN - 1) / kWN;
   const int wg = threadIdx.x / 128;
-  const uint32_t rank = Cluster > 1 ? cluster_rank() : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int gi = 0; gi < kWGroups; ++gi) {
       mbar_init(full + gi, 1);
-      mbar_init(empty + gi, 4 * Cluster);  // the owning consumer's 4 warps in each block of the cluster
+      mbar_init(empty + gi, 4);  // the owning consumer's 4 warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (Cluster > 1) {
-    cluster_sync();  // the partner's barriers exist before anything arrives on them
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   if (wg == 0) {
-    // Producer: one thread. Each block arms its own full barrier of a group
-    // for all of the group's bytes; with a cluster, block `rank` loads the
-    // boxes j with j % Cluster == rank into every block. A group is refilled
-    // once the owning consumers of every block of the cluster have freed it.
-    // K of tile t goes out before V of tile t - 1, whose slots free later.
+    // Producer: one thread. A group is refilled once its consumer has freed
+    // it; K of tile t goes out before V of tile t - 1, whose slots free later.
     reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, kWBoxes * kWBox);
@@ -428,14 +413,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(empty + gi, free_parity);
           mbar_expect_tx(full + gi, kWGroupBytes);
 #pragma unroll 1
-          for (int j = rank; j < kWHalfBoxes; j += Cluster) {
-            unsigned char* dst = ring + gi * kWGroupBytes + j * kWBox;
-            const int col = (c * kWHalfBoxes + j) * 64;
-            if constexpr (Cluster > 1) {
-              tma_load_multicast(dst, map, full + gi, (1 << Cluster) - 1, col, t * kWN, h, b);
-            } else {
-              tma_load(dst, map, full + gi, col, t * kWN, h, b);
-            }
+          for (int j = 0; j < kWHalfBoxes; ++j) {
+            tma_load(ring + gi * kWGroupBytes + j * kWBox, map, full + gi, (c * kWHalfBoxes + j) * 64, t * kWN, h, b);
           }
         }
       };
@@ -445,7 +424,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       load_boxes(&tv, 1, n_tiles - 1);
     }
-    __syncwarp();
   } else {
     // Consumers: warpgroup c owns output columns 256 c .. 256 c + 255 of all
     // 64 rows, and the matching half of the contraction of S = Q K^T.
@@ -462,14 +440,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     float4* mine = reinterpret_cast<float4*>(xs + c * kWM * kWN) + ctid;
     const float4* theirs = reinterpret_cast<const float4*>(xs + (1 - c) * kWM * kWN) + ctid;
 
-    // The owning consumers of every block of the cluster free a group: one
-    // arrival per warp on each block's empty barrier (lane r on block r's).
-    auto release = [&](uint64_t* bar) {
-      if constexpr (Cluster > 1) {
-        if (lane < Cluster) mbar_arrive_cluster(bar, lane);
-      } else {
-        if (lane == 0) mbar_arrive(bar);
-      }
+    auto release = [&](uint64_t* bar) {  // one arrival per warp
+      if (lane == 0) mbar_arrive(bar);
     };
 
     float s[32], o[128];
@@ -583,32 +555,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-  if constexpr (Cluster > 1) cluster_sync();  // no block leaves while its partner may still arrive on its barriers
 }
 
 int launch_wide(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const WideArgs& a, int heads,
                 int batch, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(flash_fwd_wide<kWCluster>);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmem);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (a.sq + kWM - 1) / kWM;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((tiles + kWCluster - 1) / kWCluster * kWCluster, heads, batch);  // whole clusters
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kWSmem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kWCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  void* args[] = {const_cast<CUtensorMap*>(&tq), const_cast<CUtensorMap*>(&tk), const_cast<CUtensorMap*>(&tv),
-                  const_cast<WideArgs*>(&a)};
-  err = cudaLaunchKernelExC(&cfg, kernel, args);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  flash_fwd_wide<<<dim3((a.sq + kWM - 1) / kWM, heads, batch), kThreads, kWSmem, stream>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
 }
+
 }  // namespace
 
 // C entry point. Strides are in elements; the last (D) stride must be 1 and

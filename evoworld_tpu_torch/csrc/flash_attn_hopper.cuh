@@ -1,9 +1,8 @@
 // Hopper (sm_90a) primitives shared by the flash-attention kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu): mbarriers, TMA tensor and bulk
-// loads (multicast to a thread block cluster too), wgmma with its
-// shared-memory descriptors in the 128-byte swizzle, register reallocation
-// between warpgroups, and the host-side encoding of a tensor map over a
-// strided (B, S, H, D) bf16 tensor.
+// loads, wgmma with its shared-memory descriptors in the 128-byte swizzle,
+// register reallocation between warpgroups, and the host-side encoding of a
+// tensor map over a strided (B, S, H, D) bf16 tensor.
 
 #pragma once
 
@@ -66,35 +65,6 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 // Arrive without waiting on barrier `id` (the producer side of a named barrier).
 __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Thread block clusters: this block's rank in its cluster, a barrier over
-// every thread of the cluster, an arrival on the mbarrier at the same offset
-// in block `rank`'s shared memory, and one TMA box written into the shared
-// memory of every block in `mask` at the same offset, completing on the
-// mbarrier at `bar`'s offset in each.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
-      "r"(rank)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, uint16_t mask,
-                                                   int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, "
-      "{%4, %5, %6, %7}], [%2], %3;\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
 }
 
 // Shared-memory matrix descriptor of a tile in the 128-byte swizzle (TMA's

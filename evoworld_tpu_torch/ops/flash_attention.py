@@ -24,7 +24,7 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     (the same shape of block with 64 query rows; the two consumers split D,
     each owning 256 output columns and half of the Q K^T contraction, and
     swap their fp32 partial scores through shared memory; K and V come in
-    64-column TMA boxes, shared by a cluster of two blocks through multicast);
+    64-column TMA boxes);
   - backward, D = 64 (every attention with a gradient on the port's paths):
     `flash_bwd_fused`, one pass per 128-key tile whose two consumer
     warpgroups keep their K and V fragments and their dK and dV sums in

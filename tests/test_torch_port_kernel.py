@@ -50,14 +50,12 @@ def _rel_errors(out, ref):
      (1, 5205, 5632, 5205, 16, 64, False),
      # 4 x 4 x 16 blocks of 128 queries: more than one wave of 132 SMs
      (4, 2048, 2048, 2048, 4, 64, False),
-     # edges of the D = 512 kernel (64 queries a block, blocks paired in
-     # clusters of 2, 64 keys a tile): a single query (its partner block
-     # holds no row); 3 query tiles, an odd count, so the last block's
-     # partner lies wholly past Sq, with kv_len one key past two tiles and
-     # two heads; kv_len under one tile; kv_len a whole tile
+     # edges of the D = 512 kernel (64 queries a block, 64 keys a tile): a
+     # single query; 3 query tiles, the last one ragged, with kv_len one key
+     # past two tiles and two heads; kv_len under one tile; kv_len a whole tile
      (1, 1, 300, 300, 1, 512, False), (2, 130, 200, 129, 2, 512, True), (1, 64, 100, 50, 2, 512, False),
      (2, 200, 128, 64, 1, 512, False),
-     # 3 x 2 x 37 blocks: more than one wave of 66 clusters
+     # 3 x 2 x 37 blocks: more than one wave of 132 SMs
      (3, 2340, 2340, 2340, 2, 512, False)],
 )
 def test_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d, use_exp2):
@@ -87,12 +85,12 @@ def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,sq", [(64, 1041), (512, 1041)])
-def test_forward_twice_is_bit_identical_on_card(cuda, d, sq):
+@pytest.mark.parametrize("d", [64, 512])
+def test_forward_twice_is_bit_identical_on_card(cuda, d):
     """The forward sums in a fixed order (no atomics, no reductions across
     blocks), so a second call on the same inputs repeats the output bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    q, k, v = (torch.randn((2, sq, 2, d), generator=g, device=cuda).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn((2, 1041, 2, d), generator=g, device=cuda).bfloat16() for _ in range(3))
     first = flash_attention(q, k, v, kv_len=1000)
     second = flash_attention(q, k, v, kv_len=1000)
     torch.cuda.synchronize()
