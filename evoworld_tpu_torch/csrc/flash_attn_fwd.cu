@@ -60,13 +60,14 @@
 //     rescales only its half of O.
 //   - Q stays resident (64 KB). K and V come in 64-key x 64-column boxes
 //     (8 KB) through 16 ring slots, one K and one V tile: each consumer
-//     waits on and frees only the 4 + 4 boxes of its own half of D. The
-//     producer sends tile t's K before tile t - 1's V, whose slots free later.
+//     waits on and frees only its own half of D, a group of 4 K boxes and
+//     one of 4 V boxes with a full and an empty barrier each. The producer
+//     sends tile t's K before tile t - 1's V, whose slots free later.
 //   - K and V are read from L2 once per 64 query rows (21.7 GB at the
 //     training chunk's (8, 9216, 1, 512)). Pairing neighbouring query tiles
 //     in 2-block clusters that multicast each box to both halved that
-//     traffic and measured 1-4% slower on the H100 (PERF.md, PR 5): L2 does
-//     not bound this kernel, so it has no cluster.
+//     traffic and measured 4-5% slower on an H100 (PERF.md §6): L2 does not
+//     bound this kernel, so it has no cluster.
 //   - No log-sum-exp: the VAE, the only caller, has no backward.
 
 #include <math.h>
