@@ -66,8 +66,8 @@
 //   - K and V are read from L2 once per 64 query rows (21.7 GB at the
 //     training chunk's (8, 9216, 1, 512)). Pairing neighbouring query tiles
 //     in 2-block clusters that multicast each box to both halved that
-//     traffic and measured 4-5% slower on an H100 (PERF.md §6): L2 does not
-//     bound this kernel, so it has no cluster.
+//     traffic and measured about 5% slower on an H100 (PERF.md §6): L2
+//     does not bound this kernel, so it has no cluster.
 //   - No log-sum-exp: the VAE, the only caller, has no backward.
 
 #include <math.h>
