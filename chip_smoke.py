@@ -53,6 +53,23 @@ The training slice (EDM fine-tuning) adds:
      losses and gradients finite, level-0 norm1's gradient nonzero,
      the checkpoint's trainable leaves moved and frozen ones not, its Adam
      state over the trainable leaves, the UNet left holding its EMA.
+The loop slice (the evolving-memory loop) adds:
+  3. rows at VGGT's global attention, (1, 26025, 16, 64) and (1, 51009, 16,
+     64) at the loop's two rebuilds (25 and 49 frames x 1041 tokens), and a
+     head dim the wrapper zero-pads to the D = 64 kernel, (2, 9216, 2, 16);
+  9. a tiny fp32 3-segment loop on the card, each stage (clip generation,
+     memory rebuild) held against the same stage on the CPU given the card's
+     inputs (tiny pipeline and VGGT, 64x128 panoramas, 16x512 crops, the
+     same weights and draws), within the CPU parity test's tolerances;
+  10. the full-width loop: 3 segments of 25 frames at 1024x576, N = 4 denoise
+     steps, bf16, random weights from seed 0, 384x512 crops, through
+     `build_pipeline`, `build_reconstructor("full")`, `Navigator` and
+     `UnifiedLoop.run_episode` on a synthetic camera path; per-stage seconds,
+     peak memory and each memory stack's coverage; every frame and memory
+     finite, and the flash launches, reset just before the episode, equal to
+     `expected_loop_launches` (3 (5N + 18) + 2 x 24 = 162 at N = 4).
+The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
+the card: the entry points refuse a dtype other than bf16 on CUDA.
 It prints, in order before the last line, the run's wall seconds, the card's
 name and power limit, a JSON line of the kernels, and ends with the JSON line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
@@ -112,6 +129,12 @@ FWD_MS_LINES = {"vae_encoder_mid": 1.7, "vae_encoder_mid_train": 5.0, "vae_decod
 FULL_POWER_W = 700.0
 FILL_MS = 20.0  # a timing repeats a call until about this much device time has passed
 STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5  # a tenth of one update at lr 1e-4
+# The tiny loop on the card against the CPU, the CPU parity test's tolerances
+# (tests/test_torch_port_loop.py): frames atol 2e-3; at most 0.5% of memory
+# pixels may differ by more than 2e-3 (a splatted point near a pixel edge may
+# land in the neighbouring pixel under fp32 noise).
+SMALL_LOOP = dict(num_segments=3, num_frames=5, num_target_view=4, pers_height=16, pers_width=512)
+LOOP_FRAME_ATOL, LOOP_PIXEL_ATOL, LOOP_MAX_FLIPPED = 2e-3, 2e-3, 0.005
 
 
 def log(msg: str) -> None:
@@ -161,13 +184,14 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
     the last DROPPED_KEYS keys must fail them. The training row also writes
     the log-sum-exp, held against the plain one within LSE_ATOL. A profiler
     trace names the kernel that served each row, which must be FWD_KERNELS'
-    for its head dim; with the card at FULL_POWER_W the D = 512 rows must
-    keep to FWD_MS_LINES.
+    for its head dim (padded to the kernel's); with the card at FULL_POWER_W
+    the D = 512 rows must keep to FWD_MS_LINES. Bound and rate count the
+    work at the true head dim.
     """
     import torch
     import torch.nn.functional as F
 
-    from evoworld_tpu_torch.ops.flash_attention import _plain_forward, flash_attention_forward
+    from evoworld_tpu_torch.ops.flash_attention import _plain_forward, flash_attention_forward, kernel_head_dim
 
     cases = [  # (label, B, Sq, Skv, H, D, kv_len, use_exp2, with_lse)
         ("unet_l0_spatial", 50, 9216, 9216, 5, 64, 9216, False, False),
@@ -183,6 +207,12 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         # UNet level-1 attention (plain torch on the main path), the shape of
         # scripts/exp_l1_attn.py's shipped-flash experiment
         ("unet_l1_spatial", 50, 2304, 2304, 10, 64, 2304, False, False),
+        # VGGT's global attention at the loop's two rebuilds, 25 and 49 frames x
+        # 1041 tokens: no tile divides either length (51009 = 398 x 128 + 65)
+        ("vggt_global_25", 1, 26025, 26025, 16, 64, 26025, False, False),
+        ("vggt_global_49", 1, 51009, 51009, 16, 64, 51009, False, False),
+        # a head dim without a kernel (the tiny presets' 16), zero-padded to 64
+        ("padded_d16", 2, 9216, 9216, 2, 16, 9216, False, False),
     ]
     g = torch.Generator(device=dev).manual_seed(1234)
     shapes = []
@@ -203,8 +233,10 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         cut = errors(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[0], ref)
         lse_err = (lse - ref_lse).abs().max().item() if with_lse else None
         del ref, ref_lse
+        # the function's work at its true head dim (a padded row does d_kernel / d times as much)
         flops = 4 * b * h * sq * kv_len * d
         nbytes = (2 * sq + 2 * kv_len) * b * h * d * 2 + (b * h * sq * 4 if with_lse else 0)
+        d_kernel = kernel_head_dim(d, backward=with_lse)
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         ms = cuda_ms(run, reps=None)
         traced = kernel_ms_from_trace(run, sorted(set(FWD_KERNELS.values())))
@@ -215,15 +247,15 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         bound_ms = max(ops_ms, bytes_ms)
         ms_line = FWD_MS_LINES.get(label)
         row = dict(label=label, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2,
-                   with_lse=with_lse, kernel=served, kernel_ms=traced[FWD_KERNELS[d]], **err,
+                   with_lse=with_lse, kernel=served, kernel_ms=traced[FWD_KERNELS[d_kernel]], d_kernel=d_kernel, **err,
                    lse_max_abs_err=lse_err, dropped_keys_rel_err=[cut["max_rel_err"], cut["mean_rel_err"]],
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                    tflops=flops / ms / 1e9, bound_share=bound_ms / ms, at_most_library=ms <= library_ms,
                    ms_line=ms_line, within_ms_line=ms <= (ms_line or math.inf))
         log("kernel flash_attn_fwd " + json.dumps(row))
-        if served != [FWD_KERNELS[d]]:
-            raise AssertionError(f"{label} ran {served}, expected {FWD_KERNELS[d]}")
+        if served != [FWD_KERNELS[d_kernel]]:
+            raise AssertionError(f"{label} ran {served}, expected {FWD_KERNELS[d_kernel]}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
             raise AssertionError(f"forward kernel took {ms:.3f} ms at {label}, over its line of {ms_line} ms")
         if not within_limits(err):
@@ -526,9 +558,10 @@ def check_small_train_step_against_cpu(dev, seed: int) -> dict:
 
     cfg = TrainConfig(total_steps=10, warmup_steps=0, learning_rate=1e-4, adam_eps=1e-4)
     f, h, w = 3, 64, 128
-    models = {d: build_trainer("tiny", seed=seed, compute_dtype=torch.float32, device=d) for d in (dev, "cpu")}
-    for gpu, cpu in zip(models[dev], models["cpu"]):
-        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    # fp32 on the card is no entry point's (they refuse it on CUDA): the same
+    # seeded CPU build twice, one copy moved to the card
+    models = {"cpu": build_trainer("tiny", seed=seed, compute_dtype=torch.float32, device="cpu"),
+              dev: tuple(m.to(dev) for m in build_trainer("tiny", seed=seed, compute_dtype=torch.float32, device="cpu"))}
     init = {k: v.detach().cpu().clone() for k, v in models["cpu"][0].state_dict().items()}
     g = torch.Generator().manual_seed(seed)
     batches = [dict(pixel_values=torch.rand((1, f, h, w, 3), generator=g) * 2 - 1,
@@ -729,6 +762,17 @@ def clip_inputs(cfg, dev, seed: int):
     return image, plucker, memory
 
 
+def pipeline_on(pipe, dev):
+    """A copy of a (CPU-built, fp32) pipeline on `dev`: fp32 on the card is no
+    entry point's, which refuse any dtype but bf16 on CUDA."""
+    import copy
+
+    from evoworld_tpu_torch.diffusion.pipeline import PanoDiffusionPipeline
+
+    models = (copy.deepcopy(m).to(dev) for m in (pipe.unet, pipe.vae, pipe.clip_tower))
+    return PanoDiffusionPipeline(*models, pipe.config, pipe.compute_dtype)
+
+
 def check_small_clip_against_cpu(dev, seed: int) -> float:
     """Tiny-width fp32 clip on the card against the same clip on the CPU."""
     import torch
@@ -737,10 +781,8 @@ def check_small_clip_against_cpu(dev, seed: int) -> float:
     from evoworld_tpu_torch.runtime import build_pipeline
 
     cfg = PipelineConfig(height=64, width=128, num_frames=5, num_steps=2)
-    gpu = build_pipeline(cfg, "tiny", seed=seed, compute_dtype=torch.float32, device=dev)
     cpu = build_pipeline(cfg, "tiny", seed=seed, compute_dtype=torch.float32, device="cpu")
-    for name in ("unet", "vae", "clip_tower"):
-        getattr(cpu, name).load_state_dict({k: v.cpu() for k, v in getattr(gpu, name).state_dict().items()})
+    gpu = pipeline_on(cpu, dev)
     image, plucker, memory = clip_inputs(cfg, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     latents = torch.randn((5, 8, 16, 4), generator=g, device=dev)
@@ -752,6 +794,181 @@ def check_small_clip_against_cpu(dev, seed: int) -> float:
     if not err <= 2e-3:
         raise AssertionError(f"small clip on the card differs from the CPU by {err}")
     return err
+
+
+def synthetic_path(rows: int, seed: int):
+    """(scaled rows, unscaled rows), (rows, 6) OpenCV pose rows of a seeded
+    walk: ~0.4 units forward a frame with a little sideways drift and a few
+    degrees of yaw; positions scaled by the pipeline's pos_scale 0.1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    steps = rng.normal(size=(rows, 6)) * np.array([0.05, 0.0, 0.05, 0.0, 3.0, 0.0]) + np.array([0, 0, 0.4, 0, 0, 0])
+    camera_params = np.cumsum(steps, axis=0).astype(np.float32)
+    scaled = camera_params.copy()
+    scaled[:, :3] *= 0.1
+    return scaled, camera_params
+
+
+def flipped_share(a, b) -> float:
+    """Share of pixels of (..., H, W, 3) stacks that differ by more than LOOP_PIXEL_ATOL."""
+    return ((a.float() - b.float()).abs() > LOOP_PIXEL_ATOL).any(-1).float().mean().item()
+
+
+def check_small_loop_against_cpu(dev, seed: int) -> dict:
+    """Tiny fp32 3-segment loop on the card, each stage held against the same
+    stage on the CPU given the card's inputs: the same CPU-built weights (a
+    copy moved to the card) and draws. Stage by stage, because the random tiny
+    UNet spreads any change of its conditioning over the whole next clip (one
+    flipped memory pixel in 32768 moved segment 1 by 0.08 in a free-running
+    comparison), as in tests/test_torch_port_loop.py."""
+    import copy
+
+    import torch
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+    from evoworld_tpu_torch.loop.navigator import Navigator
+    from evoworld_tpu_torch.loop.unified import LoopConfig, UnifiedLoop
+    from evoworld_tpu_torch.models.vggt.model import make_reconstructor
+    from evoworld_tpu_torch.runtime import build_pipeline, build_reconstructor
+
+    f, h, w = SMALL_LOOP["num_frames"], 64, 128
+    cpu_pipe = build_pipeline(PipelineConfig(height=h, width=w, num_frames=f, num_steps=2), "tiny", seed=seed,
+                              compute_dtype=torch.float32, device="cpu")
+    cpu_recon = build_reconstructor("tiny", seed=seed, compute_dtype=torch.float32, device="cpu")
+    gpu_recon = make_reconstructor(copy.deepcopy(cpu_recon.model).to(dev), torch.float32)
+    cpu_loop = UnifiedLoop(Navigator(cpu_pipe, num_frames=f), cpu_recon, LoopConfig(**SMALL_LOOP))
+    loop = UnifiedLoop(Navigator(pipeline_on(cpu_pipe, dev), num_frames=f), gpu_recon, LoopConfig(**SMALL_LOOP))
+    calls = {"generate": [], "rebuild": []}
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[name].append((args, kwargs, out))
+            return out
+        return call
+
+    loop.navigator.generate_segment = recorded("generate", loop.navigator.generate_segment)
+    loop.rebuild_memory = recorded("rebuild", loop.rebuild_memory)
+    scaled, camera_params = synthetic_path(3 * (f - 1) + f + 4, seed)
+    g = torch.Generator().manual_seed(seed)
+    start = torch.rand((h, w, 3), generator=g) * 2 - 1
+    draws = [dict(latents=torch.randn((f, h // 8, w // 8, 4), generator=g).to(dev),
+                  cond_noise=torch.randn((f + 1, h, w, 3), generator=g).to(dev)) for _ in range(SMALL_LOOP["num_segments"])]
+    out = loop.run_episode(start.to(dev), scaled, camera_params, draws=draws)
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def on_cpu(fn, args, kwargs):
+        return fn(*(cpu(a) for a in args), **{k: cpu(v) for k, v in kwargs.items()})
+
+    result = dict(
+        frame_max_abs_err=[(o.cpu() - on_cpu(cpu_loop.navigator.generate_segment, a, k)).abs().max().item()
+                           for a, k, o in calls["generate"]],
+        memory_flipped_share=[flipped_share(o.cpu(), on_cpu(cpu_loop.rebuild_memory, a, k)) for a, k, o in calls["rebuild"]],
+        memory_coverage=[(m.sum(-1) > 0).float().mean().item() for m in out["memories"]],
+        frame_atol=LOOP_FRAME_ATOL, max_flipped=LOOP_MAX_FLIPPED)
+    log("small loop card vs CPU, stage by stage (64x128, 3 segments of 5 frames, 2 steps, 16x512 crops, fp32) "
+        + json.dumps(result))
+    kept = [o if i == 0 else o[1:] for i, (_, _, o) in enumerate(calls["generate"])]
+    if not (all(torch.equal(a, b) for a, b in zip(out["segments"], kept, strict=True))
+            and all(torch.equal(a, o) for a, (_, _, o) in zip(out["memories"], calls["rebuild"], strict=True))):
+        raise AssertionError("the small loop's result is not the frames and memories its stages made")
+    if len(result["memory_flipped_share"]) != 2 or not all(c > 0 for c in result["memory_coverage"]):
+        raise AssertionError(f"the small loop rendered no memory to compare: {result}")
+    if max(result["frame_max_abs_err"]) > LOOP_FRAME_ATOL or max(result["memory_flipped_share"]) > LOOP_MAX_FLIPPED:
+        raise AssertionError(f"the small loop on the card differs from the CPU: {result}")
+    return result
+
+
+def vggt_tokens_per_frame(vggt_config, pers_hw) -> tuple[int, int]:
+    """(aggregator, patch-encoder) tokens a frame for perspective crops of
+    `pers_hw`, at the width VGGT's preprocessing resizes them to."""
+    agg = vggt_config.aggregator
+    width = 518  # load_and_preprocess_images: width 518, height rounded to whole patches
+    height = int(round(pers_hw[0] * width / pers_hw[1] / agg.patch_size)) * agg.patch_size
+    patches = (height // agg.patch_size) * (width // agg.patch_size)
+    return 1 + agg.num_register_tokens + patches, 1 + agg.dino_num_register_tokens + patches
+
+
+def expected_loop_launches(steps: int, loop_cfg, vggt_config, flash_min_seq: int) -> int:
+    """Flash launches of one episode: 5N + 18 per clip, and per rebuild one
+    launch for each VGGT attention whose sequence reaches `flash_min_seq`: the
+    global attention (frames x tokens, once per aggregator pair), the frame
+    attention and the patch encoder's (tokens a frame), the camera head's
+    trunk (one token a frame, trunk depth x 4 refinements). A rebuild after
+    segment k sees num_frames + k (num_frames - 1) frames."""
+    agg = vggt_config.aggregator
+    tokens, dino_tokens = vggt_tokens_per_frame(vggt_config, (loop_cfg.pers_height, loop_cfg.pers_width))
+    total = loop_cfg.num_segments * (5 * steps + 18)
+    for k in range(loop_cfg.num_segments - 1):
+        frames = loop_cfg.num_frames + k * (loop_cfg.num_frames - 1)
+        total += agg.depth * ((frames * tokens >= flash_min_seq) + (tokens >= flash_min_seq))
+        total += agg.patch_encoder_depth * (dino_tokens >= flash_min_seq)
+        total += vggt_config.camera_trunk_depth * 4 * (frames >= flash_min_seq)
+    return total
+
+
+def full_loop(dev, steps: int, seed: int) -> dict:
+    """The full-width 3-segment episode through the entry points; checks
+    launches, shapes and finiteness, and reads stage seconds, peak memory and
+    each memory stack's coverage."""
+    import torch
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+    from evoworld_tpu_torch.loop.navigator import Navigator
+    from evoworld_tpu_torch.loop.unified import LoopConfig, UnifiedLoop
+    from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from evoworld_tpu_torch.runtime import VGGT_PRESETS, build_pipeline, build_reconstructor
+
+    cfg, loop_cfg = PipelineConfig(num_steps=steps), LoopConfig()
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, "full", seed=seed, compute_dtype=torch.bfloat16, device=dev)
+    recon = build_reconstructor("full", seed=seed, compute_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    log(f"full loop built in {time.perf_counter() - t0:.3f} s: VGGT {sum(p.numel() for p in recon.model.parameters())} "
+        f"parameters, pipeline {sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.clip_tower) for p in m.parameters())}")
+    rows = loop_cfg.num_segments * loop_cfg.num_target_view + loop_cfg.num_frames
+    scaled, camera_params = synthetic_path(rows, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    start = torch.rand((cfg.height, cfg.width, 3), generator=g, device=dev) * 2 - 1
+    loop = UnifiedLoop(Navigator(pipe, num_frames=loop_cfg.num_frames), recon, loop_cfg)
+    expected = expected_loop_launches(steps, loop_cfg, VGGT_PRESETS["full"], FLASH_MIN_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    flash_attention.launches = flash_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    out = loop.run_episode(start, scaled, camera_params, draws=g, timings=timings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, bwd_launches = flash_attention.launches, flash_attention_backward.launches
+    finite = all(bool(torch.isfinite(t).all()) for t in out["segments"] + out["memories"])
+    # frames are clamped to [0, 1]; memory colours are resampled crops (convex
+    # combinations of [0, 1] values, which fp32 rounding may take past 1 by an ulp)
+    in_range = all(t.min().item() >= 0 and t.max().item() <= 1 for t in out["segments"]) and all(
+        t.min().item() >= 0 and t.max().item() <= 1 + 1e-6 for t in out["memories"])
+    result = dict(segments=loop_cfg.num_segments, frames=[t.shape[0] for t in out["segments"]], num_steps=steps,
+                  seconds=seconds, stage_seconds=timings, peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                  memory_coverage=[(m.sum(-1) > 0).float().mean().item() for m in out["memories"]],
+                  flash_launches=launches, expected_launches=expected, bwd_launches=bwd_launches,
+                  finite=finite, in_range=in_range)
+    log("loop " + json.dumps(result))
+    shapes = [tuple(t.shape) for t in out["segments"]] + [tuple(t.shape) for t in out["memories"]]
+    want = [(loop_cfg.num_frames - (i > 0), cfg.height, cfg.width, 3) for i in range(loop_cfg.num_segments)]
+    want += [(loop_cfg.num_target_view, cfg.height, cfg.width, 3)] * (loop_cfg.num_segments - 1)
+    if shapes != want:
+        raise AssertionError(f"the episode's shapes are {shapes}, expected {want}")
+    if not (finite and in_range):
+        raise AssertionError("the episode's frames or memories are not finite values in [0, 1]")
+    if launches != expected or bwd_launches:
+        raise AssertionError(f"the episode launched the flash kernels {launches} / {bwd_launches} times, "
+                             f"expected {expected} / 0")
+    del loop, pipe, recon, out
+    torch.cuda.empty_cache()
+    return result
 
 
 def full_clips(dev, steps: int, seed: int) -> list[dict]:
@@ -841,6 +1058,8 @@ def main() -> int:
     check_small_clip_against_cpu(dev, SEED)
     runs = full_clips(dev, STEPS, SEED)
     torch.cuda.empty_cache()
+    check_small_loop_against_cpu(dev, SEED)
+    loop_run = full_loop(dev, STEPS, SEED)
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
     train_run = full_train(dev, TRAIN_STEPS, SEED)
@@ -855,8 +1074,9 @@ def main() -> int:
         "source": "evoworld_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "evoworld_tpu/ops/attention.py:170",
         "also_replaces": "evoworld_tpu/ops/flash_attention.py:137",
-        "launches": fwd_total,
-        "launches_by_path": {"train_steps": fwd_total, "clip": runs[-1]["flash_launches"]},
+        "launches": loop_run["flash_launches"],
+        "launches_by_path": {"loop": loop_run["flash_launches"], "train_steps": fwd_total,
+                             "clip": runs[-1]["flash_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash["shapes"]),
         "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"],
@@ -877,7 +1097,7 @@ def main() -> int:
         "also_replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "reached_from": "evoworld_tpu/ops/attention.py:170",
         "launches": bwd_total,
-        "launches_by_path": {"train_steps": bwd_total, "clip": 0},
+        "launches_by_path": {"train_steps": bwd_total, "clip": 0, "loop": loop_run["bwd_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"]),
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],

@@ -5,17 +5,24 @@ against it by the tests in `tests/test_torch_port_*.py`. This package imports
 torch, numpy and the standard library only; it never imports JAX or
 `evoworld_tpu`.
 
-Layer map (bottom-up), the slices ported so far (one clip; EDM fine-tuning):
-  geometry/   camera poses, equirectangular ray grids, Pluecker embeddings
+Layer map (bottom-up), the slices ported so far (one clip; EDM fine-tuning;
+the evolving-memory loop):
+  geometry/   camera poses, equirectangular and pinhole ray grids, Pluecker
+              embeddings, spherical resampling, similarity alignment
   ops/        attention dispatch, the hand-written Hopper flash-attention
               kernels (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) joined
-              by an autograd Function, their plain versions, resize
-  models/     nn.Modules with diffusers/transformers parameter names:
-              spatio-temporal UNet, temporal VAE, CLIP vision tower
+              by an autograd Function, their plain versions, resizes, the
+              z-buffer splat
+  models/     nn.Modules with upstream parameter names: spatio-temporal UNet,
+              temporal VAE, CLIP vision tower (diffusers/transformers), VGGT
+              (facebookresearch/vggt)
   diffusion/  Euler/Karras scheduler, EDM helpers, the single-clip pipeline
-  data/, utils/  batch prefetching, the JSONL metrics tracker
+  memory/     the point-cloud confidence filter, memory panorama rendering
+  loop/       the navigator and the evolving-memory loop (UnifiedLoop)
+  data/, utils/  camera poses, batch prefetching, the JSONL metrics tracker
   train/      the EDM loss, optimizer and step; the training loop
-  runtime.py  build_pipeline and build_trainer: the entry points
+  runtime.py  build_pipeline, build_trainer and build_reconstructor: the
+              entry points
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without a
 card they raise instead of falling back.

@@ -1,4 +1,5 @@
-"""Per-pixel ray direction grids (counterpart of `evoworld_tpu/geometry/rays.py`).
+"""Per-pixel ray direction grids, equirectangular and pinhole (counterpart of
+`evoworld_tpu/geometry/rays.py`).
 
 RDF convention: X right, Y down, Z forward; the panorama centre maps to +Z,
 the top row to -Y.
@@ -31,3 +32,23 @@ def equirect_ray_grid(height: int, width: int, device: str | torch.device = "cpu
     d_y = sin_t.expand(height, width)
     d_z = cos_t * cos_p
     return torch.stack([d_x, d_y, d_z], dim=-1)
+
+
+def pinhole_ray_grid(
+    height: int, width: int, fov_x_deg: float = 90.0, device: str | torch.device = "cpu"
+) -> torch.Tensor:
+    """Unit ray directions of a pinhole camera looking down +Z (RDF).
+
+    Horizontal field of view `fov_x_deg`, square pixels, pixel centres (the
+    principal point at ((W-1)/2, (H-1)/2)).
+
+    Returns:
+        (height, width, 3) fp32 unit vectors in camera coordinates.
+    """
+    fx = (width / 2.0) / torch.tan(torch.deg2rad(torch.tensor(fov_x_deg, dtype=torch.float32, device=device)) / 2.0)
+    xs = torch.arange(width, dtype=torch.float32, device=device) - (width - 1) / 2.0
+    ys = torch.arange(height, dtype=torch.float32, device=device) - (height - 1) / 2.0
+    x = xs[None, :].expand(height, width) / fx
+    y = ys[:, None].expand(height, width) / fx
+    d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    return d / torch.linalg.norm(d, dim=-1, keepdim=True)

@@ -13,6 +13,13 @@ trees, or drawn at random.
 It takes numpy leaves (any array with `np.asarray`) and returns a state dict
 that `load_state_dict(strict=True)` accepts.
 
+`vggt_params_from_jax` inverts `evoworld_tpu/models/vggt/weights.py::
+convert_vggt_state_dict` the same way: scanned block stacks (`dino_blocks`,
+`blocks_K/frame|global`, the camera trunk) unstack into upstream's numbered
+blocks, the flat special tokens fold back into upstream's `pos_embed`
+(1, 1+P, C), `camera_token` (1, 2, 1, C) and `register_token` (1, 2, R, C),
+and transposed-conv kernels take back their spatial flip.
+
 `init_random_` fills a module in place with deterministic role-aware random
 values, the rules of `host_random_params`: norm weights 1, `mix_factor` 0.5,
 biases and the class embedding 0, weights of rank >= 2 normal with std
@@ -131,6 +138,89 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             value = value.astype(np.float32)
         sd[name] = torch.tensor(value)
     return sd
+
+
+_VGGT_BLOCK_MODULES = {"qkv": "attn.qkv", "proj": "attn.proj", "q_norm": "attn.q_norm", "k_norm": "attn.k_norm",
+                       "fc1": "mlp.fc1", "fc2": "mlp.fc2", "norm1": "norm1", "norm2": "norm2"}
+_VGGT_RENAMES = (  # Flax module path (regex, leaf excluded) -> upstream module path
+    (r"aggregator/patch_embed", "aggregator.patch_embed.patch_embed.proj"),
+    (r"aggregator/dino_norm", "aggregator.patch_embed.norm"),
+    (r"camera_head/poseLN_modulation", "camera_head.poseLN_modulation.1"),
+    (r"camera_head/pose_branch_fc(\d)", r"camera_head.pose_branch.fc\1"),
+    (r"(depth|point)_head/project_(\d)", r"\1_head.projects.\2"),
+    (r"(depth|point)_head/resize_(\d)", r"\1_head.resize_layers.\2"),
+    (r"(depth|point)_head/layer_(\d)_rn", r"\1_head.scratch.layer\2_rn"),
+    (r"(depth|point)_head/refinenet(\d)/res(\d)_conv(\d)", r"\1_head.scratch.refinenet\2.resConfUnit\3.conv\4"),
+    (r"(depth|point)_head/refinenet(\d)/out_conv", r"\1_head.scratch.refinenet\2.out_conv"),
+    (r"(depth|point)_head/output_conv1", r"\1_head.scratch.output_conv1"),
+    (r"(depth|point)_head/output_conv2_(\d)", r"\1_head.scratch.output_conv2.\2"),
+)
+
+
+def _vggt_kernel(module: str, value: np.ndarray) -> np.ndarray:
+    """A Flax kernel in the torch layout of upstream's module."""
+    if value.ndim == 2:  # Dense (I, O); the DPT projections are upstream 1x1 convs
+        return value.T[:, :, None, None] if ".projects." in module else value.T
+    if re.search(r"resize_layers\.[01]$", module):  # ConvTranspose: (kh, kw, I, O) -> (I, O, kh, kw), flipped
+        return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    return value.transpose(3, 2, 0, 1)  # Conv HWIO -> OIHW
+
+
+def vggt_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax params of `evoworld_tpu.models.vggt.VGGT` (`{"params": ...}` or the
+    inner dict) -> the port's VGGT state dict, upstream names (fp32 CPU tensors
+    unless the leaves carry another float dtype)."""
+    flat = _flatten(tree.get("params", tree))
+    sd: dict[str, np.ndarray] = {}
+
+    def block(prefix: str, rel: tuple, value: np.ndarray, start: int = 0) -> None:
+        """Unstack one scanned ViTBlock leaf into upstream blocks `prefix.format(start + i)`."""
+        if rel[0] in ("ls1", "ls2"):
+            name, tf = f"{rel[0]}.gamma", None
+        else:
+            name = f"{_VGGT_BLOCK_MODULES[rel[0]]}.{'bias' if rel[1] == 'bias' else 'weight'}"
+            tf = (lambda a: a.T) if rel[1] == "kernel" else None
+        for i, layer in enumerate(value):
+            sd[prefix.format(start + i) + name] = tf(layer) if tf else layer
+
+    seg_len = {int(p[1][len("blocks_"):]): v.shape[0] for p, v in flat.items()
+               if p[0] == "aggregator" and p[1].startswith("blocks_") and p[2:] == ("frame", "norm1", "scale")}
+    seg_start = {seg: sum(seg_len[k] for k in seg_len if k < seg) for seg in seg_len}
+    tokens: dict[str, np.ndarray] = {}
+    for path, value in flat.items():
+        if path[:3] == ("aggregator", "dino_blocks", "block"):
+            block("aggregator.patch_embed.blocks.{}.", path[3:], value)
+        elif path[0] == "aggregator" and path[1].startswith("blocks_"):
+            block(f"aggregator.{path[2]}_blocks.{{}}.", path[3:], value, seg_start[int(path[1][len("blocks_"):])])
+        elif path[:3] == ("camera_head", "trunk", "block"):
+            block("camera_head.trunk.{}.", path[3:], value)
+        elif path[0] == "aggregator" and len(path) == 2:
+            tokens[path[1]] = value
+        elif path == ("camera_head", "empty_pose_tokens"):
+            sd["camera_head.empty_pose_tokens"] = value
+        else:
+            module = "/".join(path[:-1])
+            for pattern, rep in _VGGT_RENAMES:
+                if re.fullmatch(pattern, module):
+                    module = re.sub(pattern, rep, module)
+                    break
+            else:
+                module = module.replace("/", ".")
+            leaf = {"scale": "weight", "kernel": "weight"}.get(path[-1], path[-1])
+            sd[f"{module}.{leaf}"] = _vggt_kernel(module, value) if path[-1] == "kernel" else value
+    d = tokens["pos_embed"].shape[-1]
+    sd["aggregator.patch_embed.pos_embed"] = np.concatenate([tokens["pos_embed_cls"], tokens["pos_embed"]])[None]
+    sd["aggregator.patch_embed.cls_token"] = tokens["dino_cls_token"].reshape(1, 1, d)
+    sd["aggregator.patch_embed.register_tokens"] = tokens["dino_register_tokens"][None]
+    sd["aggregator.camera_token"] = np.stack([tokens["camera_token_first"], tokens["camera_token"]])[None]
+    sd["aggregator.register_token"] = np.stack([tokens["register_token_first"], tokens["register_token"]])[None]
+    out = {}
+    for name, value in sd.items():
+        value = np.ascontiguousarray(value)
+        if value.dtype.kind != "f" or value.dtype.itemsize < 4:
+            value = value.astype(np.float32)
+        out[name] = torch.tensor(value)
+    return out
 
 
 @torch.no_grad()

@@ -39,6 +39,11 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     and `flash_bwd_dq`, which recompute the scores in each and need no
     reduction across blocks;
   - backward, D = 512: no kernel; a CUDA call that needs a gradient raises.
+Other head dims are zero-padded along D up to the smallest kernel head dim
+that holds them (`kernel_head_dim`: 64, 128, or 512 for the forward without
+a gradient) and the output is sliced back; the scale stays that of the true
+D. Zero columns leave Q K^T and P V as they were, so this is the same
+kernel, at (padded D / D) times the work: 4x at the tiny VGGT's D = 16.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from evoworld_tpu_torch.ops import _build
 
@@ -191,6 +197,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, grads
         raise ValueError(f"lse must be contiguous fp32 {(b, h, sq)}, got {lse.dtype} {tuple(lse.shape)}")
 
 
+def kernel_head_dim(d: int, backward: bool = False) -> int | None:
+    """The smallest head dim of a kernel that holds `d` (of the backward's, or
+    of the forward's with `backward` False), or None where none does."""
+    return next((k for k in (BWD_HEAD_DIMS if backward else HEAD_DIMS) if d <= k), None)
+
+
+def _pad_head_dim(tensors, d_to: int):
+    """Zero-pad each (B, S, H, D) tensor along D to `d_to`."""
+    return [F.pad(t, (0, d_to - t.shape[-1])) for t in tensors]
+
+
 def _fwd_fn():
     fn = _build.load(SOURCE).flash_attn_fwd
     if fn.argtypes is None:
@@ -220,7 +237,14 @@ def _bwd_fn():
 def flash_attention_forward(q, k, v, scale, kv_len, use_exp2=False, with_lse=False):
     """(output, row log-sum-exp fp32 (B, H, Sq) or None): the forward kernel, or its
     plain version for CPU tensors; no autograd. `with_lse` on CUDA needs a head
-    dim the backward kernel takes."""
+    dim the backward kernel takes. A head dim without a kernel of its own is
+    zero-padded to `kernel_head_dim` (the backward's with `with_lse`) and the
+    output sliced back."""
+    d = q.shape[-1]
+    d_kernel = kernel_head_dim(d, backward=with_lse)
+    if d_kernel is not None and d_kernel != d:
+        out, lse = flash_attention_forward(*_pad_head_dim((q, k, v), d_kernel), scale, kv_len, use_exp2, with_lse)
+        return out[..., :d].contiguous(), lse
     if q.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             out, lse = _plain_forward(q, k, v, scale, kv_len, use_exp2)
@@ -267,11 +291,16 @@ def flash_attention_backward(
     buffer shaped like q (padded to whole 64-query tiles) that the fused pass
     sums dQ into; dQ may differ in its last bf16 bit between two calls. CPU
     tensors go to `flash_attention_backward_plain`. Returns contiguous tensors
-    shaped like q, k and v.
+    shaped like q, k and v. A head dim under 128 without a kernel of its own is
+    zero-padded to `kernel_head_dim` and the gradients sliced back.
     """
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    d_kernel = kernel_head_dim(d, backward=True)
+    if d_kernel is not None and d_kernel != d:
+        grads = flash_attention_backward(*_pad_head_dim((q, k, v, o, do), d_kernel), lse, scale, kv_len)
+        return tuple(g[..., :d].contiguous() for g in grads)
     if q.device.type == "cpu":
         with torch.autocast("cpu", enabled=False):
             return flash_attention_backward_plain(q, k, v, o, do, lse, scale, kv_len)
@@ -334,10 +363,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Exact attention over (B, S, H, D) tensors; keys at or past `kv_len` masked.
 
-    CUDA tensors go to the Hopper kernel (bf16, D in 64/128/512, strided
-    layouts allowed as long as D is contiguous); CPU tensors to
-    `flash_attention_plain`. Under grad with an input that requires it, the
-    call goes through `FlashAttentionFunction` (on CUDA only at D 64/128).
+    CUDA tensors go to the Hopper kernel (bf16, D up to 512, padded to 64,
+    128 or 512, strided layouts allowed as long as D is contiguous); CPU
+    tensors to `flash_attention_plain`. Under grad with an input that requires it, the
+    call goes through `FlashAttentionFunction` (on CUDA only at D <= 128).
     Returns (B, Sq, H, D) in q's dtype.
     """
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)

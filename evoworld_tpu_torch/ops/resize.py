@@ -1,10 +1,19 @@
-"""Antialiased resize + separable Gaussian blur (counterpart of `evoworld_tpu/ops/resize.py`).
+"""Resizes (counterpart of `evoworld_tpu/ops/resize.py`, and of the
+`jax.image.resize` calls of the VGGT modules).
 
-Downscales the first frame to 224x224 for CLIP: sigma = max((factor-1)/2,
-1e-3), an odd kernel of about 4 sigma, reflect padding, then bicubic
-interpolation with torch's align_corners=True convention (a = -0.75) as two
-small matmuls. Channels-last (N, H, W, C) at the public functions, as in the
-JAX package.
+- `resize_antialiased`: downscales the first frame to 224x224 for CLIP:
+  sigma = max((factor-1)/2, 1e-3), an odd kernel of about 4 sigma, reflect
+  padding, then bicubic interpolation with torch's align_corners=True
+  convention (a = -0.75) as two small matmuls.
+- `resize_bilinear_align_corners`: the DPT head's upsampling (torch's
+  align_corners=True bilinear), computed in fp32.
+- `resize_half_pixel`: `jax.image.resize` with "bilinear" or "cubic" (Keys,
+  a = -0.5): half-pixel centres, weights renormalised at the borders, and a
+  kernel widened by the factor when downsampling (its antialias). VGGT's
+  preprocessing upsamples 384x512 crops to 392x518, where no antialias term
+  enters and it equals F.interpolate(mode="bilinear", align_corners=False);
+  the positional embedding's 37x37 -> 28x37 bicubic resize downsamples.
+Channels-last (..., H, W, C) at the public functions, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -86,3 +95,60 @@ def bicubic_align_corners(images: torch.Tensor, out_hw: tuple[int, int]) -> torc
     ww = torch.from_numpy(_resize_matrix(w, ow)).to(images.device, images.dtype)
     x = torch.einsum("oh,nhwc->nowc", wh, images)
     return torch.einsum("pw,nowc->nopc", ww, x)
+
+
+def bilinear_align_corners_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Align-corners bilinear resize of (N, C, H, W), in fp32, returned in x's dtype."""
+    if tuple(x.shape[-2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x.float(), size=tuple(out_hw), mode="bilinear", align_corners=True).to(x.dtype)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize with align_corners=True sampling (output pixel i samples
+    input coordinate i*(H-1)/(H'-1)), on (..., H, W, C)."""
+    lead = x.shape[:-3]
+    h, w, c = x.shape[-3:]
+    nchw = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    out = bilinear_align_corners_nchw(nchw, out_hw).permute(0, 2, 3, 1)
+    return out.reshape(*lead, *out_hw, c)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys cubic kernel with a = -0.5, as `jax.image.resize`'s "cubic"."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+_HALF_PIXEL_KERNELS = {"bilinear": lambda x: np.maximum(0.0, 1.0 - np.abs(x)), "cubic": _keys_cubic}
+
+
+def _half_pixel_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
+    """(n_out, n_in) weights of `jax.image.resize` along one axis (antialias on)."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    # One rounding to fp32 of the exact (i + 0.5) * s - 0.5, as the fused
+    # multiply-add of compiled code gives it (XLA's, and F.interpolate's).
+    sample = ((np.arange(n_out) + 0.5) * np.float64(np.float32(inv_scale)) - 0.5).astype(np.float32)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / np.float32(kernel_scale)
+    weights = _HALF_PIXEL_KERNELS[method](x).astype(np.float32)
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                       weights / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], weights, 0.0).T.astype(np.float32)
+
+
+def resize_half_pixel(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """`jax.image.resize` over the H and W axes of (..., H, W, C), in fp32 and
+    returned in x's dtype; an axis whose size does not change is left as it is."""
+    h, w = x.shape[-3], x.shape[-2]
+    out = x.float()
+    if out_hw[0] != h:
+        wh = torch.from_numpy(_half_pixel_matrix(h, out_hw[0], method)).to(x.device)
+        out = torch.einsum("oh,...hwc->...owc", wh, out)
+    if out_hw[1] != w:
+        ww = torch.from_numpy(_half_pixel_matrix(w, out_hw[1], method)).to(x.device)
+        out = torch.einsum("pw,...hwc->...hpc", ww, out)
+    return out.to(x.dtype)

@@ -1,8 +1,16 @@
 """Runtime assembly (counterpart of `evoworld_tpu/runtime.py`): the pipeline
-for generation and the three models for training.
+for generation, the three models for training, and the VGGT reconstructor of
+the evolving-memory loop.
 
 Random weights only for now: the repository holds no checkpoint, so loading
-diffusers safetensors directories waits until one is available.
+diffusers safetensors directories or a VGGT checkpoint waits until one is
+available.
+
+On CUDA every entry point takes bfloat16 only: the Hopper flash-attention
+kernels are bf16 kernels, and the attention dispatch never falls back to
+plain attention on the card. Another compute dtype raises ValueError there
+before any weight is drawn (fp16 and fp32 kernels are queued, ROADMAP.md §2
+and §3.1); the CPU takes any dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ from evoworld_tpu_torch.diffusion.pipeline import (
 from evoworld_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
 from evoworld_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
 from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
+from evoworld_tpu_torch.models.vggt.aggregator import AggregatorConfig
+from evoworld_tpu_torch.models.vggt.model import VGGT, Reconstructor, VGGTConfig, make_reconstructor
+from evoworld_tpu_torch.models.weights import init_random_
 from evoworld_tpu_torch.train.train_step import freeze_master_cast
 
 #: Model configurations by preset: "full" is SVD-XT's architecture with the
@@ -34,6 +45,32 @@ PRESETS = {
     ),
 }
 
+#: VGGT configurations by preset: "full" is VGGT-1B's (embed 1024, 24 frame /
+#: global pairs, 16 heads, a 24-block patch encoder), "tiny" the JAX package's
+#: smoke-test widths (embed 64, 4 pairs, 4 heads, one encoder block).
+VGGT_PRESETS = {
+    "full": VGGTConfig(),
+    "tiny": VGGTConfig(aggregator=AggregatorConfig(
+        embed_dim=64, depth=4, num_heads=4, num_register_tokens=2, output_layers=(0, 1, 2, 3),
+        patch_encoder_depth=1)),
+}
+
+
+def _check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) -> None:
+    """Refuse a compute dtype the card's kernels do not take (before any work)."""
+    if torch.device(device).type == "cuda" and compute_dtype != torch.bfloat16:
+        raise ValueError(
+            f"compute_dtype {compute_dtype} on CUDA: the port's Hopper flash-attention kernels take "
+            "bfloat16 only (ROADMAP.md §3.1; fp16 and fp32 kernels are queued in §2); use "
+            "torch.bfloat16 on the card, or device='cpu'"
+        )
+
+
+def _preset(presets: dict, name: str):
+    if name not in presets:
+        raise ValueError(f"unknown model_preset {name!r}; choose from {sorted(presets)}")
+    return presets[name]
+
 
 def build_pipeline(
     pipeline_config: PipelineConfig = PipelineConfig(),
@@ -45,12 +82,12 @@ def build_pipeline(
     """Build the diffusion pipeline with deterministic random weights.
 
     Runs on CUDA unless `device="cpu"` is passed; raises RuntimeError when
-    CUDA is asked for and absent.
+    CUDA is asked for and absent, ValueError for a compute dtype other than
+    bfloat16 on CUDA.
     """
+    _check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
-    if model_preset not in PRESETS:
-        raise ValueError(f"unknown model_preset {model_preset!r}; choose from {sorted(PRESETS)}")
-    unet_cfg, vae_cfg, clip_cfg = PRESETS[model_preset]
+    unet_cfg, vae_cfg, clip_cfg = _preset(PRESETS, model_preset)
     return make_random_pipeline(
         pipeline_config, unet_cfg, vae_cfg, clip_cfg, seed=seed, compute_dtype=compute_dtype, device=dev
     )
@@ -68,12 +105,12 @@ def build_trainer(
     then cast to the master-weight policy: fp32 trainable parameters,
     `compute_dtype` frozen ones; its blocks are checkpointed (remat). The VAE and
     CLIP are frozen in `compute_dtype`. Runs on CUDA unless `device="cpu"` is
-    passed; raises RuntimeError when CUDA is asked for and absent.
+    passed; raises RuntimeError when CUDA is asked for and absent, ValueError
+    for a compute dtype other than bfloat16 on CUDA.
     """
+    _check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
-    if model_preset not in PRESETS:
-        raise ValueError(f"unknown model_preset {model_preset!r}; choose from {sorted(PRESETS)}")
-    unet_cfg, vae_cfg, clip_cfg = PRESETS[model_preset]
+    unet_cfg, vae_cfg, clip_cfg = _preset(PRESETS, model_preset)
 
     def gen(salt):
         return torch.Generator(device=dev).manual_seed(seed * 3 + salt)
@@ -83,3 +120,36 @@ def build_trainer(
     vae = random_model(AutoencoderKLTemporal, vae_cfg, gen(1), dev, compute_dtype).eval().requires_grad_(False)
     clip = random_model(CLIPVisionTower, clip_cfg, gen(2), dev, compute_dtype).eval().requires_grad_(False)
     return unet, vae, clip
+
+
+def _keep_fp32(name: str) -> bool:
+    """Leaves the reference keeps in fp32: norm affines, LayerScales, the pose seed."""
+    return "norm" in name or name.endswith(".gamma") or name.endswith("empty_pose_tokens")
+
+
+def build_reconstructor(
+    model_preset: str = "full",
+    seed: int = 0,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+) -> Reconstructor:
+    """The loop's VGGT reconstructor with deterministic random weights.
+
+    The model is built on the meta device and filled by `init_random_` from a
+    generator seeded with `seed` on `device`; norm affines, LayerScales and
+    the camera head's pose seed stay fp32, every other leaf is cast to
+    `compute_dtype`. The depth head runs in chunks of 8 frames.
+    Runs on CUDA unless `device="cpu"` is passed; raises RuntimeError when
+    CUDA is asked for and absent, ValueError for a compute dtype other than
+    bfloat16 on CUDA.
+    """
+    _check_compute_dtype(device, compute_dtype)
+    dev = resolve_device(device)
+    config = _preset(VGGT_PRESETS, model_preset)
+    with torch.device("meta"):
+        model = VGGT(config)
+    model = init_random_(model.to_empty(device=dev), torch.Generator(device=dev).manual_seed(seed))
+    for name, p in model.named_parameters():
+        if not _keep_fp32(name):
+            p.data = p.data.to(compute_dtype)
+    return make_reconstructor(model.requires_grad_(False), compute_dtype)

@@ -16,8 +16,16 @@ import torch
 from evoworld_tpu.ops.attention import _xla_attention
 from evoworld_tpu.ops.attention import multi_head_attention as j_mha
 from evoworld_tpu.ops.flash_attention import flash_attention as j_flash
+from evoworld_tpu_torch import runtime
 from evoworld_tpu_torch.ops import attention as tattn
-from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from evoworld_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_forward,
+    flash_attention_plain,
+    kernel_head_dim,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -102,3 +110,44 @@ def test_unknown_impl_raises():
     q = torch.zeros(1, 4, 1, 8)
     with pytest.raises(ValueError):
         tattn.multi_head_attention(q, q, q, impl="builtin")
+
+
+@pytest.mark.parametrize("d,d_kernel", [(16, 64), (80, 128), (200, 512)])
+def test_padded_head_dim_equals_the_unpadded_plain_route(d, d_kernel):
+    """A head dim without a kernel is zero-padded to the next kernel's and the
+    output sliced back (the scale stays the true D's): zero columns leave
+    Q K^T and P V as they were. The same on the CPU, where the padded call
+    runs the plain version."""
+    assert kernel_head_dim(d) == d_kernel
+    q, k, v = _t(*_qkv(2, 70, 90, 3, d, seed=4))
+    got = flash_attention(q, k, v, kv_len=80)
+    assert got.shape == q.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), flash_attention_plain(q, k, v, kv_len=80).numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [16, 80])
+def test_padded_head_dim_backward_equals_the_unpadded_plain_route(d):
+    q, k, v = _t(*_qkv(2, 70, 90, 3, d, seed=5))
+    do = torch.from_numpy(np.random.default_rng(6).normal(size=q.shape).astype(np.float32))
+    out, lse = flash_attention_forward(q, k, v, d ** -0.5, 80, with_lse=True)  # padded to the backward's 64 / 128
+    np.testing.assert_allclose(out.numpy(), flash_attention_plain(q, k, v, kv_len=80).numpy(), rtol=1e-6, atol=1e-6)
+    got = flash_attention_backward(q, k, v, out, do, lse, kv_len=80)
+    want = flash_attention_backward_plain(q, k, v, out, do, lse, kv_len=80)
+    for a, b, t in zip(got, want, (q, k, v), strict=True):
+        assert a.shape == t.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("build", ["build_pipeline", "build_trainer", "build_reconstructor"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_build_refuses_non_bf16_on_cuda_before_anything(monkeypatch, build, dtype):
+    """The Hopper kernels take bf16 only: a CUDA build in another dtype raises
+    ValueError before the device is resolved (so with no card: not the
+    missing-CUDA RuntimeError) and before any weight is drawn."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for drawing in ("init_random_", "make_random_pipeline", "random_model"):
+        monkeypatch.setattr(runtime, drawing, lambda *a, **kw: pytest.fail("weights drawn"))
+    with pytest.raises(ValueError, match="bfloat16"):
+        getattr(runtime, build)(compute_dtype=dtype, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):  # bf16 passes the check and meets the missing card
+        getattr(runtime, build)(compute_dtype=torch.bfloat16, device="cuda")

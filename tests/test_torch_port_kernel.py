@@ -1,7 +1,7 @@
 """The port's Hopper flash-attention kernels (forward and backward) on the card.
 
 Held against `flash_attention_plain` and `flash_attention_backward_plain`
-(fp32 on the same bf16 inputs) with the limits `chip_smoke.py` uses: the error over the RMS of the plain output at
+(fp32 on the same bf16 inputs, at the true head dim where the wrapper pads it) with the limits `chip_smoke.py` uses: the error over the RMS of the plain output at
 most 0.1 (max) and 0.01 (mean). Keys and values past `kv_len` are set so
 large (K = 10, V = 100) that a missed mask would swamp the output. Every test
 carries the `cuda` marker and skips without a card. The file imports no JAX,
@@ -56,7 +56,12 @@ def _rel_errors(out, ref):
      (1, 1, 300, 300, 1, 512, False), (2, 130, 200, 129, 2, 512, True), (1, 64, 100, 50, 2, 512, False),
      (2, 200, 128, 64, 1, 512, False),
      # 3 x 2 x 37 blocks: more than one wave of 132 SMs
-     (3, 2340, 2340, 2340, 2, 512, False)],
+     (3, 2340, 2340, 2340, 2, 512, False),
+     # head dims without a kernel of their own, zero-padded to 64 and 128
+     (2, 300, 333, 333, 2, 16, False), (1, 200, 177, 150, 2, 80, True),
+     # VGGT's global attention at the loop's two rebuilds: 25 and 49 frames x 1041 tokens
+     # (51009 = 398 x 128 + 65: the last query and key tiles are ragged)
+     (1, 26025, 26025, 26025, 16, 64, False), (1, 51009, 51009, 51009, 16, 64, False)],
 )
 def test_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d, use_exp2):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -80,8 +85,9 @@ def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda, d):
     assert max_rel <= MAX_REL_ERR and mean_rel <= MEAN_REL_ERR
     with pytest.raises(ValueError):
         flash_attention(q.float(), k.float(), v.float())  # fp32: the kernel takes bf16 only
+    wide = torch.zeros((1, 64, 1, 520), device=cuda).bfloat16()
     with pytest.raises(ValueError):
-        flash_attention(q[..., :48], k[..., :48], v[..., :48])  # head dim 48
+        flash_attention(wide, wide, wide)  # head dim 520: no kernel holds it
 
 
 @pytest.mark.cuda
@@ -109,7 +115,8 @@ def test_forward_twice_is_bit_identical_on_card(cuda, d):
      (1, 65, 256, 256, 2, 64),      # one query past a tile
      (1, 1, 130, 130, 2, 64),       # a single query
      (2, 200, 400, 250, 2, 64),     # kv_len < Skv inside the second key tile, Skv inside the fourth
-     (4, 1024, 2048, 2048, 4, 64)],  # 16 x 4 x 4 blocks: more than one wave of 132 SMs
+     (4, 1024, 2048, 2048, 4, 64),  # 16 x 4 x 4 blocks: more than one wave of 132 SMs
+     (1, 300, 333, 300, 2, 16)],    # head dim 16, zero-padded to the D = 64 kernel
 )
 def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
     """dQ, dK, dV on strided views (q a head-major transpose, k and v halves of
