@@ -12,7 +12,9 @@ Phases, each fatal on failure:
      the training shape with its log-sum-exp), within limits relative to the
      plain output's RMS that a deliberately wrong result must fail, and time
      the kernel, the plain version and, as a yardstick only, one PyTorch
-     library call (short calls repeated to fill FILL_MS); each row prints
+     library call (short calls repeated to fill FILL_MS); the D = 512 rows
+     run a second time asking for the log-sum-exp, held against the plain
+     one within LSE_ATOL and timed apart; each row prints
      its TFLOP/s, its share of the bound and the kernel that served it, read
      from a profiler trace (flash_fwd_wgmma at D = 64/128, flash_fwd_wide at
      512, or the run fails); on a card at its full power limit the D = 512
@@ -34,10 +36,10 @@ The training slice (EDM fine-tuning) adds:
      order); timed beside its bound, its plain version and
      scaled_dot_product_attention's backward, each kernel of the call apart;
      on a card at its full power limit the D = 64 rows must keep to
-     BWD_MS_LINES; then, as a yardstick for the D = 512 backward that the
-     port has not ported, scaled_dot_product_attention's backward at the
-     VAE's (8, 9216, 1, 512) and (2, 9216, 1, 512), with the backend that
-     took it and those that refused;
+     BWD_MS_LINES. The CLI slice adds the D = 512 backward (the VAE's
+     mid-block attention, which no path differentiates) at (8, 9216, 1, 512),
+     (2, 9216, 1, 512) and a ragged length, the same checks, and a second
+     call that must repeat dQ, dK and dV bit for bit (no sums across blocks);
   6. one full-width level-0 TransformerSpatioTemporalModel (320 channels,
      5 heads, 9216 tokens, 5 frames, bf16 under autocast), forward and
      backward through the kernels against the dispatch's plain route;
@@ -68,6 +70,20 @@ The loop slice (the evolving-memory loop) adds:
      peak memory and each memory stack's coverage; every frame and memory
      finite, and the flash launches, reset just before the episode, equal to
      `expected_loop_launches` (3 (5N + 18) + 2 x 24 = 162 at N = 4).
+The CLI slice (checkpoints, image IO, the production CLIs) adds:
+  3c. torch.autograd through one full-width VAE mid-block attention (512
+     channels, one head of 512, 9216 tokens, bf16) on the card: the kernels
+     (the wide forward with its log-sum-exp, the D = 512 backward) against
+     the block's plain route, output and every gradient within BLOCK_REL_RMS;
+  11. the production CLIs at full width: a synthetic 1024x576 episode written
+     with the port's PNG writer, full-width random checkpoints (UNet, VAE and
+     CLIP safetensors with conv_in cut to 8 channels, a VGGT model.pt) in a
+     temporary directory, then `cli.run_single_segment.main` and
+     `cli.run_unified.main` at N = 4 on the card from them; the loaded
+     parameters must equal the written ones, the PNGs' counts and sizes the
+     episode's, the flash launches 5N + 18 and 162, and the writer's encode
+     must overlap the compute; it prints the write, load, generate,
+     reconstruct, splat, host decode and host save seconds.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card: the entry points refuse a dtype other than bf16 on CUDA.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -81,6 +97,7 @@ import json
 import logging
 import math
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -115,6 +132,8 @@ FWD_KERNELS = {64: "flash_fwd_wgmma", 128: "flash_fwd_wgmma", 512: "flash_fwd_wi
 BWD_DESIGNS = {
     64: ("fused wgmma pass", ("flash_bwd_fused", "flash_bwd_store_dq", "flash_bwd_delta")),
     128: ("mma.sync dK/dV and dQ kernels", ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")),
+    512: ("mma.sync dK/dV and dQ kernels, a 256-column half a block, warp pairs splitting the scores' sum",
+          ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")),
 }
 # Two calls of the fused backward add the same fp32 terms into dQ in another
 # order, which can move a sum across a bf16 rounding boundary: one bf16 step
@@ -232,13 +251,24 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         err = errors(out, ref)
         cut = errors(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[0], ref)
         lse_err = (lse - ref_lse).abs().max().item() if with_lse else None
-        del ref, ref_lse
+        del ref
         # the function's work at its true head dim (a padded row does d_kernel / d times as much)
         flops = 4 * b * h * sq * kv_len * d
         nbytes = (2 * sq + 2 * kv_len) * b * h * d * 2 + (b * h * sq * 4 if with_lse else 0)
-        d_kernel = kernel_head_dim(d, backward=with_lse)
+        d_kernel = kernel_head_dim(d)
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         ms = cuda_ms(run, reps=None)
+        wide_lse = None
+        if d_kernel == 512 and not with_lse:  # the same call asking for the LSE the D = 512 backward reads
+
+            def run_lse():
+                return flash_attention_forward(q, k, v, scale, kv_len, use_exp2, with_lse=True)
+
+            lse512 = run_lse()[1]
+            wide_lse = dict(ms=cuda_ms(run_lse, reps=None), lse_max_abs_err=(lse512 - ref_lse).abs().max().item(),
+                            dropped_keys_lse_err=(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[1]
+                                                  - ref_lse).abs().max().item())
+            del lse512
         traced = kernel_ms_from_trace(run, sorted(set(FWD_KERNELS.values())))
         served = [n for n, t in traced.items() if t > 0]
         plain_ms = cuda_ms(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2), reps=1)
@@ -252,7 +282,8 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                    tflops=flops / ms / 1e9, bound_share=bound_ms / ms, at_most_library=ms <= library_ms,
-                   ms_line=ms_line, within_ms_line=ms <= (ms_line or math.inf))
+                   ms_line=ms_line, within_ms_line=ms <= (ms_line or math.inf), with_lse_run=wide_lse)
+        del ref_lse
         log("kernel flash_attn_fwd " + json.dumps(row))
         if served != [FWD_KERNELS[d_kernel]]:
             raise AssertionError(f"{label} ran {served}, expected {FWD_KERNELS[d_kernel]}")
@@ -264,6 +295,8 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
             raise AssertionError(f"the limits do not catch {DROPPED_KEYS} dropped keys at {label}: {cut}")
         if with_lse and not lse_err <= LSE_ATOL:
             raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {LSE_ATOL})")
+        if wide_lse and not (wide_lse["lse_max_abs_err"] <= LSE_ATOL < wide_lse["dropped_keys_lse_err"]):
+            raise AssertionError(f"the wide kernel's log-sum-exp at {label}: {wide_lse} (limit {LSE_ATOL})")
         shapes.append(row)
         del q, k, v, qf, kf, vf, out, lse
         torch.cuda.empty_cache()
@@ -301,11 +334,13 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
     forward's own output and log-sum-exp. The kernel's log-sum-exp must be
     within LSE_ATOL of the plain one, which the plain one over DROPPED_KEYS
     fewer keys must miss. dQ, dK and dV each within the RMS-relative limits
-    at the training shape, a D = 128 shape and the ragged row (keys past
-    `kv_len` set to K = 10, V = 100, whose dK and dV rows must be exactly
-    zero); the plain backward
-    without the last DROPPED_KEYS keys must fail them. A second call must
-    repeat dK and dV exactly and dQ within DQ_REPEAT_RTOL. With the card at
+    at the training shape, a D = 128 shape, the VAE's D = 512 shapes and two
+    ragged rows (keys past `kv_len` set to K = 10, V = 100, whose dK and dV
+    rows must be exactly zero); the plain backward without the last
+    DROPPED_KEYS keys must fail them. A second call must repeat dK and dV
+    exactly and dQ within DQ_REPEAT_RTOL (exactly where D is not 64: those
+    kernels sum nothing across blocks), and the trace must hold every kernel
+    of the row's design. With the card at
     FULL_POWER_W the D = 64 rows must also keep to BWD_MS_LINES. Times: the whole
     call with CUDA events (the zeroing of the dQ buffer included), each of
     its kernels apart from a profiler trace, the plain version, and as a
@@ -326,6 +361,11 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         ("unet_l0_train", 25, 9216, 9216, 5, 64, 9216),
         ("head_dim_128", 2, 9216, 9216, 2, 128, 9216),
         ("ragged_padded_kv", 1, 5205, 5632, 16, 64, 5205),
+        # the VAE's mid-block attention at the training encoder's chunk of 8
+        # and at the clip's encode of 2, and a length no tile divides
+        ("vae_mid_d512", 8, 9216, 9216, 1, 512, 9216),
+        ("vae_mid_d512_b2", 2, 9216, 9216, 1, 512, 9216),
+        ("ragged_d512", 1, 5205, 5632, 1, 512, 5205),
     ]
     g = torch.Generator(device=dev).manual_seed(4321)
     shapes = []
@@ -342,7 +382,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         dq_gap = (again[0].float() - grads[0].float()).abs()
         dq_rms = grads[0].float().pow(2).mean().sqrt()
         repeat = dict(dkdv_equal=torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2]),
-                      dq_max_abs_gap=dq_gap.max().item(),
+                      dq_equal=torch.equal(again[0], grads[0]), dq_max_abs_gap=dq_gap.max().item(),
                       dq_ok=bool((dq_gap <= DQ_REPEAT_RTOL * grads[0].float().abs() + DQ_REPEAT_RMS_ATOL * dq_rms).all()))
         del again, dq_gap
         # The reference chain is plain end to end: the plain forward's own
@@ -402,53 +442,16 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
                                  f"{DROPPED_KEYS} dropped keys give {cut_lse_err})")
         if not masked_zero:
             raise AssertionError(f"dK/dV rows past kv_len are not zero at {label}")
-        if not (repeat["dkdv_equal"] and repeat["dq_ok"]):
+        if not (repeat["dkdv_equal"] and repeat["dq_ok"]) or (d != 64 and not repeat["dq_equal"]):
             raise AssertionError(f"a second backward call differs from the first at {label}: {repeat}")
+        if not all(split.values()):
+            raise AssertionError(f"the trace at {label} lacks a kernel of {design}: {split}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
             raise AssertionError(f"backward kernel took {ms:.3f} ms at {label}, over its line of {row['ms_line']} ms")
         shapes.append(row)
         del q, k, v, out, lse, do, grads, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return {"shapes": shapes}
-
-
-def library_backward_d512(dev) -> list[dict]:
-    """scaled_dot_product_attention's backward (forward + backward less its
-    forward) at the VAE's D = 512 training shapes: a yardstick for the K1
-    backward at D = 512, which the port has not ported (no path runs it).
-    Backends are tried in PyTorch's order; the first that takes the call is
-    timed and the refusals of the others are kept."""
-    import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    rows = []
-    g = torch.Generator(device=dev).manual_seed(5678)
-    for label, b in (("vae_encoder_mid_train", 8), ("vae_encoder_mid", 2)):
-        q, k, v = (torch.randn((b, 1, 9216, 512), generator=g, device=dev).bfloat16().requires_grad_()
-                   for _ in range(3))
-        do = torch.randn((b, 1, 9216, 512), generator=g, device=dev).bfloat16()
-        refused, backend, fwd_ms, ms = {}, None, None, None
-        for candidate in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                          SDPBackend.MATH):
-            try:
-                with sdpa_kernel(candidate):
-                    with torch.no_grad():
-                        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=None)
-                    ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v).backward(do), reps=None) - fwd_ms
-            except RuntimeError as e:
-                refused[candidate.name] = str(e).strip().splitlines()[0][:160]
-                continue
-            backend = candidate.name
-            break
-        flops = 10 * b * 9216 * 9216 * 512
-        row = dict(label=label, shape=[b, 9216, 1, 512], backend=backend, library_ms=ms, library_fwd_ms=fwd_ms,
-                   refused=refused, bound_ms=flops / PEAK_BF16_FLOPS * 1e3)
-        log("library backward d512 " + json.dumps(row))
-        rows.append(row)
-        del q, k, v, do
-        torch.cuda.empty_cache()
-    return rows
 
 
 def kernel_ms_from_trace(fn, names, reps: int = 3) -> dict:
@@ -534,6 +537,67 @@ def check_level0_transformer(dev) -> dict:
     if not result["norm1_grad_rms"] > 0 or errs[worst] > BLOCK_REL_RMS:
         raise AssertionError(f"kernel route differs from the plain route: {result}")
     del block, got, ref, got_grads, ref_grads
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_vae_mid_gradient(dev) -> dict:
+    """torch.autograd through one full-width VAE mid-block attention (512
+    channels, one head of 512, 9216 tokens, the clip's encode batch of 2,
+    bf16 weights and activations) on the card: the kernel route (the wide
+    forward with its log-sum-exp, then the D = 512 backward kernels) against
+    the same block's plain route (attention in torch with fp32 logits), same
+    weights and inputs; output, input gradient and every weight gradient
+    within BLOCK_REL_RMS, but one: a bias shared by all keys moves every
+    score of a query by the same amount, which the softmax ignores, so
+    to_k.bias's exact gradient is zero and both routes give only rounding
+    noise there; its size on each route must stay under BLOCK_REL_RMS of
+    to_q.bias's gradient instead."""
+    import torch
+
+    from evoworld_tpu_torch.models.vae import VAEAttention
+    from evoworld_tpu_torch.models.weights import init_random_
+    from evoworld_tpu_torch.ops import attention as tattn
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    batch, ch, height, width = 2, 512, 72, 128
+    g = torch.Generator(device=dev).manual_seed(77)
+    with torch.device("meta"):
+        block = VAEAttention(ch)
+    block = init_random_(block.to_empty(device=dev), g).bfloat16()
+    x = torch.randn((batch, ch, height, width), generator=g, device=dev).bfloat16()
+    dout = torch.randn((batch, ch, height, width), generator=g, device=dev).bfloat16()
+
+    def run():
+        block.zero_grad(set_to_none=True)
+        xin = x.clone().requires_grad_()
+        out = block(xin)
+        out.backward(dout)
+        return {"out": out.detach(), "dx": xin.grad, **{n: p.grad.clone() for n, p in block.named_parameters()}}
+
+    counts = flash_attention.launches, flash_attention_backward.launches
+    got = run()
+    torch.cuda.synchronize()
+    launches = [flash_attention.launches - counts[0], flash_attention_backward.launches - counts[1]]
+    min_seq = tattn.FLASH_MIN_SEQ
+    tattn.FLASH_MIN_SEQ = 1 << 30  # the reference: the plain route
+    try:
+        ref = run()
+    finally:
+        tattn.FLASH_MIN_SEQ = min_seq
+    zero = "to_k.bias"
+    errs = {n: rel_rms(got[n], ref[n]) for n in got if n != zero}
+    worst = max(errs, key=errs.get)
+    q_bias = ref["to_q.bias"].float().norm().item()
+    noise = [got[zero].float().norm().item() / q_bias, ref[zero].float().norm().item() / q_bias]
+    result = dict(shape=[batch, ch, height, width], launches_fwd_bwd=launches, rel_rms=errs, worst=[worst, errs[worst]],
+                  key_bias_grad_over_query_bias_grad=noise, limit=BLOCK_REL_RMS)
+    log("vae mid-block attention gradient " + json.dumps(result))
+    if launches != [1, 1]:
+        raise AssertionError(f"the VAE attention launched (forward, backward) {launches}, expected [1, 1]")
+    if errs[worst] > BLOCK_REL_RMS or max(noise) > BLOCK_REL_RMS:
+        raise AssertionError(f"the D = 512 gradient differs from the plain route: {result}")
+    del block, got, ref
     torch.cuda.empty_cache()
     return result
 
@@ -971,6 +1035,217 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     return result
 
 
+def png_size(path: str) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    return struct.unpack(">II", head[16:24])
+
+
+def write_episode(root: str, rows: int, memories: int, height: int, width: int, seed: int, dev) -> float:
+    """A synthetic episode in the dataset's layout, written with the port's PNG
+    writer: `rows` panoramas (smooth seeded colour fields with a little noise),
+    `memories` rendered memory panoramas and `camera_poses.txt` (a seeded walk,
+    Unity convention). Returns the seconds spent."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from evoworld_tpu_torch.data.native_io import save_png_batch
+    from evoworld_tpu_torch.geometry.pose import UNITY_TO_OPENCV
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def images(n):
+        coarse = torch.rand((n, 3, 9, 16), generator=g, device=dev)
+        fine = F.interpolate(coarse, size=(height, width), mode="bicubic", align_corners=False)
+        fine = fine + 0.02 * torch.randn(fine.shape, generator=g, device=dev)
+        return (fine.clamp(0, 1) * 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+
+    os.makedirs(os.path.join(root, "panorama"))
+    os.makedirs(os.path.join(root, "rendered_panorama_vggt_open3d"))
+    save_png_batch([os.path.join(root, "panorama", f"{i:03d}.png") for i in range(1, rows + 1)], images(rows))
+    save_png_batch([os.path.join(root, "rendered_panorama_vggt_open3d", f"{i:02d}.png") for i in range(memories)],
+                   images(memories))
+    _, camera_params = synthetic_path(rows, seed)
+    unity = camera_params * np.asarray(UNITY_TO_OPENCV, np.float32)  # the sign flips are their own inverse
+    with open(os.path.join(root, "camera_poses.txt"), "w") as f:
+        f.write("Frame,PosX,PosY,PosZ,RotX,RotY,RotZ\n")
+        for i, row in enumerate(unity):
+            f.write(",".join([str(i + 1)] + [repr(float(x)) for x in row]) + "\n")
+    return time.perf_counter() - t0
+
+
+def write_checkpoints(root: str, config, dev, seed: int):
+    """Checkpoints from random models of `config`'s presets (full width on the
+    card): a diffusers pipeline directory (unet/ in two safetensors shards
+    with conv_in cut to SVD's 8 input channels, vae/, image_encoder/) and
+    VGGT's model.pt. Returns the source pipeline and VGGT model, the files'
+    bytes and the write seconds."""
+    import os
+
+    import torch
+
+    from evoworld_tpu_torch.config import compute_dtype
+    from evoworld_tpu_torch.models.weights import save_safetensors
+    from evoworld_tpu_torch.runtime import build_pipeline, build_reconstructor
+
+    rt, dtype = config.runtime, compute_dtype(config.runtime)
+    pipe = build_pipeline(config.pipeline, rt.model_preset, seed=seed + 5, compute_dtype=dtype, device=dev)
+    vggt = build_reconstructor("tiny" if rt.vggt_tiny else "full", seed=seed + 5, compute_dtype=dtype,
+                               device=dev).model
+    t0 = time.perf_counter()
+    for sub, model in (("unet", pipe.unet), ("vae", pipe.vae), ("image_encoder", pipe.clip_tower)):
+        os.makedirs(os.path.join(root, sub))
+        state = model.state_dict()
+        if sub == "unet":
+            state["conv_in.weight"] = state["conv_in.weight"][:, :8]
+        names = list(state)
+        shards = [names[: len(names) // 2], names[len(names) // 2:]] if sub == "unet" else [names]
+        for i, shard in enumerate(shards):
+            save_safetensors({n: state[n] for n in shard},
+                             os.path.join(root, sub, f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"))
+    torch.save({"model": {k: v.cpu() for k, v in vggt.state_dict().items()}}, os.path.join(root, "model.pt"))
+    seconds = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    return pipe, vggt, nbytes, seconds
+
+
+def same_parameters(loaded, source, cut_conv_in: bool = False) -> bool:
+    """Every tensor of `loaded`'s state dict equals `source`'s (conv_in: the
+    first 8 input channels equal and the rest zero, with `cut_conv_in`)."""
+    import torch
+
+    src = source.state_dict()
+    for name, t in loaded.state_dict().items():
+        want = src[name]
+        if cut_conv_in and name == "conv_in.weight":
+            if not (torch.equal(t[:, :8], want[:, :8]) and not t[:, 8:].any()):
+                return False
+        elif not torch.equal(t, want.to(t.dtype)):
+            return False
+    return set(src) == set(loaded.state_dict())
+
+
+def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
+    """The production CLIs at full width from checkpoint directories: a
+    synthetic 1024x576 episode (97 panoramas, 24 memory renders) and
+    full-width random checkpoints written to a temporary directory, then
+    `cli.run_single_segment.main` and `cli.run_unified.main` (N steps, bf16,
+    on the card, no random fallback). Checks that the loaded parameters equal
+    the written ones, the PNGs' counts and sizes, the flash launches (5N + 18
+    for the clip, `expected_loop_launches` for the episode, no backward), and
+    that the writer thread's encode overlapped the card's compute (it was
+    busy longer than the episode waited for it at the end). `overrides`
+    (CLI flags) cut the configuration down for a rehearsal off the card."""
+    import os
+    import tempfile
+
+    import torch
+
+    from evoworld_tpu_torch.cli import run_single_segment, run_unified
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from evoworld_tpu_torch.runtime import VGGT_PRESETS
+
+    config = apply_overrides(EvoWorldConfig(), [f"--pipeline.num_steps={steps}", f"--runtime.seed={seed}", *overrides])
+    loop_cfg, height, width = config.loop, config.pipeline.height, config.pipeline.width
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rows = loop_cfg.num_segments * loop_cfg.num_target_view + loop_cfg.num_frames
+    captured = {}
+
+    def capturing(module, name):
+        build = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            captured[name] = build(*args, **kwargs)
+            return captured[name]
+        return build, wrapped
+
+    with tempfile.TemporaryDirectory() as tmp:
+        episode, ckpt = os.path.join(tmp, "episode_000"), os.path.join(tmp, "svd")
+        episode_s = write_episode(episode, rows, loop_cfg.num_target_view, height, width, seed, dev)
+        src_pipe, src_vggt, ckpt_bytes, write_s = write_checkpoints(ckpt, config, dev, seed)
+        argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={ckpt}",
+                f"--runtime.vggt_checkpoint={ckpt}/model.pt", "--runtime.allow_random_weights=false",
+                f"--pipeline.num_steps={steps}", f"--runtime.seed={seed}", f"--runtime.save_dir={tmp}/out", *overrides]
+        result = dict(episode_write_s=episode_s, checkpoint_bytes=ckpt_bytes, checkpoint_write_s=write_s)
+
+        original, run_single_segment.build_pipeline = capturing(run_single_segment, "build_pipeline")
+        flash_attention.launches = flash_attention_backward.launches = 0
+        try:
+            single = run_single_segment.main(argv, device=dev)[0]
+        finally:
+            run_single_segment.build_pipeline = original
+        sync()
+        single_launches = [flash_attention.launches, flash_attention_backward.launches]
+        loaded = captured.pop("build_pipeline")
+        pipeline_equal = {name: same_parameters(getattr(loaded, name), getattr(src_pipe, name), name == "unet")
+                          for name in ("unet", "vae", "clip_tower")}
+        del loaded, src_pipe
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        original, run_unified.build_reconstructor = capturing(run_unified, "build_reconstructor")
+        flash_attention.launches = flash_attention_backward.launches = 0
+        try:
+            unified = run_unified.main(argv, device=dev)[0]
+        finally:
+            run_unified.build_reconstructor = original
+        sync()
+        unified_launches = [flash_attention.launches, flash_attention_backward.launches]
+        vggt_equal = same_parameters(captured.pop("build_reconstructor").model, src_vggt)
+        del src_vggt
+
+        def pngs(out_dir, sub):
+            names = sorted(os.listdir(os.path.join(out_dir, sub)))
+            return len(names), sorted({png_size(os.path.join(out_dir, sub, n)) for n in names})
+
+        f, t = loop_cfg.num_frames, loop_cfg.num_target_view
+        want = {"predictions": (f, [(width, height)]), "predictions_gt": (f, [(width, height)])}
+        got = {sub: pngs(single["out_dir"], sub) for sub in want}
+        want_u = {f"{kind}_{i}": (f - (i > 0), [(width, height)])
+                  for i in range(loop_cfg.num_segments) for kind in ("predictions", "predictions_gt")}
+        want_u.update({f"rendered_panorama_{i}": (t, [(width, height)]) for i in range(loop_cfg.num_segments - 1)})
+        got_u = {sub: pngs(unified["out_dir"], sub) for sub in want_u}
+
+    stages = unified["stage_seconds"]
+    vggt_config = VGGT_PRESETS["tiny" if config.runtime.vggt_tiny else "full"]
+    expected_loop = expected_loop_launches(steps, loop_cfg, vggt_config, FLASH_MIN_SEQ) if on_card else 0
+    expected_single = 5 * steps + 18 if on_card else 0  # CPU tensors take the plain versions
+    result.update(
+        single=dict(load_s=single["load_s"], host_decode_s=single["host_decode_s"], generate_s=single["generate_s"],
+                    host_save_s=single["host_save_s"], launches=single_launches, expected=[expected_single, 0],
+                    parameters_equal=pipeline_equal, pngs=got),
+        unified=dict(load_s=unified["load_s"], episode_s=unified["episode_s"],
+                     generate_s=sum(v for k, v in stages.items() if k.startswith("generate")),
+                     reconstruct_s=sum(v for k, v in stages.items() if k.startswith("reconstruct")),
+                     splat_s=sum(v for k, v in stages.items() if k.startswith("splat_render")),
+                     pers_extract_s=sum(v for k, v in stages.items() if k.startswith("pers_extract")),
+                     host_decode_s=unified["host_decode_s"], host_save_s=unified["host_save_s"],
+                     writer_busy_s=unified["writer_busy_s"], writer_wait_s=unified["writer_wait_s"],
+                     stage_seconds=stages, peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if on_card else None,
+                     launches=unified_launches, expected=[expected_loop, 0], vggt_parameters_equal=vggt_equal,
+                     pngs=got_u))
+    log("cli " + json.dumps(result))
+    if not (all(pipeline_equal.values()) and vggt_equal):
+        raise AssertionError(f"loaded parameters differ from the written ones: {pipeline_equal}, VGGT {vggt_equal}")
+    if got != want or got_u != want_u:
+        raise AssertionError(f"the CLIs wrote {got} and {got_u}, expected {want} and {want_u}")
+    if single_launches != [expected_single, 0] or unified_launches != [expected_loop, 0]:
+        raise AssertionError(f"the CLIs launched the flash kernels {single_launches} and {unified_launches} times, "
+                             f"expected {[expected_single, 0]} and {[expected_loop, 0]}")
+    if not unified["writer_busy_s"] > unified["writer_wait_s"]:
+        raise AssertionError(f"the writer's encode did not overlap the compute: {result['unified']}")
+    return result
+
+
 def full_clips(dev, steps: int, seed: int) -> list[dict]:
     """Two full-width clips (cold, warm); checks launch counts and outputs."""
     import torch
@@ -1054,12 +1329,15 @@ def main() -> int:
     power_limit_w = float(watts.group(1)) if watts else 0.0
     flash = check_flash_kernel(dev, power_limit_w)
     flash_bwd = check_flash_backward(dev, power_limit_w)
-    library_backward_d512(dev)
+    vae_grad = check_vae_mid_gradient(dev)
     check_small_clip_against_cpu(dev, SEED)
     runs = full_clips(dev, STEPS, SEED)
     torch.cuda.empty_cache()
     check_small_loop_against_cpu(dev, SEED)
     loop_run = full_loop(dev, STEPS, SEED)
+    t0 = time.perf_counter()
+    cli_run = full_cli(dev, STEPS, SEED)
+    log(f"cli phase wall seconds {time.perf_counter() - t0:.3f}")
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
     train_run = full_train(dev, TRAIN_STEPS, SEED)
@@ -1067,6 +1345,7 @@ def main() -> int:
     fwd_row = flash["shapes"][0]  # UNet level-0 attention: 5 of every 5N + 18 launches of a clip
     wide_row = next(r for r in flash["shapes"] if r["label"] == "vae_encoder_mid_train")  # 6 of 8 a step
     bwd_row = flash_bwd["shapes"][0]  # the training shape: 5 launches per step
+    d512_row = next(r for r in flash_bwd["shapes"] if r["label"] == "vae_mid_d512")
     fwd_total, bwd_total = train_run["summary"]["launches_total"]
     kernels = [{
         "name": "flash_attn_fwd",
@@ -1076,7 +1355,9 @@ def main() -> int:
         "also_replaces": "evoworld_tpu/ops/flash_attention.py:137",
         "launches": loop_run["flash_launches"],
         "launches_by_path": {"loop": loop_run["flash_launches"], "train_steps": fwd_total,
-                             "clip": runs[-1]["flash_launches"]},
+                             "clip": runs[-1]["flash_launches"], "vae_mid_gradient": vae_grad["launches_fwd_bwd"][0],
+                             "cli_single_segment": cli_run["single"]["launches"][0],
+                             "cli_unified": cli_run["unified"]["launches"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in flash["shapes"]),
         "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"],
@@ -1097,10 +1378,16 @@ def main() -> int:
         "also_replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "reached_from": "evoworld_tpu/ops/attention.py:170",
         "launches": bwd_total,
-        "launches_by_path": {"train_steps": bwd_total, "clip": 0, "loop": loop_run["bwd_launches"]},
+        "launches_by_path": {"train_steps": bwd_total, "clip": 0, "loop": loop_run["bwd_launches"],
+                             "vae_mid_gradient": vae_grad["launches_fwd_bwd"][1],
+                             "cli_single_segment": cli_run["single"]["launches"][1],
+                             "cli_unified": cli_run["unified"]["launches"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"]),
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],
+        "designs": {str(d): design for d, (design, _) in BWD_DESIGNS.items()},
+        "d512": {k: d512_row[k] for k in ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "max_abs_err", "repeat")},
         "kernel_ms": bwd_row["kernel_ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],

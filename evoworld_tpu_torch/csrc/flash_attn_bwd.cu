@@ -69,8 +69,26 @@
 //
 // D = 128 (no path of the port runs it) stays on the mma.sync kernels of the
 // first port: `flash_bwd_dkdv` (one block per 64 keys, 32-query tiles) and
-// `flash_bwd_dq` (one block per 64 queries), cp.async double buffering, S and
-// dP recomputed in both, no atomics. D = 512 has no backward kernel.
+// `flash_bwd_dq` (one block per 64 queries, 64-key tiles), cp.async double
+// buffering, S and dP recomputed in both, no atomics.
+//
+// D = 512 (the VAE's mid-block attention, one head of 512; no path of the
+// port or of the JAX package forms this gradient, the VAE being frozen) runs
+// the same two templates with their output columns split: a block owns one
+// 256-column half of dK and dV for 64 keys (or of dQ for 64 queries), the
+// two halves side by side on grid.x. A 64 x 512 fp32 gradient tile would
+// take 256 registers a thread for each of dK and dV. The block has 8 warps:
+// warps w and w + 4 own the same 16 rows, each contracts S and dP over 256
+// of the 512 columns and accumulates 128 of the block's 256 output columns,
+// and the pair swaps its fp32 partial scores through shared memory
+// (`swap_partials`), so both hold S and dP bit for bit. Each block still
+// recomputes S and dP for its half, so the pair does 11 products' worth of
+// work where the function needs 5 (2.2x), and K, V and the query tiles of 16
+// rows fill ~211 KB of shared memory (one block, eight warps, per SM). Its
+// bound is the function's: 10*B*H*Sq*kv_len*512 flops, e.g. 3.52 ms at (8,
+// 9216, 1, 512) on an H100's 989 TFLOP/s; this simple design is far from it
+// (PERF.md §6). `flash_bwd_delta` reads a 512-wide row with one warp, two
+// chunks a thread.
 
 #include "flash_attn_hopper.cuh"
 
@@ -106,13 +124,19 @@ struct BwdParams {
 
 constexpr float kPadLse = 1e30f;  // exp2(s - kPadLse) = 0 for any finite score
 
+// Threads a row of flash_bwd_delta: D / 8 (16 bytes each) up to one warp;
+// at D = 512 each of a warp's 32 threads reads two 16-byte chunks of the row.
+template <int D>
+constexpr int kDeltaTPR = D / 8 < 32 ? D / 8 : 32;
+
 // delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d] over rows (b, s, h) with
-// s < sq_pad: D / 8 threads a row, 16 bytes each, summed with shuffles inside
-// their group of lanes. With `lse2` it also writes lse * log2(e); rows in
-// [sq, sq_pad) get delta = 0 and lse2 = kPadLse.
+// s < sq_pad: kDeltaTPR<D> threads a row, 16 bytes a chunk,
+// summed with shuffles inside their group of lanes (a group never spans two
+// warps). With `lse2` it also writes lse * log2(e); rows in [sq, sq_pad) get
+// delta = 0 and lse2 = kPadLse.
 template <int D>
 __global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_rows) {
-  constexpr int TPR = D / 8;
+  constexpr int TPR = kDeltaTPR<D>;
   constexpr int RPB = 128 / TPR;
   const int64_t row = (int64_t)blockIdx.x * RPB + threadIdx.x / TPR;  // (b, s, h), h fastest
   const int c = threadIdx.x % TPR;
@@ -122,14 +146,18 @@ __global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_ro
   const bool real = row < n_rows && s < p.sq;
   float acc = 0.f;
   if (real) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(p.o + b * p.o_sb + s * p.o_ss + h * p.o_sh + c * 8);
-    const uint4 dv = *reinterpret_cast<const uint4*>(p.dout + b * p.do_sb + s * p.do_ss + h * p.do_sh + c * 8);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(d2[i]);
-      acc += x.x * y.x + x.y * y.y;
+    for (int chunk = c; chunk < D / 8; chunk += TPR) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(p.o + b * p.o_sb + s * p.o_ss + h * p.o_sh + chunk * 8);
+      const uint4 dv =
+          *reinterpret_cast<const uint4*>(p.dout + b * p.do_sb + s * p.do_ss + h * p.do_sh + chunk * 8);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(d2[i]);
+        acc += x.x * y.x + x.y * y.y;
+      }
     }
   }
 #pragma unroll
@@ -535,12 +563,43 @@ int run_fused(const BwdParams& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// D = 128: the mma.sync kernels.
-// dK/dV: one block per 64 keys; warp w owns keys 16w .. 16w + 15 of the tile.
+// D = 128 and 512: the mma.sync kernels. A block owns DC output columns of dK
+// and dV (or of dQ), the D / DC column slices side by side on grid.x, and
+// recomputes S and dP over the whole D-deep contraction. With KSPLIT = 2 (D =
+// 512) the block has 8 warps: warps w and w + 4 own the same 16 rows, each
+// takes half of the contraction of S and dP and half of the block's DC
+// columns, and the pair swaps its fp32 partial scores through shared memory,
+// so that both hold the same S and dP bit for bit (fp32 addition commutes).
+// dK/dV: one block per 64 keys and DC columns; warp w owns keys 16 (w % 4) .. + 15 of the tile.
 // ---------------------------------------------------------------------------
-template <int D, int BQ>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv(BwdParams p) {
-  constexpr int BN = 64, NT = 128, LD = D + 8;
+
+// This warp's partial S and dP (F floats each a thread) go to shared memory;
+// once its partner's are there, each adds the other's to its own. The
+// caller's next __syncthreads keeps the buffer until both have read it.
+template <int F>
+__device__ __forceinline__ void swap_partials(float (&s)[F / 4][4], float (&dp)[F / 4][4], float* xs, int warp,
+                                              int lane) {
+  float4* mine = reinterpret_cast<float4*>(xs + (warp * 32 + lane) * 2 * F);
+  const float4* theirs = reinterpret_cast<const float4*>(xs + (((warp + 4) % 8) * 32 + lane) * 2 * F);
+#pragma unroll
+  for (int i = 0; i < F / 4; ++i) {
+    mine[i] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    mine[F / 4 + i] = make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+  }
+  named_barrier_sync(1 + warp % 4, 64);
+#pragma unroll
+  for (int i = 0; i < F / 4; ++i) {
+    const float4 a = theirs[i], c = theirs[F / 4 + i];
+    s[i][0] += a.x, s[i][1] += a.y, s[i][2] += a.z, s[i][3] += a.w;
+    dp[i][0] += c.x, dp[i][1] += c.y, dp[i][2] += c.z, dp[i][3] += c.w;
+  }
+}
+
+template <int D, int DC, int BQ, int KSPLIT>
+__global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dkdv(BwdParams p) {
+  constexpr int BN = 64, NT = 128 * KSPLIT, LD = D + 8, kSlices = D / DC;
+  constexpr int CW = DC / KSPLIT;      // output columns of one warp
+  constexpr int KSTEPS = D / KSPLIT / 16;  // its 16-deep steps of the S and dP contraction
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* vs = ks + BN * LD;
@@ -548,17 +607,19 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv(BwdParams p) {
   __nv_bfloat16* dos = qs + 2 * BQ * LD;  // [2][BQ * LD]
   float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ], L * log2(e)
   float* dlt_s = lse_s + 2 * BQ;                                // [2][BQ]
+  float* xs = dlt_s + 2 * BQ;  // KSPLIT > 1: [8 warps][32 lanes][BQ / 2] partial S and dP
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
-  __nv_bfloat16* dkb = p.dk + b * p.dk_sb + h * p.dk_sh;
-  __nv_bfloat16* dvb = p.dv + b * p.dv_sb + h * p.dv_sh;
+  const int g = lane / 4, t4 = lane % 4, rg = warp % 4, half = warp / 4;
+  const int k0 = (int)(blockIdx.x / kSlices) * BN, c0 = (int)(blockIdx.x % kSlices) * DC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  __nv_bfloat16* dkb = p.dk + b * p.dk_sb + h * p.dk_sh + c0;
+  __nv_bfloat16* dvb = p.dv + b * p.dv_sb + h * p.dv_sh + c0;
 
   if (k0 >= p.kv_len) {  // every key of the tile is masked: zero rows
     const int rows = min(BN, p.skv - k0);
-    for (int i = threadIdx.x; i < rows * (D / 8); i += NT) {
-      const int r = i / (D / 8), c = i % (D / 8);
+    for (int i = threadIdx.x; i < rows * (DC / 8); i += NT) {
+      const int r = i / (DC / 8), c = i % (DC / 8);
       *reinterpret_cast<uint4*>(dkb + (int64_t)(k0 + r) * p.dk_ss + c * 8) = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(dvb + (int64_t)(k0 + r) * p.dv_ss + c * 8) = make_uint4(0, 0, 0, 0);
     }
@@ -589,16 +650,17 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv(BwdParams p) {
   load_queries(0, 0);
   cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[CW / 8][4], dv[CW / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < CW / 8; ++i) {
     dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
     dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
   }
-  const int key0 = k0 + warp * 16 + g;  // this thread's key rows: key0 and key0 + 8
+  const int key0 = k0 + rg * 16 + g;  // this thread's key rows: key0 and key0 + 8
   const bool key_ok[2] = {key0 < p.kv_len, key0 + 8 < p.kv_len};
-  const __nv_bfloat16* kw = ks + warp * 16 * LD;
-  const __nv_bfloat16* vw = vs + warp * 16 * LD;
+  const __nv_bfloat16* kw = ks + rg * 16 * LD + half * (D / KSPLIT);
+  const __nv_bfloat16* vw = vs + rg * 16 * LD + half * (D / KSPLIT);
+  const int cw = c0 + half * CW;  // this warp's first output column
   const int n_tiles = (p.sq + BQ - 1) / BQ;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -612,26 +674,29 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv(BwdParams p) {
     const float* lt = lse_s + buf * BQ;
     const float* dt = dlt_s + buf * BQ;
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries.
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries, over its share of D.
     float s[BQ / 8][4], dp[BQ / 8][4];
 #pragma unroll
     for (int nt = 0; nt < BQ / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
       dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
     }
+    const __nv_bfloat16* qh = qt + half * (D / KSPLIT);
+    const __nv_bfloat16* doh = dot + half * (D / KSPLIT);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
       uint32_t ka[4], va[4];
       load_a<LD>(ka, kw, kk, g, t4);
       load_a<LD>(va, vw, kk, g, t4);
 #pragma unroll
       for (int nt = 0; nt < BQ / 8; ++nt) {
-        const __nv_bfloat16* qr = qt + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
-        const __nv_bfloat16* dr = dot + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
+        const __nv_bfloat16* qr = qh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
+        const __nv_bfloat16* dr = doh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
         mma_bf16(s[nt], ka, ld32(qr), ld32(qr + 8));
         mma_bf16(dp[nt], va, ld32(dr), ld32(dr + 8));
       }
     }
+    if constexpr (KSPLIT > 1) swap_partials<BQ / 2>(s, dp, xs, warp, lane);
 
     // P^T and dS^T as bf16 A fragments (16 keys x 16 queries each).
     uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
@@ -651,31 +716,31 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv(BwdParams p) {
       dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
 
-    // dV += P^T dO and dK += dS^T Q.
+    // dV += P^T dO and dK += dS^T Q over this warp's CW columns.
 #pragma unroll
     for (int j = 0; j < BQ / 16; ++j) {
 #pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
+      for (int dn = 0; dn < CW / 8; dn += 2) {
         uint32_t bo[4], bq[4];
-        ldmatrix_x4_trans(bo, trans_addr<LD>(dot, j * 16, dn * 8, lane));
-        ldmatrix_x4_trans(bq, trans_addr<LD>(qt, j * 16, dn * 8, lane));
+        ldmatrix_x4_trans(bo, trans_addr<LD>(dot, j * 16, cw + dn * 8, lane));
+        ldmatrix_x4_trans(bq, trans_addr<LD>(qt, j * 16, cw + dn * 8, lane));
         mma_bf16(dv[dn], pa[j], bo[0], bo[1]);
         mma_bf16(dv[dn + 1], pa[j], bo[2], bo[3]);
         mma_bf16(dk[dn], dsa[j], bq[0], bq[1]);
         mma_bf16(dk[dn + 1], dsa[j], bq[2], bq[3]);
       }
     }
-    __syncthreads();  // every warp is done with buffer `buf` before it is refilled
+    __syncthreads();  // every warp is done with buffer `buf` (and its partner with xs) before they are refilled
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = key0 + 8 * r;
     if (row < p.skv) {
-      __nv_bfloat16* dkr = dkb + (int64_t)row * p.dk_ss;
-      __nv_bfloat16* dvr = dvb + (int64_t)row * p.dv_ss;
+      __nv_bfloat16* dkr = dkb + (int64_t)row * p.dk_ss + half * CW;
+      __nv_bfloat16* dvr = dvb + (int64_t)row * p.dv_ss + half * CW;
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
+      for (int dn = 0; dn < CW / 8; ++dn) {
         *reinterpret_cast<uint32_t*>(dkr + dn * 8 + 2 * t4) =
             pack_bf16(dk[dn][2 * r] * p.scale, dk[dn][2 * r + 1] * p.scale);
         *reinterpret_cast<uint32_t*>(dvr + dn * 8 + 2 * t4) = pack_bf16(dv[dn][2 * r], dv[dn][2 * r + 1]);
@@ -685,20 +750,24 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one block per 64 queries; warp w owns queries 16w .. 16w + 15.
+// dQ: one block per 64 queries and DC columns, key tiles of BN; warp w owns
+// queries 16 (w % 4) .. + 15 (and with KSPLIT = 2 half of the contraction and of the columns).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq(BwdParams p) {
-  constexpr int BM = 64, BN = 64, NT = 128, LD = D + 8;
+template <int D, int DC, int BN, int KSPLIT>
+__global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dq(BwdParams p) {
+  constexpr int BM = 64, NT = 128 * KSPLIT, LD = D + 8, kSlices = D / DC;
+  constexpr int CW = DC / KSPLIT, KSTEPS = D / KSPLIT / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dos = qs + BM * LD;
   __nv_bfloat16* ks = dos + BM * LD;     // [2][BN * LD]
   __nv_bfloat16* vs = ks + 2 * BN * LD;  // [2][BN * LD]
+  float* xs = reinterpret_cast<float*>(vs + 2 * BN * LD);  // KSPLIT > 1: [8 warps][32 lanes][BN / 2]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int g = lane / 4, t4 = lane % 4, rg = warp % 4, half = warp / 4;
+  const int q0 = (int)(blockIdx.x / kSlices) * BM, c0 = (int)(blockIdx.x % kSlices) * DC;
+  const int h = blockIdx.y, b = blockIdx.z;
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
@@ -712,7 +781,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq(BwdParams p) {
   load_tile<D, LD, NT>(vs, vb, p.v_ss, 0, BN, p.kv_len);
   cp_async_commit();
 
-  const int row0 = q0 + warp * 16 + g;  // this thread's query rows: row0 and row0 + 8
+  const int row0 = q0 + rg * 16 + g;  // this thread's query rows: row0 and row0 + 8
   float lse_r[2], dlt_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -720,11 +789,12 @@ __global__ void __launch_bounds__(128) flash_bwd_dq(BwdParams p) {
     lse_r[r] = row < p.sq ? lseb[row] * kLog2e : 0.f;
     dlt_r[r] = row < p.sq ? dltb[row] : 0.f;
   }
-  float dq[D / 8][4];
+  float dq[CW / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-  const __nv_bfloat16* qw = qs + warp * 16 * LD;
-  const __nv_bfloat16* dw = dos + warp * 16 * LD;
+  for (int i = 0; i < CW / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+  const __nv_bfloat16* qw = qs + rg * 16 * LD + half * (D / KSPLIT);
+  const __nv_bfloat16* dw = dos + rg * 16 * LD + half * (D / KSPLIT);
+  const int cw = c0 + half * CW;
   const int n_tiles = (p.kv_len + BN - 1) / BN;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -739,26 +809,29 @@ __global__ void __launch_bounds__(128) flash_bwd_dq(BwdParams p) {
     const __nv_bfloat16* kt = ks + buf * BN * LD;
     const __nv_bfloat16* vt = vs + buf * BN * LD;
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys.
+    // S = Q K^T and dP = dO V^T for this warp's 16 queries x BN keys, over its share of D.
     float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
       dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
     }
+    const __nv_bfloat16* kh = kt + half * (D / KSPLIT);
+    const __nv_bfloat16* vh = vt + half * (D / KSPLIT);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
       uint32_t qa[4], da[4];
       load_a<LD>(qa, qw, kk, g, t4);
       load_a<LD>(da, dw, kk, g, t4);
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
-        const __nv_bfloat16* kr = kt + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
-        const __nv_bfloat16* vr = vt + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
+        const __nv_bfloat16* kr = kh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
+        const __nv_bfloat16* vr = vh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
         mma_bf16(s[nt], qa, ld32(kr), ld32(kr + 8));
         mma_bf16(dp[nt], da, ld32(vr), ld32(vr + 8));
       }
     }
+    if constexpr (KSPLIT > 1) swap_partials<BN / 2>(s, dp, xs, warp, lane);
 
     uint32_t dsa[BN / 16][4];
 #pragma unroll
@@ -774,28 +847,28 @@ __global__ void __launch_bounds__(128) flash_bwd_dq(BwdParams p) {
       dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
 
-    // dQ += dS K.
+    // dQ += dS K over this warp's CW columns.
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j) {
 #pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
+      for (int dn = 0; dn < CW / 8; dn += 2) {
         uint32_t bk[4];
-        ldmatrix_x4_trans(bk, trans_addr<LD>(kt, j * 16, dn * 8, lane));
+        ldmatrix_x4_trans(bk, trans_addr<LD>(kt, j * 16, cw + dn * 8, lane));
         mma_bf16(dq[dn], dsa[j], bk[0], bk[1]);
         mma_bf16(dq[dn + 1], dsa[j], bk[2], bk[3]);
       }
     }
-    __syncthreads();  // every warp is done with buffer `buf` before it is refilled
+    __syncthreads();  // every warp is done with buffer `buf` (and its partner with xs) before they are refilled
   }
 
-  __nv_bfloat16* dqb = p.dq + b * p.dq_sb + h * p.dq_sh;
+  __nv_bfloat16* dqb = p.dq + b * p.dq_sb + h * p.dq_sh + cw;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row < p.sq) {
       __nv_bfloat16* dqr = dqb + (int64_t)row * p.dq_ss;
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
+      for (int dn = 0; dn < CW / 8; ++dn) {
         *reinterpret_cast<uint32_t*>(dqr + dn * 8 + 2 * t4) =
             pack_bf16(dq[dn][2 * r] * p.scale, dq[dn][2 * r + 1] * p.scale);
       }
@@ -803,19 +876,26 @@ __global__ void __launch_bounds__(128) flash_bwd_dq(BwdParams p) {
   }
 }
 
-template <int D, int BQ>
+// delta, then dK/dV, then dQ. BQ: queries a tile of the dK/dV sweep; BN: keys
+// a tile of the dQ sweep (both 16 at D = 512, where two 64-row x 512-column
+// tiles already fill 130 KB of shared memory).
+template <int D, int DC, int BQ, int BN, int KSPLIT>
 cudaError_t run(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int LD = D + 8;
+  constexpr int LD = D + 8, kSlices = D / DC, NT = 128 * KSPLIT;
+  constexpr size_t kSwap = KSPLIT > 1 ? 8 * 32 * sizeof(float) : 0;  // times the tile's BQ or BN
   const int64_t n_rows = (int64_t)batch * p.sq * p.heads;
-  const int rows_per_block = 128 / (D / 8);
+  constexpr int rows_per_block = 128 / kDeltaTPR<D>;
   flash_bwd_delta<D><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), 128, 0, stream>>>(p, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t dkdv_smem = (size_t)(2 * 64 + 4 * BQ) * LD * sizeof(__nv_bfloat16) + 4 * BQ * sizeof(float);
-  err = launch(flash_bwd_dkdv<D, BQ>, dim3((p.skv + 63) / 64, p.heads, batch), dkdv_smem, p, stream);
+  const size_t dkdv_smem =
+      (size_t)(2 * 64 + 4 * BQ) * LD * sizeof(__nv_bfloat16) + 4 * BQ * sizeof(float) + kSwap * BQ;
+  err = launch(flash_bwd_dkdv<D, DC, BQ, KSPLIT>, dim3((p.skv + 63) / 64 * kSlices, p.heads, batch), dkdv_smem, p,
+               stream, NT);
   if (err != cudaSuccess) return err;
-  const size_t dq_smem = (size_t)(2 * 64 + 4 * 64) * LD * sizeof(__nv_bfloat16);
-  return launch(flash_bwd_dq<D>, dim3((p.sq + 63) / 64, p.heads, batch), dq_smem, p, stream);
+  const size_t dq_smem = (size_t)(2 * 64 + 4 * BN) * LD * sizeof(__nv_bfloat16) + kSwap * BN;
+  return launch(flash_bwd_dq<D, DC, BN, KSPLIT>, dim3((p.sq + 63) / 64 * kSlices, p.heads, batch), dq_smem, p,
+                stream, NT);
 }
 
 }  // namespace
@@ -825,7 +905,7 @@ cudaError_t run(const BwdParams& p, int batch, cudaStream_t stream) {
 // aligned base pointers (the Python wrapper checks this). `sq_pad` is the row
 // pitch of the fp32 scratch: at D = 64, Sq rounded up to 64, with `delta` and
 // `lse2` (B, H, sq_pad) and `dq_acc` (B, H, sq_pad * 64) zeroed by the caller;
-// at D = 128, Sq, with `delta` (B, H, Sq) and the other two null. Returns the
+// at D = 128 and 512, Sq, with `delta` (B, H, Sq) and the other two null. Returns the
 // first failing launch's cudaError_t, kEncodeError + the CUresult when a
 // tensor map cannot be encoded, or 0.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -864,7 +944,10 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
       return run_fused(p, batch, s);
     case 128:
       if (sq_pad != sq) return (int)cudaErrorInvalidValue;
-      return (int)run<128, 32>(p, batch, s);
+      return (int)run<128, 128, 32, 64, 1>(p, batch, s);
+    case 512:
+      if (sq_pad != sq) return (int)cudaErrorInvalidValue;
+      return (int)run<512, 256, 16, 16, 2>(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -68,7 +68,10 @@
 //     in 2-block clusters that multicast each box to both halved that
 //     traffic and measured about 5% slower on an H100 (PERF.md §6): L2
 //     does not bound this kernel, so it has no cluster.
-//   - No log-sum-exp: the VAE, the only caller, has no backward.
+//   - With a non-null `lse` consumer 0 writes each row's log-sum-exp, as the
+//     wgmma kernel does: both consumers hold the same m and l bit for bit, so
+//     either one's is the row's. The VAE's forward passes null; a gradient
+//     through it (flash_attn_bwd.cu's D = 512 kernels) reads it.
 
 #include <math.h>
 
@@ -367,8 +370,9 @@ constexpr int kBarScores = 1, kBarRead = 2;
 
 struct WideArgs {
   __nv_bfloat16* o;
+  float* lse;  // (B, H, Sq) or null
   int64_t o_sb, o_ss, o_sh;
-  int sq, kv_len;
+  int sq, kv_len, heads;
   float scale_log2;  // scale * log2(e)
 };
 
@@ -544,7 +548,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh + c * kWHalfBoxes * 64;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+      const float sum = quad_sum(l[r]);
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
       const int row = q0 + warp * 16 + g + 8 * r;
       if (row < a.sq) {
         __nv_bfloat16* orow = ob + (int64_t)row * a.o_ss;
@@ -552,6 +557,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < 32; ++j) {
           *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
               pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        }
+        if (a.lse != nullptr && c == 0 && t4 == 0) {
+          a.lse[((int64_t)b * a.heads + h) * a.sq + row] = (m[r] + log2f(sum)) * kLn2;
         }
       }
     }
@@ -595,7 +603,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     a.scale_log2 = scale * kLog2e;
     return head_dim == 64 ? launch_wgmma<64>(tq, tk, tv, a, batch, s) : launch_wgmma<128>(tq, tk, tv, a, batch, s);
   }
-  if (head_dim != 512 || lse != nullptr) return (int)cudaErrorInvalidValue;
+  if (head_dim != 512) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   CUresult r = make_map(&tq, q, head_dim, sq, heads, batch, q_ss, q_sh, q_sb, kWM);
   if (r == CUDA_SUCCESS) r = make_map(&tk, k, head_dim, kv_len, heads, batch, k_ss, k_sh, k_sb, kWN);
@@ -603,9 +611,11 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
   WideArgs a;
   a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
   a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
   a.sq = sq;
   a.kv_len = kv_len;
+  a.heads = heads;
   a.scale_log2 = scale * kLog2e;
   return launch_wide(tq, tk, tv, a, heads, batch, s);
 }

@@ -1,0 +1,88 @@
+"""Batch image IO on a C++ thread pool (counterpart of `evoworld_tpu/data/native_io.py`
+and `native/imageio.cpp`).
+
+`csrc/imageio.cpp`, built at first use with g++ against zlib into the
+git-ignored `build/` beside the CUDA kernels (`ops/_build.py`), decodes PNG
+files, resizes them bilinearly (half-pixel centres, no antialiasing: the
+JAX package's native loader's arithmetic) and writes PNG files at deflate
+level 1 with no row filter. The H100 machine the port runs on has zlib but
+neither libpng, libjpeg nor PIL, so PNG is parsed, inflated and un-filtered
+in that file on zlib alone; JPEG has no decoder: a JPEG (or any file that is
+not a PNG) raises an error naming it (ROADMAP.md §3). The C calls release
+the GIL (ctypes), so a writer thread's encode overlaps the caller's work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Sequence
+
+import numpy as np
+
+from evoworld_tpu_torch.ops import _build
+
+SOURCE = "imageio.cpp"
+_REASONS = {1: "cannot be read", 2: "is not a PNG (JPEG has no decoder in the port)",
+            3: "is a PNG variant the decoder does not take, or corrupt", 4: "cannot be written"}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    if lib.evt_load_images.argtypes is None:
+        c_int, p_int = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        lib.evt_load_images.argtypes = [ctypes.POINTER(ctypes.c_char_p), c_int, ctypes.POINTER(ctypes.c_float),
+                                        c_int, c_int, c_int, c_int, p_int]
+        lib.evt_load_images.restype = c_int
+        lib.evt_save_pngs.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_uint8),
+                                      c_int, c_int, c_int, c_int, p_int]
+        lib.evt_save_pngs.restype = c_int
+    return lib
+
+
+def _threads(n_threads: int) -> int:
+    return n_threads or min(os.cpu_count() or 1, 8)
+
+
+def _raise_failures(paths: Sequence[str], status) -> None:
+    bad = [(p, s) for p, s in zip(paths, status) if s]
+    if bad:
+        shown = "; ".join(f"{p} {_REASONS.get(s, f'failed ({s})')}" for p, s in bad[:4])
+        raise IOError(f"{len(bad)} of {len(paths)} images failed: {shown}")
+
+
+def load_image_batch(
+    paths: Sequence[str], height: int, width: int, minus1_1: bool = True, n_threads: int = 0
+) -> np.ndarray:
+    """Load N PNG images -> (N, height, width, 3) float32 in [-1, 1] (or [0, 1]).
+
+    An image already at (height, width) is converted as (v / 255) * 2 - 1 with
+    no resize, as the JAX package's PIL route does; any other size is resized
+    with `native/imageio.cpp`'s arithmetic. Raises IOError naming each image
+    that cannot be read or decoded.
+    """
+    n = len(paths)
+    out = np.empty((n, height, width, 3), np.float32)
+    if n == 0:
+        return out
+    status = (ctypes.c_int * n)()
+    names = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    _lib().evt_load_images(names, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), height, width,
+                           int(minus1_1), _threads(n_threads), status)
+    _raise_failures(paths, status)
+    return out
+
+
+def save_png_batch(paths: Sequence[str], frames: np.ndarray, n_threads: int = 0) -> None:
+    """Write (N, H, W, 3) uint8 frames to PNG files; raises IOError naming each failed write."""
+    frames = np.ascontiguousarray(frames, np.uint8)
+    n, h, w, c = frames.shape
+    if c != 3 or n != len(paths):
+        raise ValueError(f"frames {frames.shape} for {len(paths)} paths: need (N, H, W, 3)")
+    if n == 0:
+        return
+    status = (ctypes.c_int * n)()
+    names = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    _lib().evt_save_pngs(names, frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, h, w,
+                         _threads(n_threads), status)
+    _raise_failures(paths, status)

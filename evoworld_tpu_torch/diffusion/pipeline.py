@@ -204,12 +204,16 @@ class PanoDiffusionPipeline:
         return torch.clamp(frames.permute(0, 2, 3, 1) / 2.0 + 0.5, 0.0, 1.0)
 
 
-def random_model(cls, config, generator, device, dtype):
-    """`cls(config)` on `device` in `dtype`, filled by `init_random_` from `generator`."""
+def empty_model(cls, config, device, dtype):
+    """`cls(config)` on `device` in `dtype`, built on the meta device: its storage is uninitialised."""
     with torch.device("meta"):
         model = cls(config)
-    model = model.to_empty(device=device).to(dtype)
-    return init_random_(model, generator)
+    return model.to_empty(device=device).to(dtype)
+
+
+def random_model(cls, config, generator, device, dtype):
+    """`cls(config)` on `device` in `dtype`, filled by `init_random_` from `generator`."""
+    return init_random_(empty_model(cls, config, device, dtype), generator)
 
 
 def make_random_pipeline(

@@ -25,11 +25,24 @@ values, the rules of `host_random_params`: norm weights 1, `mix_factor` 0.5,
 biases and the class embedding 0, weights of rank >= 2 normal with std
 sqrt(1 / fan_in) (fan_in from torch's OIHW layout: every axis but the first),
 other vectors normal with std 0.02.
+
+`load_safetensors` / `save_safetensors` read and write the safetensors
+format with the standard library and torch alone (the `safetensors` package
+is not a dependency): an 8-byte little-endian header length, a JSON header
+of `{name: {"dtype", "shape", "data_offsets"}}` and the raw little-endian
+data. `load_safetensors_dir` merges every `*.safetensors` of a directory
+(sharded checkpoints), `expand_conv_in_weight` is the UNet's 8 -> 18 input
+channel surgery, and `load_checkpoint_` / `load_vggt_checkpoint` fill the
+port's modules from upstream-named state dicts.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 import re
+import struct
 from typing import Any, Mapping
 
 import numpy as np
@@ -244,3 +257,135 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 draw = torch.randn(p.shape, generator=generator, device=generator.device, dtype=torch.float32)
                 p.copy_(draw.mul_(std))
     return module
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: safetensors files and upstream-named state dicts
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def load_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """A .safetensors file -> {name: CPU tensor} (counterpart of
+    `evoworld_tpu/models/weights.py::load_safetensors`, which returns numpy).
+
+    The data section is read once into one buffer; tensors are views of it
+    (`torch.frombuffer`), so bf16 needs no detour through numpy, which has no
+    bf16. A tensor whose offset is not a multiple of its element size is copied.
+    """
+    with open(path, "rb") as f:
+        (header_len,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(header_len))
+        data = bytearray(os.path.getsize(path) - 8 - header_len)
+        f.readinto(data)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _ST_DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        size = torch.empty((), dtype=dtype).element_size()
+        if end == start:
+            t = torch.empty(0, dtype=dtype)
+        elif start % size:
+            t = torch.frombuffer(bytearray(data[start:end]), dtype=dtype)
+        else:
+            t = torch.frombuffer(data, dtype=dtype, count=(end - start) // size, offset=start)
+        out[name] = t.reshape(info["shape"])
+    return out
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write {name: tensor} as one .safetensors file (tensors moved to the CPU,
+    in the order given; the header padded with spaces to 8 bytes)."""
+    header, offset, parts = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().to("cpu").contiguous()
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        parts.append(t)
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in parts:
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
+def load_safetensors_dir(path: str) -> dict[str, torch.Tensor] | None:
+    """Every `*.safetensors` of a directory merged into one state dict (sharded
+    checkpoints), or None where the directory holds none (counterpart of
+    `evoworld_tpu/runtime.py::_load_safetensors_dir`)."""
+    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if not files:
+        return None
+    state: dict[str, torch.Tensor] = {}
+    for f in files:
+        state.update(load_safetensors(f))
+    return state
+
+
+def expand_conv_in_weight(weight: torch.Tensor, target_in: int) -> torch.Tensor:
+    """Zero-pad a conv_in weight (O, I, kh, kw) along I to `target_in` channels:
+    SVD's 8-channel input becomes the UNet's 18, the original channels keep
+    their weights and the new ones start at zero (counterpart of
+    `evoworld_tpu/models/weights.py::expand_conv_in_kernel`, whose kernels are HWIO)."""
+    cin = weight.shape[1]
+    if cin == target_in:
+        return weight
+    if cin > target_in:
+        raise ValueError(f"conv_in has {cin} input channels, more than the UNet's {target_in}")
+    pad = torch.zeros((weight.shape[0], target_in - cin, *weight.shape[2:]), dtype=weight.dtype)
+    return torch.cat([weight, pad], dim=1)
+
+
+#: Keys an upstream checkpoint may hold that the port's modules have no place
+#: for, dropped as the JAX converters drop them: CLIP's position ids (a buffer
+#: that older transformers releases saved), VGGT's training-only mask token.
+IGNORED_KEYS = ("vision_model.embeddings.position_ids", "aggregator.patch_embed.mask_token")
+
+
+@torch.no_grad()
+def load_checkpoint_(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Fill `module` from an upstream-named state dict, strictly: every
+    parameter and buffer must be there with its shape, and nothing else but
+    IGNORED_KEYS. Values are cast into the module's own dtypes; a UNet's
+    conv_in is zero-padded to the module's input channels first."""
+    state = {k: v for k, v in state.items() if k not in IGNORED_KEYS}
+    own = module.state_dict()
+    if "conv_in.weight" in state and "conv_in.weight" in own and own["conv_in.weight"].dim() == 4:
+        state["conv_in.weight"] = expand_conv_in_weight(state["conv_in.weight"], own["conv_in.weight"].shape[1])
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def checkpoint_mismatches(module: nn.Module, state: Mapping[str, torch.Tensor]) -> list[str]:
+    """What keeps `state` from filling `module` strictly: missing and unexpected
+    keys and shape mismatches (IGNORED_KEYS aside); empty when it fits."""
+    own = module.state_dict()
+    state = {k: v for k, v in state.items() if k not in IGNORED_KEYS}
+    report = [f"missing {k}" for k in own if k not in state]
+    report += [f"unexpected {k}" for k in state if k not in own]
+    report += [f"shape of {k}: {tuple(v.shape)}, the model's {tuple(own[k].shape)}"
+               for k, v in state.items() if k in own and tuple(v.shape) != tuple(own[k].shape)]
+    return report
+
+
+def load_vggt_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """facebook/VGGT-1B's `model.pt` (a state dict, or one under "model")
+    -> CPU tensors (counterpart of `evoworld_tpu/models/vggt/weights.py::
+    load_vggt_torch_checkpoint`, without the conversion: the port keeps
+    upstream's names)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "model" in state:
+        state = state["model"]
+    return dict(state)

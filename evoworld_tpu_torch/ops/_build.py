@@ -1,9 +1,10 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
 Each source under `evoworld_tpu_torch/csrc/` becomes one shared library with
-a plain C interface, compiled for sm_90a into `build/torch_kernels/<hash>/`
-at the root of the checkout, keyed by a hash of the sources and the flags.
-Nothing is built when a module is imported: the first launch builds.
+a plain C interface in `build/torch_kernels/<hash>/` at the root of the
+checkout, keyed by a hash of the sources and the flags: a CUDA source (.cu)
+with nvcc for sm_90a, a C++ source (.cpp, the image IO) with g++ against
+zlib. Nothing is built when a module is imported: the first call builds.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# No contraction into fused multiply-adds: the image IO's float arithmetic
+# must round as its counterparts' does (tests/test_torch_port_cli.py).
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off", "-pthread")
+GXX_LIBS = ("-lz",)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -38,21 +43,22 @@ def _nvcc() -> str:
 def _lib_path(source: str) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):  # headers shared by sources count too
-        if f.suffix in (".cu", ".cuh", ".h"):
+        if f.suffix in (".cu", ".cuh", ".h", ".cpp"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + GXX_FLAGS + GXX_LIBS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{Path(source).stem}.so"
 
 
 def build_log(source: str) -> str:
-    """nvcc's output (ptxas register and shared-memory report) for `source`."""
+    """The compiler's output for `source` (for a CUDA source, ptxas's register
+    and shared-memory report)."""
     log = _lib_path(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library of `source`, compiled with nvcc first unless it exists."""
+    """The loaded library of `source`, compiled first unless it exists."""
     lib = _loaded.get(source)
     if lib is not None:
         return lib
@@ -62,10 +68,13 @@ def load(source: str) -> ctypes.CDLL:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = out.with_suffix(".log")
         with open(log, "w") as fh:
-            rc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-                                stdout=fh, stderr=subprocess.STDOUT, check=False).returncode
+            if source.endswith(".cpp"):
+                cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(CSRC / source), *GXX_LIBS]
+            else:
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+            rc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT, check=False).returncode
         if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}) for {out.name}:\n{log.read_text()}")
+            raise RuntimeError(f"{cmd[0]} failed ({rc}) for {out.name}:\n{log.read_text()}")
         os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
     lib = _loaded[source] = ctypes.CDLL(str(out))
     return lib

@@ -24,7 +24,7 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     (the same shape of block with 64 query rows; the two consumers split D,
     each owning 256 output columns and half of the Q K^T contraction, and
     swap their fp32 partial scores through shared memory; K and V come in
-    64-column TMA boxes);
+    64-column TMA boxes). Both write the row log-sum-exp when asked;
   - backward, D = 64 (every attention with a gradient on the port's paths):
     `flash_bwd_fused`, one pass per 128-key tile whose two consumer
     warpgroups keep their K and V fragments and their dK and dV sums in
@@ -35,15 +35,16 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     `flash_bwd_store_dq` (scale, to bf16). The order of those fp32 sums is
     not fixed, so dQ may differ in its last bf16 bit between two calls; dK
     and dV are repeatable;
-  - backward, D = 128 (no path runs it): the mma.sync kernels `flash_bwd_dkdv`
-    and `flash_bwd_dq`, which recompute the scores in each and need no
-    reduction across blocks;
-  - backward, D = 512: no kernel; a CUDA call that needs a gradient raises.
+  - backward, D = 128 and 512 (no path runs either): the mma.sync kernels
+    `flash_bwd_dkdv` and `flash_bwd_dq`, which recompute the scores in each
+    and need no reduction across blocks; at D = 512 each block owns a
+    256-column half of its gradient, and two warps split each score's
+    512-deep sum and swap their partial sums.
 Other head dims are zero-padded along D up to the smallest kernel head dim
-that holds them (`kernel_head_dim`: 64, 128, or 512 for the forward without
-a gradient) and the output is sliced back; the scale stays that of the true
-D. Zero columns leave Q K^T and P V as they were, so this is the same
-kernel, at (padded D / D) times the work: 4x at the tiny VGGT's D = 16.
+that holds them (`kernel_head_dim`: 64, 128 or 512, in both directions) and
+the output is sliced back; the scale stays that of the true D. Zero columns
+leave Q K^T and P V as they were, so this is the same kernel, at (padded D /
+D) times the work: 4x at the tiny VGGT's D = 16.
 """
 
 from __future__ import annotations
@@ -58,8 +59,7 @@ from evoworld_tpu_torch.ops import _build
 
 SOURCE = "flash_attn_fwd.cu"
 BWD_SOURCE = "flash_attn_bwd.cu"
-HEAD_DIMS = (64, 128, 512)
-BWD_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 512)  # head dims of the forward and of the backward kernels
 _LOG2_E = 1.4426950408889634  # log2(e)
 _GRID_LIMIT = 65535  # heads on grid.y, batch on grid.z
 _ENCODE_ERROR = 10000  # the C entry points return this + the CUresult when a TMA tensor map fails
@@ -170,8 +170,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, grads
     """Raise on anything the CUDA kernels do not take.
 
     `grads` holds the backward's extra inputs (`o`, `do`: like q; `lse`:
-    fp32 contiguous (B, H, Sq)); with it the head dim must be one the
-    backward kernel takes.
+    fp32 contiguous (B, H, Sq)).
     """
     extra = {n: t for n, t in (grads or {}).items() if n != "lse"}
     for name, t in (("q", q), ("k", k), ("v", v), *extra.items()):
@@ -187,8 +186,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, grads
         raise ValueError(f"shape {tuple(q.shape)} outside the launch grid")
     if grads is None:
         return
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"no backward kernel for head dim {d} (takes {BWD_HEAD_DIMS})")
     for name, t in extra.items():
         if t.shape != q.shape:
             raise ValueError(f"{name} {tuple(t.shape)} must be shaped like q {tuple(q.shape)}")
@@ -197,10 +194,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, grads
         raise ValueError(f"lse must be contiguous fp32 {(b, h, sq)}, got {lse.dtype} {tuple(lse.shape)}")
 
 
-def kernel_head_dim(d: int, backward: bool = False) -> int | None:
-    """The smallest head dim of a kernel that holds `d` (of the backward's, or
-    of the forward's with `backward` False), or None where none does."""
-    return next((k for k in (BWD_HEAD_DIMS if backward else HEAD_DIMS) if d <= k), None)
+def kernel_head_dim(d: int) -> int | None:
+    """The smallest head dim of a kernel that holds `d`, or None where none does."""
+    return next((k for k in HEAD_DIMS if d <= k), None)
 
 
 def _pad_head_dim(tensors, d_to: int):
@@ -236,12 +232,10 @@ def _bwd_fn():
 
 def flash_attention_forward(q, k, v, scale, kv_len, use_exp2=False, with_lse=False):
     """(output, row log-sum-exp fp32 (B, H, Sq) or None): the forward kernel, or its
-    plain version for CPU tensors; no autograd. `with_lse` on CUDA needs a head
-    dim the backward kernel takes. A head dim without a kernel of its own is
-    zero-padded to `kernel_head_dim` (the backward's with `with_lse`) and the
-    output sliced back."""
+    plain version for CPU tensors; no autograd. A head dim without a kernel of
+    its own is zero-padded to `kernel_head_dim` and the output sliced back."""
     d = q.shape[-1]
-    d_kernel = kernel_head_dim(d, backward=with_lse)
+    d_kernel = kernel_head_dim(d)
     if d_kernel is not None and d_kernel != d:
         out, lse = flash_attention_forward(*_pad_head_dim((q, k, v), d_kernel), scale, kv_len, use_exp2, with_lse)
         return out[..., :d].contiguous(), lse
@@ -252,8 +246,6 @@ def flash_attention_forward(q, k, v, scale, kv_len, use_exp2=False, with_lse=Fal
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     b, sq, h, d = q.shape
-    if with_lse and d not in BWD_HEAD_DIMS:
-        raise RuntimeError(f"flash_attention: a gradient is needed, but no backward kernel takes head dim {d}")
     _check(q, k, v, kv_len)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -286,18 +278,18 @@ def flash_attention_backward(
     """dQ, dK, dV from the forward's inputs, output `o`, row log-sum-exp `lse` and `do`.
 
     CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16;
-    the fused wgmma pass at D = 64, the mma.sync pair at D = 128); one launch
+    the fused wgmma pass at D = 64, the mma.sync pair at D = 128 and 512); one launch
     counts every kernel of a call. At D = 64 the call allocates a zeroed fp32
     buffer shaped like q (padded to whole 64-query tiles) that the fused pass
     sums dQ into; dQ may differ in its last bf16 bit between two calls. CPU
     tensors go to `flash_attention_backward_plain`. Returns contiguous tensors
-    shaped like q, k and v. A head dim under 128 without a kernel of its own is
+    shaped like q, k and v. A head dim without a kernel of its own is
     zero-padded to `kernel_head_dim` and the gradients sliced back.
     """
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
-    d_kernel = kernel_head_dim(d, backward=True)
+    d_kernel = kernel_head_dim(d)
     if d_kernel is not None and d_kernel != d:
         grads = flash_attention_backward(*_pad_head_dim((q, k, v, o, do), d_kernel), lse, scale, kv_len)
         return tuple(g[..., :d].contiguous() for g in grads)
@@ -366,7 +358,7 @@ def flash_attention(
     CUDA tensors go to the Hopper kernel (bf16, D up to 512, padded to 64,
     128 or 512, strided layouts allowed as long as D is contiguous); CPU
     tensors to `flash_attention_plain`. Under grad with an input that requires it, the
-    call goes through `FlashAttentionFunction` (on CUDA only at D <= 128).
+    call goes through `FlashAttentionFunction`.
     Returns (B, Sq, H, D) in q's dtype.
     """
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)

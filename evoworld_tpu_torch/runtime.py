@@ -2,9 +2,15 @@
 for generation, the three models for training, and the VGGT reconstructor of
 the evolving-memory loop.
 
-Random weights only for now: the repository holds no checkpoint, so loading
-diffusers safetensors directories or a VGGT checkpoint waits until one is
-available.
+Weights come from a checkpoint when one is given, else at random from the
+seed. `build_pipeline(checkpoint_dir=...)` reads a diffusers pipeline
+directory: `unet/`, `vae/` and `image_encoder/`, each holding `*.safetensors`
+(shards merged) under the diffusers and transformers names, which the port's
+modules keep, so each model is filled by a strict `load_state_dict`; SVD's
+8-channel `conv_in` is zero-padded to the UNet's 18. `build_reconstructor(
+vggt_checkpoint=...)` reads facebook/VGGT-1B's `model.pt` under upstream's
+names. `build_trainer` still draws at random. The repository ships no
+checkpoint (WEIGHTS.md); the tests write small random ones.
 
 On CUDA every entry point takes bfloat16 only: the Hopper flash-attention
 kernels are bf16 kernels, and the attention dispatch never falls back to
@@ -16,6 +22,8 @@ and §3.1); the CPU takes any dtype.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 
 import torch
 
@@ -23,6 +31,7 @@ from evoworld_tpu_torch.device import resolve_device
 from evoworld_tpu_torch.diffusion.pipeline import (
     PanoDiffusionPipeline,
     PipelineConfig,
+    empty_model,
     make_random_pipeline,
     random_model,
 )
@@ -31,8 +40,16 @@ from evoworld_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
 from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
 from evoworld_tpu_torch.models.vggt.aggregator import AggregatorConfig
 from evoworld_tpu_torch.models.vggt.model import VGGT, Reconstructor, VGGTConfig, make_reconstructor
-from evoworld_tpu_torch.models.weights import init_random_
+from evoworld_tpu_torch.models.weights import (
+    checkpoint_mismatches,
+    init_random_,
+    load_checkpoint_,
+    load_safetensors_dir,
+    load_vggt_checkpoint,
+)
 from evoworld_tpu_torch.train.train_step import freeze_master_cast
+
+logger = logging.getLogger("evoworld_tpu_torch")
 
 #: Model configurations by preset: "full" is SVD-XT's architecture with the
 #: 18-channel input, "tiny" the smoke-test widths of the JAX package.
@@ -56,7 +73,7 @@ VGGT_PRESETS = {
 }
 
 
-def _check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) -> None:
+def check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) -> None:
     """Refuse a compute dtype the card's kernels do not take (before any work)."""
     if torch.device(device).type == "cuda" and compute_dtype != torch.bfloat16:
         raise ValueError(
@@ -78,16 +95,40 @@ def build_pipeline(
     seed: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
+    checkpoint_dir: str | None = None,
+    allow_random_weights: bool = True,
 ) -> PanoDiffusionPipeline:
-    """Build the diffusion pipeline with deterministic random weights.
+    """Build the diffusion pipeline from a checkpoint directory, or with
+    deterministic random weights.
 
-    Runs on CUDA unless `device="cpu"` is passed; raises RuntimeError when
-    CUDA is asked for and absent, ValueError for a compute dtype other than
-    bfloat16 on CUDA.
+    With `checkpoint_dir` holding `unet/`, `vae/` and `image_encoder/`
+    safetensors, the preset's three models are filled from them (strict
+    names and shapes; conv_in zero-padded to the UNet's input channels) and
+    every leaf is cast to `compute_dtype`, as the JAX package casts every
+    leaf (`evoworld_tpu/runtime.py:104`); the random path casts the same. A
+    directory missing one of the three logs a warning and falls back to
+    random weights; with `allow_random_weights` False, no usable checkpoint
+    raises FileNotFoundError. Runs on CUDA unless `device="cpu"` is passed;
+    raises RuntimeError when CUDA is asked for and absent, ValueError for a
+    compute dtype other than bfloat16 on CUDA (before any file is read).
     """
-    _check_compute_dtype(device, compute_dtype)
+    check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
     unet_cfg, vae_cfg, clip_cfg = _preset(PRESETS, model_preset)
+    if checkpoint_dir and os.path.isdir(checkpoint_dir):
+        logger.info(f"Loading checkpoint from {checkpoint_dir}")
+        states = [load_safetensors_dir(os.path.join(checkpoint_dir, sub)) for sub in ("unet", "vae", "image_encoder")]
+        if all(states):
+            models = [
+                load_checkpoint_(empty_model(cls, cfg, dev, compute_dtype), state)
+                for cls, cfg, state in zip(
+                    (UNetSpatioTemporal, AutoencoderKLTemporal, CLIPVisionTower), (unet_cfg, vae_cfg, clip_cfg), states)
+            ]
+            return PanoDiffusionPipeline(*models, pipeline_config, compute_dtype)
+        logger.warning(f"checkpoint dir {checkpoint_dir} incomplete; falling back")
+    if not allow_random_weights:
+        raise FileNotFoundError(f"no usable checkpoint at {checkpoint_dir!r} and allow_random_weights is False")
+    logger.warning(f"Building the {model_preset} pipeline with RANDOM weights (seed {seed})")
     return make_random_pipeline(
         pipeline_config, unet_cfg, vae_cfg, clip_cfg, seed=seed, compute_dtype=compute_dtype, device=dev
     )
@@ -108,7 +149,7 @@ def build_trainer(
     passed; raises RuntimeError when CUDA is asked for and absent, ValueError
     for a compute dtype other than bfloat16 on CUDA.
     """
-    _check_compute_dtype(device, compute_dtype)
+    check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
     unet_cfg, vae_cfg, clip_cfg = _preset(PRESETS, model_preset)
 
@@ -132,23 +173,49 @@ def build_reconstructor(
     seed: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
+    vggt_checkpoint: str | None = None,
+    allow_random_weights: bool = True,
 ) -> Reconstructor:
-    """The loop's VGGT reconstructor with deterministic random weights.
+    """The loop's VGGT reconstructor, from a checkpoint or with deterministic
+    random weights.
 
     The model is built on the meta device and filled by `init_random_` from a
-    generator seeded with `seed` on `device`; norm affines, LayerScales and
-    the camera head's pose seed stay fp32, every other leaf is cast to
-    `compute_dtype`. The depth head runs in chunks of 8 frames.
-    Runs on CUDA unless `device="cpu"` is passed; raises RuntimeError when
-    CUDA is asked for and absent, ValueError for a compute dtype other than
-    bfloat16 on CUDA.
+    generator seeded with `seed` on `device`. With `vggt_checkpoint` (an
+    existing upstream `model.pt`) the checkpoint's tensors then replace
+    those values by name; keys, names and shapes that do not fit are logged
+    (missing leaves keep their random values, others are left out), and
+    raise ValueError when `allow_random_weights` is False, as the JAX package
+    does with its conversion report. No checkpoint and `allow_random_weights`
+    False raises FileNotFoundError. Norm affines, LayerScales and the camera
+    head's pose seed stay fp32 (the JAX package's `cast_compute_leaves`),
+    every other leaf is cast to `compute_dtype`. The depth head runs in
+    chunks of 8 frames. Runs on CUDA unless `device="cpu"` is passed; raises
+    RuntimeError when CUDA is asked for and absent, ValueError for a compute
+    dtype other than bfloat16 on CUDA.
     """
-    _check_compute_dtype(device, compute_dtype)
+    check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
     config = _preset(VGGT_PRESETS, model_preset)
     with torch.device("meta"):
         model = VGGT(config)
     model = init_random_(model.to_empty(device=dev), torch.Generator(device=dev).manual_seed(seed))
+    if vggt_checkpoint and os.path.exists(vggt_checkpoint):
+        logger.info(f"Loading VGGT from {vggt_checkpoint}")
+        state = load_vggt_checkpoint(vggt_checkpoint)
+        report = checkpoint_mismatches(model, state)
+        if report:
+            logger.warning(f"VGGT checkpoint: {len(report)} issues ({'; '.join(report[:8])} ...)")
+            if not allow_random_weights:
+                raise ValueError(f"VGGT checkpoint {vggt_checkpoint} does not fit the model: {report[:8]}")
+        own = model.state_dict()
+        with torch.no_grad():
+            for name, value in state.items():
+                if name in own and tuple(value.shape) == tuple(own[name].shape):
+                    own[name].copy_(value)
+    elif not allow_random_weights:
+        raise FileNotFoundError(f"no VGGT checkpoint at {vggt_checkpoint!r} and allow_random_weights is False")
+    else:
+        logger.warning(f"Building the {model_preset} VGGT with RANDOM weights (seed {seed})")
     for name, p in model.named_parameters():
         if not _keep_fp32(name):
             p.data = p.data.to(compute_dtype)

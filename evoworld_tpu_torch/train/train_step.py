@@ -66,6 +66,9 @@ class TrainConfig:
     # Frames per VAE-encoder call inside the loss (0 = all at once); chunking
     # is exact because frames encode independently.
     vae_encode_chunk: int = 8
+    # ZeRO stage of the JAX package's data-parallel step; one card shards
+    # nothing, so it is accepted and changes nothing until multi-GPU (ROADMAP item 20).
+    zero_stage: int = 1
 
 
 def trainable_mask(module: nn.Module) -> dict[str, bool]:

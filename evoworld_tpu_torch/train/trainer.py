@@ -49,6 +49,10 @@ class TrainerConfig:
     ema_decay: float = 0.9999
     # Batches built ahead by a background thread (0: synchronous iteration).
     prefetch_depth: int = 2
+    # The JAX trainer's validation interval and per-device batch, kept so that
+    # both packages take the same flags; read by the training CLI (ROADMAP item 18).
+    validation_steps: int = 1000
+    per_device_batch_size: int = 1
 
 
 @torch.no_grad()

@@ -1,4 +1,5 @@
-"""`chip_smoke.py`'s reading of nvcc's ptxas report, on a log shaped like nvcc's.
+"""`chip_smoke.py`'s own logic off the card: its reading of nvcc's ptxas
+report, on a log shaped like nvcc's, and its CLI phase at tiny size.
 
 ptxas prints its warning that it serialized an entry's wgmma before the
 entries' own lines, naming the function; the report must attach it to that
@@ -6,6 +7,7 @@ entry so that the smoke run fails on it.
 """
 
 import chip_smoke
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 LOG = """\
 ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to \
@@ -28,3 +30,20 @@ def test_ptxas_report_attaches_each_warning_to_its_entry():
     assert (second["entry"], second["spill_stores"], second["spill_loads"], second["registers"]) == (
         "_Z4wideILi2EEvv", 176, 172, 224)
     assert "serialized" in second["wgmma_serialized"]
+
+
+def test_cli_phase_runs_at_tiny_size_on_the_cpu():
+    """Phase 11's own logic (episode and checkpoint writing, both CLIs from the
+    checkpoints, the loaded-equals-written, PNG count and size and writer
+    checks) on the CPU at the tiny presets, where the kernels' plain
+    versions run and so no launch is counted."""
+    import torch
+
+    tiny = ("--runtime.model_preset=tiny", "--runtime.vggt_tiny=true", "--runtime.compute_dtype=float32",
+            "--pipeline.height=64", "--pipeline.width=128", "--pipeline.num_frames=5", "--loop.num_frames=5",
+            "--loop.num_target_view=4", "--loop.num_segments=2", "--loop.pers_height=16", "--loop.pers_width=512",
+            "--data.sequence_length=5")
+    result = chip_smoke.full_cli(torch.device("cpu"), 2, 0, overrides=tiny)
+    assert result["single"]["parameters_equal"] == {"unet": True, "vae": True, "clip_tower": True}
+    assert result["unified"]["vggt_parameters_equal"]
+    assert result["unified"]["pngs"]["rendered_panorama_0"] == (4, [(128, 64)])

@@ -26,6 +26,7 @@ from evoworld_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
     kernel_head_dim,
 )
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -125,11 +126,11 @@ def test_padded_head_dim_equals_the_unpadded_plain_route(d, d_kernel):
     np.testing.assert_allclose(got.numpy(), flash_attention_plain(q, k, v, kv_len=80).numpy(), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("d", [16, 80, 200])
 def test_padded_head_dim_backward_equals_the_unpadded_plain_route(d):
     q, k, v = _t(*_qkv(2, 70, 90, 3, d, seed=5))
     do = torch.from_numpy(np.random.default_rng(6).normal(size=q.shape).astype(np.float32))
-    out, lse = flash_attention_forward(q, k, v, d ** -0.5, 80, with_lse=True)  # padded to the backward's 64 / 128
+    out, lse = flash_attention_forward(q, k, v, d ** -0.5, 80, with_lse=True)  # padded to 64 / 128 / 512
     np.testing.assert_allclose(out.numpy(), flash_attention_plain(q, k, v, kv_len=80).numpy(), rtol=1e-6, atol=1e-6)
     got = flash_attention_backward(q, k, v, out, do, lse, kv_len=80)
     want = flash_attention_backward_plain(q, k, v, out, do, lse, kv_len=80)

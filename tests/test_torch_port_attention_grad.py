@@ -25,6 +25,7 @@ from evoworld_tpu_torch.ops.flash_attention import (
     flash_attention_backward_plain,
     flash_attention_forward,
 )
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -34,7 +35,7 @@ def _arrays(seed, *shapes):
     return tuple(rng.normal(size=s).astype(np.float32) for s in shapes)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 512])
 @pytest.mark.parametrize("kv_len", [None, 157, 129])  # 129: one key past the kernel's 128-key tile
 def test_plain_backward_matches_jax_vjp(d, kv_len):
     b, sq, skv, h = 2, 130, 300, 2

@@ -21,6 +21,7 @@ from evoworld_tpu_torch.geometry import plucker as tplk
 from evoworld_tpu_torch.geometry import pose as tpose
 from evoworld_tpu_torch.geometry import rays as trays
 from evoworld_tpu_torch.ops import resize as tresize
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

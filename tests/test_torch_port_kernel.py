@@ -116,7 +116,15 @@ def test_forward_twice_is_bit_identical_on_card(cuda, d):
      (1, 1, 130, 130, 2, 64),       # a single query
      (2, 200, 400, 250, 2, 64),     # kv_len < Skv inside the second key tile, Skv inside the fourth
      (4, 1024, 2048, 2048, 4, 64),  # 16 x 4 x 4 blocks: more than one wave of 132 SMs
-     (1, 300, 333, 300, 2, 16)],    # head dim 16, zero-padded to the D = 64 kernel
+     (1, 300, 333, 300, 2, 16),     # head dim 16, zero-padded to the D = 64 kernel
+     # the D = 512 pair (64 keys and one 256-column half a dK/dV block, split
+     # between two warps of 128 columns each, 16-key tiles of the dQ sweep,
+     # 16-query tiles of the dK/dV sweep)
+     (1, 1, 300, 300, 1, 512),      # a single query
+     (1, 200, 300, 129, 2, 512),    # one key past a 64-key tile (and a 16-key tile)
+     (2, 200, 400, 250, 1, 512),    # kv_len < Skv; the last key tiles all padding
+     (2, 1100, 1100, 1100, 2, 512),  # 18 x 2 halves x 2 x 2 dK/dV blocks: more than one wave
+     (1, 150, 150, 150, 1, 200)],   # head dim 200, zero-padded to the D = 512 kernels
 )
 def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
     """dQ, dK, dV on strided views (q a head-major transpose, k and v halves of
@@ -174,8 +182,10 @@ def test_fused_backward_twice_repeats_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use_exp2,d", [(False, 64), (True, 64), (False, 128)])
+@pytest.mark.parametrize("use_exp2,d", [(False, 64), (True, 64), (False, 128), (False, 512), (True, 512)])
 def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2, d):
+    """The row log-sum-exp of both forward kernels (flash_fwd_wide's at D = 512,
+    whose 200 queries end inside a 64-row block) against torch's, within 1e-3."""
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn((2, s, 2, d), generator=g, device=cuda).bfloat16() for s in (200, 300, 300))
     _, lse = flash_attention_forward(q, k, v, 0.125, 250, use_exp2, with_lse=True)
@@ -185,13 +195,20 @@ def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2, d):
 
 @pytest.mark.cuda
 def test_autograd_function_uses_the_backward_kernel_and_d512_raises(cuda):
+    """A gradient through `flash_attention` launches the backward kernel once
+    at D = 64 and, since the D = 512 pair landed, at D = 512 too; what still
+    raises is a head dim past every kernel's (520), before any launch."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    q, k, v = (torch.randn((1, 300, 2, 64), generator=g, device=cuda).bfloat16().requires_grad_() for _ in range(3))
+    for d in (64, 512):
+        q, k, v = (torch.randn((1, 300, 2, d), generator=g, device=cuda).bfloat16().requires_grad_()
+                   for _ in range(3))
+        before = flash_attention_backward.launches
+        out = flash_attention(q, k, v)
+        out.float().pow(2).sum().backward()
+        assert flash_attention_backward.launches == before + 1
+        assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+    big = torch.randn((1, 64, 1, 520), device=cuda).bfloat16().requires_grad_()
     before = flash_attention_backward.launches
-    out = flash_attention(q, k, v)
-    out.float().pow(2).sum().backward()
-    assert flash_attention_backward.launches == before + 1
-    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
-    big = torch.randn((1, 64, 1, 512), device=cuda).bfloat16().requires_grad_()
-    with pytest.raises(RuntimeError, match="backward"):
+    with pytest.raises(ValueError, match="head dim"):
         flash_attention(big, big, big)
+    assert flash_attention_backward.launches == before

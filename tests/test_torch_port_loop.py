@@ -64,6 +64,7 @@ from evoworld_tpu_torch.models.unet import UNetSpatioTemporal
 from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal
 from evoworld_tpu_torch.models.weights import params_from_jax
 from evoworld_tpu_torch.runtime import PRESETS, build_reconstructor
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SIZE = dict(height=64, width=128, num_frames=5, num_steps=2)
 F, H, W = SIZE["num_frames"], SIZE["height"], SIZE["width"]

@@ -33,6 +33,7 @@ from evoworld_tpu_torch.loop import navigator as tnav
 from evoworld_tpu_torch.memory.pointcloud import confidence_mask, percentile
 from evoworld_tpu_torch.memory.render import align_target_poses, render_memory_panoramas
 from evoworld_tpu_torch.ops.splat import splat_points_to_pano
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

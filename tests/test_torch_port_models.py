@@ -18,12 +18,27 @@ from evoworld_tpu.models.clip import CLIPVisionTower as JClip
 from evoworld_tpu.models.vae import AutoencoderKLTemporal as JVAE
 from evoworld_tpu.models.vae import VAEAttention as JVAEAttention
 from evoworld_tpu.models.vae import VAEConfig as JVAECfg
+from evoworld_tpu.models.weights import host_random_params
 from evoworld_tpu_torch.models import layers as tl
 from evoworld_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
 from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal, VAEAttention, VAEConfig
 from evoworld_tpu_torch.models.weights import params_from_jax
 
 RTOL, ATOL = 2e-3, 5e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch CPU thread while a port module's tests run (the port's test
+    files import this fixture). Under the tier-1 command six pytest workers
+    share the host's cores, and torch's default of one thread a core
+    oversubscribes them: two `tests/test_models.py` cases beside five port
+    files took 468 s with the default and 215 s with one torch thread each
+    (227 s alone), on an 8-core host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 TINY_VAE = dict(block_out_channels=(32, 64, 128, 128))
 TINY_CLIP = dict(hidden_size=64, num_layers=2, num_heads=4, mlp_dim=128)
 
@@ -32,10 +47,33 @@ def _rand(rng, *shape, scale=1.0):
     return (rng.normal(size=shape) * scale).astype(np.float32)
 
 
+def _jit_call(fn, *args, **kw):
+    """`fn(*args, **kw)` under `jax.jit`, with the Python scalars and None
+    among `args` (frame counts, absent inputs) and every keyword held static:
+    one compile costs far less on the CPU than an eager model's op-by-op
+    dispatch (the tiny UNet's apply takes over a minute eagerly)."""
+    static = (bool, int, float, str, type(None))
+    dynamic = [i for i, a in enumerate(args) if not isinstance(a, static)]
+
+    def call(*arrays):
+        full = list(args)
+        for i, a in zip(dynamic, arrays):
+            full[i] = a
+        return fn(*full, **kw)
+
+    return jax.jit(call)(*(args[i] for i in dynamic))
+
+
 def _jax_init(module, *args, seed=0, perturb=0.0):
-    """Flax init; `perturb` adds noise to every leaf so neutral inits (norm
-    scale 1, bias 0, mix 0.5) do not hide a wrong mapping."""
-    params = module.init(jax.random.key(seed), *args)
+    """Flax parameters of `module` for `args` without running its init: the
+    init's shapes (`jax.eval_shape`) filled host-side by the JAX package's
+    role-aware `host_random_params` (fan-in-scaled normal kernels, neutral
+    norms, biases and mix factors), since an eager init of the tiny UNet
+    takes minutes on the CPU and a jitted one longer. `perturb` adds noise
+    to every leaf so the neutral values (norm scale 1, bias 0, mix 0.5) do
+    not hide a wrong mapping."""
+    shapes = jax.eval_shape(lambda key: module.init(key, *args), jax.random.key(seed))
+    params = host_random_params(shapes, seed, np.float32, as_numpy=True)
     if perturb:
         rng = np.random.default_rng(seed + 100)
         params = jax.tree.map(lambda x: x + perturb * rng.normal(size=x.shape).astype(np.float32), params)
@@ -44,7 +82,7 @@ def _jax_init(module, *args, seed=0, perturb=0.0):
 
 def _japply(module, params, *args, **kw):
     with jax.default_matmul_precision("highest"):
-        return np.asarray(module.apply(params, *args, **kw))
+        return np.asarray(_jit_call(module.apply, params, *args, **kw))
 
 
 def _port(module, params):

@@ -33,6 +33,7 @@ from evoworld_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
 from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
 from evoworld_tpu_torch.models.weights import params_from_jax
 from evoworld_tpu_torch.train import train_step as tts
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TINY_UNET = dict(block_out_channels=(32, 64, 128, 128), num_attention_heads=(2, 4, 8, 8))
 TINY_VAE = dict(block_out_channels=(32, 64, 128, 128))

@@ -21,6 +21,7 @@ from evoworld_tpu.train import train_step as jts
 from evoworld_tpu_torch.models.weights import params_from_jax
 from evoworld_tpu_torch.train import train_step as tts
 from tests.test_torch_port_train import RTOL, _batch, _torch, jax_draws, jax_models
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def test_train_step_with_accumulation_matches_jax_step():

@@ -17,6 +17,7 @@ from evoworld_tpu.train.trainer import episode_batches as j_episode_batches
 from evoworld_tpu_torch.runtime import build_trainer
 from evoworld_tpu_torch.train.train_step import TrainConfig
 from evoworld_tpu_torch.train.trainer import CheckpointManager, TrainerConfig, episode_batches, train
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F, H, W = 3, 64, 128
 

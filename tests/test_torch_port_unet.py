@@ -13,6 +13,7 @@ from evoworld_tpu.models.unet import UNetConfig as JUNetCfg
 from evoworld_tpu.models.unet import UNetSpatioTemporal as JUNet
 from evoworld_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
 from tests.test_torch_port_models import ATOL, RTOL, _jax_init, _japply, _port, _rand
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TINY_UNET = dict(block_out_channels=(32, 64, 128, 128), num_attention_heads=(2, 4, 8, 8))
 

@@ -32,6 +32,7 @@ from evoworld_tpu_torch.models.vggt.model import VGGT, load_and_preprocess_image
 from evoworld_tpu_torch.models.weights import vggt_params_from_jax
 from evoworld_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_half_pixel
 from evoworld_tpu_torch.runtime import VGGT_PRESETS, build_reconstructor
+from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)
 TOL = dict(rtol=1e-5, atol=1e-5)
