@@ -32,10 +32,11 @@ The training slice (EDM fine-tuning) adds:
      within the same RMS-relative limits, which the plain backward without
      its last DROPPED_KEYS keys must fail; a second call on the same inputs
      must give the same dK and dV bit for bit and dQ within one bf16 step
-     (the fused D = 64 pass sums dQ with global reductions in no fixed
-     order); timed beside its bound, its plain version and
+     (the fused pass sums dQ with global reductions in no fixed order); the
+     trace must hold the row's design's kernels and no other backward
+     kernel; timed beside its bound, its plain version and
      scaled_dot_product_attention's backward, each kernel of the call apart;
-     on a card at its full power limit the D = 64 rows must keep to
+     on a card at its full power limit the D = 64 and 128 rows must keep to
      BWD_MS_LINES. The CLI slice adds the D = 512 backward (the VAE's
      mid-block attention, which no path differentiates) at (8, 9216, 1, 512),
      (2, 9216, 1, 512) and a ragged length, the same checks, and a second
@@ -84,6 +85,16 @@ The CLI slice (checkpoints, image IO, the production CLIs) adds:
      episode's, the flash launches 5N + 18 and 162, and the writer's encode
      must overlap the compute; it prints the write, load, generate,
      reconstruct, splat, host decode and host save seconds.
+The JPEG slice (the redesigned D = 128 backward, JPEG decode) adds:
+  2b. the port's JPEG decoder (csrc/imageio.cpp, built with g++ beside the
+     two nvcc builds) on the fixtures committed under tests/torch_port_data/
+     (4:2:0 baseline, 4:2:2 with restart markers, progressive, grey): every
+     byte must equal the PNG stored beside each, PIL's decode of it (this
+     machine has neither PIL nor libjpeg);
+  3b. the D = 128 rows, (2, 9216, 2, 128) and (1, 5205, 16, 128) with keys
+     padded to 5632, run the fused wgmma pass (flash_bwd_fused<128>) under
+     the D = 64 rules: dQ within DQ_REPEAT_RTOL on a second call, and
+     head_dim_128 within its BWD_MS_LINES line.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card: the entry points refuse a dtype other than bf16 on CUDA.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -96,6 +107,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import re
 import struct
 import subprocess
@@ -131,21 +143,32 @@ FWD_KERNELS = {64: "flash_fwd_wgmma", 128: "flash_fwd_wgmma", 512: "flash_fwd_wi
 # wgmma pass between its two small passes, or the mma.sync pair.
 BWD_DESIGNS = {
     64: ("fused wgmma pass", ("flash_bwd_fused", "flash_bwd_store_dq", "flash_bwd_delta")),
-    128: ("mma.sync dK/dV and dQ kernels", ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")),
+    128: ("fused wgmma pass, K and V read from shared memory, dQ split by columns between the consumers",
+          ("flash_bwd_fused", "flash_bwd_store_dq", "flash_bwd_delta")),
     512: ("mma.sync dK/dV and dQ kernels, a 256-column half a block, warp pairs splitting the scores' sum",
           ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")),
 }
-# Two calls of the fused backward add the same fp32 terms into dQ in another
+# Every kernel a backward call may launch: a row's trace must hold its
+# design's kernels and none of the others.
+BWD_KERNELS = tuple(sorted({n for _, names in BWD_DESIGNS.values() for n in names}))
+# Two calls of a design that adds dQ's fp32 terms across blocks (the fused
+# pass, whose dQ then goes through flash_bwd_store_dq) add them in another
 # order, which can move a sum across a bf16 rounding boundary: one bf16 step
 # (2^-7 of the value), beside 1e-4 of dQ's RMS for sums that nearly cancel.
+# Every other design repeats dQ exactly.
 DQ_REPEAT_RTOL, DQ_REPEAT_RMS_ATOL = 2.0 ** -7, 1e-4
-# The lines the D = 64 backward is held to in PERF.md, in ms on an H100 at its
-# full power limit, FULL_POWER_W: asserted there, only printed on a card set
-# below it (which runs slower under load).
-BWD_MS_LINES = {"unet_l0_train": 19.5, "ragged_padded_kv": 0.95}
+DQ_SUMMED_DIMS = tuple(d for d, (_, names) in BWD_DESIGNS.items() if "flash_bwd_store_dq" in names)
+# The lines the D = 64 and 128 backward is held to in PERF.md, in ms on an
+# H100 at its full power limit, FULL_POWER_W: asserted there, only printed on
+# a card set below it (which runs slower under load).
+BWD_MS_LINES = {"unet_l0_train": 19.5, "ragged_padded_kv": 0.95, "head_dim_128": 1.45}
 # The same for the D = 512 forward at the VAE's three shapes.
 FWD_MS_LINES = {"vae_encoder_mid": 1.7, "vae_encoder_mid_train": 5.0, "vae_decoder_mid": 3.3}
 FULL_POWER_W = 700.0
+# JPEGs with PIL's decode of each stored beside it as a PNG
+# (tests/torch_port_data/make_jpeg_fixtures.py).
+JPEG_FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_data")
+JPEG_FIXTURES = ("baseline_420", "restart_422", "progressive_420", "grey")
 FILL_MS = 20.0  # a timing repeats a call until about this much device time has passed
 STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5  # a tenth of one update at lr 1e-4
 # The tiny loop on the card against the CPU, the CPU parity test's tolerances
@@ -303,6 +326,32 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
     return {"shapes": shapes}
 
 
+def check_jpeg_fixtures() -> list[dict]:
+    """Phase 2b: each committed JPEG fixture decoded by the port against the
+    PNG of PIL's decode stored beside it (read by the port's PNG decoder,
+    which the CPU tests hold to PIL's bytes), byte for byte."""
+    import numpy as np
+
+    from evoworld_tpu_torch.data import native_io
+
+    rows = []
+    for name in JPEG_FIXTURES:
+        jpg, png = (os.path.join(JPEG_FIXTURE_DIR, f"{name}.{ext}") for ext in ("jpg", "png"))
+        width, height = png_size(png)
+        want = native_io.load_image_batch([png], height, width, minus1_1=False, n_threads=1)
+        t0 = time.perf_counter()
+        got = native_io.load_image_batch([jpg], height, width, minus1_1=False, n_threads=1)
+        seconds = time.perf_counter() - t0
+        differing = int((got != want).any(axis=-1).sum())
+        rows.append(dict(name=name, height=height, width=width, differing_pixels=differing,
+                         max_abs_diff_255=float(np.abs(got - want).max() * 255), decode_s=seconds))
+    log("jpeg fixtures " + json.dumps(rows))
+    bad = [r for r in rows if r["differing_pixels"]]
+    if bad:
+        raise AssertionError(f"the port's JPEG decode differs from libjpeg's: {bad}")
+    return rows
+
+
 def ptxas_report(log_text: str) -> list[dict]:
     """Registers and spill bytes of each kernel entry in an nvcc -Xptxas -v log,
     and ptxas's warning where it serialized an entry's wgmma (printed before
@@ -334,14 +383,14 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
     forward's own output and log-sum-exp. The kernel's log-sum-exp must be
     within LSE_ATOL of the plain one, which the plain one over DROPPED_KEYS
     fewer keys must miss. dQ, dK and dV each within the RMS-relative limits
-    at the training shape, a D = 128 shape, the VAE's D = 512 shapes and two
+    at the training shape, a D = 128 shape, the VAE's D = 512 shapes and three
     ragged rows (keys past `kv_len` set to K = 10, V = 100, whose dK and dV
     rows must be exactly zero); the plain backward without the last
     DROPPED_KEYS keys must fail them. A second call must repeat dK and dV
-    exactly and dQ within DQ_REPEAT_RTOL (exactly where D is not 64: those
-    kernels sum nothing across blocks), and the trace must hold every kernel
-    of the row's design. With the card at
-    FULL_POWER_W the D = 64 rows must also keep to BWD_MS_LINES. Times: the whole
+    exactly and dQ within DQ_REPEAT_RTOL (exactly at D = 512: those kernels
+    sum nothing across blocks), and the trace must hold every kernel of the
+    row's design and no other backward kernel. With the card at FULL_POWER_W
+    the D = 64 and 128 rows must also keep to BWD_MS_LINES. Times: the whole
     call with CUDA events (the zeroing of the dQ buffer included), each of
     its kernels apart from a profiler trace, the plain version, and as a
     yardstick only `scaled_dot_product_attention` forward + backward less
@@ -361,6 +410,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         ("unet_l0_train", 25, 9216, 9216, 5, 64, 9216),
         ("head_dim_128", 2, 9216, 9216, 2, 128, 9216),
         ("ragged_padded_kv", 1, 5205, 5632, 16, 64, 5205),
+        ("ragged_d128", 1, 5205, 5632, 16, 128, 5205),
         # the VAE's mid-block attention at the training encoder's chunk of 8
         # and at the clip's encode of 2, and a length no tile divides
         ("vae_mid_d512", 8, 9216, 9216, 1, 512, 9216),
@@ -404,7 +454,9 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
 
         ms = cuda_ms(bwd, reps=None)
         design, names = BWD_DESIGNS[d]
-        split = kernel_ms_from_trace(bwd, names)
+        traced = kernel_ms_from_trace(bwd, BWD_KERNELS)
+        split = {n: traced[n] for n in names}
+        strays = [n for n, t in traced.items() if t > 0 and n not in names]
         plain_ms = cuda_ms(lambda: flash_attention_backward_plain(*f32, ref_lse, scale, kv_len), reps=1)
         del f32, ref_lse
         torch.cuda.empty_cache()
@@ -425,7 +477,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()),
                    lse_max_abs_err=lse_err, dropped_keys_lse_err=cut_lse_err,
                    dropped_keys_rel_err={n: [e["max_rel_err"], e["mean_rel_err"]] for n, e in cut_errs.items()},
-                   masked_rows_zero=masked_zero, repeat=repeat, design=design, ms=ms,
+                   masked_rows_zero=masked_zero, repeat=repeat, design=design, ms=ms, other_kernels=strays,
                    kernel_ms={n.removeprefix("flash_bwd_"): t for n, t in split.items()}, plain_ms=plain_ms,
                    library_ms=library_ms, library_fwd_ms=sdpa_fwd_ms,
                    bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -442,10 +494,10 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
                                  f"{DROPPED_KEYS} dropped keys give {cut_lse_err})")
         if not masked_zero:
             raise AssertionError(f"dK/dV rows past kv_len are not zero at {label}")
-        if not (repeat["dkdv_equal"] and repeat["dq_ok"]) or (d != 64 and not repeat["dq_equal"]):
+        if not (repeat["dkdv_equal"] and repeat["dq_ok"]) or (d not in DQ_SUMMED_DIMS and not repeat["dq_equal"]):
             raise AssertionError(f"a second backward call differs from the first at {label}: {repeat}")
-        if not all(split.values()):
-            raise AssertionError(f"the trace at {label} lacks a kernel of {design}: {split}")
+        if not all(split.values()) or strays:
+            raise AssertionError(f"the trace at {label} lacks a kernel of {design} or holds another's: {traced}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
             raise AssertionError(f"backward kernel took {ms:.3f} ms at {label}, over its line of {row['ms_line']} ms")
         shapes.append(row)
@@ -1296,6 +1348,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA card", file=sys.stderr)
         return 1
+    from evoworld_tpu_torch.data import native_io
     from evoworld_tpu_torch.ops import _build
     from evoworld_tpu_torch.ops.flash_attention import BWD_SOURCE, SOURCE
 
@@ -1316,14 +1369,16 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        list(pool.map(_build.load, (SOURCE, BWD_SOURCE)))
-    log(f"nvcc build of {SOURCE} and {BWD_SOURCE}: {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(3) as pool:  # one compiler per source, started together
+        list(pool.map(_build.load, (SOURCE, BWD_SOURCE, native_io.SOURCE)))
+    log(f"nvcc build of {SOURCE} and {BWD_SOURCE}, g++ build of {native_io.SOURCE}: {time.perf_counter() - t0:.3f} s")
     for source in (SOURCE, BWD_SOURCE):
         for row in ptxas_report(_build.build_log(source)):
             log(f"ptxas {source} " + json.dumps(row))
             if row.get("spill_stores") or row.get("spill_loads") or "wgmma_serialized" in row:
                 raise AssertionError(f"{source}: a kernel entry spills or serializes its wgmma: {row}")
+
+    check_jpeg_fixtures()
 
     watts = re.search(r",\s*([\d.]+) W", smi)  # "[N/A]" where the limit cannot be read
     power_limit_w = float(watts.group(1)) if watts else 0.0
@@ -1346,6 +1401,7 @@ def main() -> int:
     wide_row = next(r for r in flash["shapes"] if r["label"] == "vae_encoder_mid_train")  # 6 of 8 a step
     bwd_row = flash_bwd["shapes"][0]  # the training shape: 5 launches per step
     d512_row = next(r for r in flash_bwd["shapes"] if r["label"] == "vae_mid_d512")
+    d128_row = next(r for r in flash_bwd["shapes"] if r["label"] == "head_dim_128")
     fwd_total, bwd_total = train_run["summary"]["launches_total"]
     kernels = [{
         "name": "flash_attn_fwd",
@@ -1386,6 +1442,8 @@ def main() -> int:
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],
         "designs": {str(d): design for d, (design, _) in BWD_DESIGNS.items()},
+        "d128": {k: d128_row[k] for k in ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "max_abs_err", "repeat")},
         "d512": {k: d512_row[k] for k in ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "max_abs_err", "repeat")},
         "kernel_ms": bwd_row["kernel_ms"],

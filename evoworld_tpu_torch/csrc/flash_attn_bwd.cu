@@ -22,8 +22,9 @@
 // delivers in the tensor cores' time.
 //
 // D = 64 (every attention with a gradient on the port's paths: the UNet's
-// heads of 64): one fused pass, `flash_bwd_fused`, that does the five
-// products once and exp2 once, between two small passes.
+// heads of 64) and D = 128 (head dims 65-128 at 4096 tokens or more; no path
+// runs it today): one fused pass, `flash_bwd_fused<D>`, that does the five
+// products once and exp2 once, between two small passes. At D = 64:
 //   flash_bwd_delta   delta_i = rowsum(dO_i * O_i) and L_i * log2(e), fp32
 //                     (B, H, Sq rounded up to 64); the padding holds delta = 0
 //                     and a huge L, so a padded query gets P = 0 and no mask.
@@ -64,17 +65,33 @@
 //                     the block's last key tile only) and their rows are
 //                     written as zeros.
 //   flash_bwd_store_dq  dQ = bf16(scale * buffer).
+// At D = 128 the same block, grid and schedule hold twice the columns, and
+// registers are what runs short: a consumer's dK and dV for 64 keys x 128
+// columns take 128 fp32 registers a thread, beside 64 of S^T and dP^T and 32
+// of dQ, under setmaxnreg's 240 (the producer keeps 24). So:
+//   - K and V stay in shared memory (two 64-column boxes each, as
+//     flash_fwd_wgmma lays out D = 128) and S^T and dP^T read both operands
+//     from there (wgmma m64n64k16, 8 k-steps across the two boxes); the
+//     first k-step only writes its accumulator, so S^T, dP^T and dQ hold no
+//     registers between their uses;
+//   - dV += P^T dO and dK += dS^T Q are wgmma m64n128k16 with P and dS from
+//     registers, dO and Q MN-major over both boxes (the descriptor's leading
+//     offset is the box distance); P and dS become bf16 column pair by
+//     column pair as dS is formed;
+//   - each consumer computes its own 64 columns of every tile's dQ over all
+//     128 keys (B = K's box cw), one tile late as at D = 64, and adds the
+//     64 x 64 fp32 part into a (B, H, Sq', 128) buffer with one bulk
+//     reduction; both consumers read each dS^T buffer;
+//   - the query ring has 3 stages (227 KB of shared memory in all).
 // The order of the fp32 sums into dQ changes from run to run, so dQ may
 // differ in its last bf16 bit between two calls; dK and dV are repeatable.
 //
-// D = 128 (no path of the port runs it) stays on the mma.sync kernels of the
-// first port: `flash_bwd_dkdv` (one block per 64 keys, 32-query tiles) and
-// `flash_bwd_dq` (one block per 64 queries, 64-key tiles), cp.async double
-// buffering, S and dP recomputed in both, no atomics.
-//
 // D = 512 (the VAE's mid-block attention, one head of 512; no path of the
 // port or of the JAX package forms this gradient, the VAE being frozen) runs
-// the same two templates with their output columns split: a block owns one
+// the mma.sync kernels of the first port, `flash_bwd_dkdv` (one block per 64
+// keys) and `flash_bwd_dq` (one block per 64 queries), cp.async double
+// buffering, S and dP recomputed in both, no atomics, with their output
+// columns split: a block owns one
 // 256-column half of dK and dV for 64 keys (or of dQ for 64 queries), the
 // two halves side by side on grid.x. A 64 x 512 fp32 gradient tile would
 // take 256 registers a thread for each of dK and dV. The block has 8 warps:
@@ -104,8 +121,8 @@ struct BwdParams {
   const __nv_bfloat16* dout;
   const float* lse;  // (B, H, Sq), natural log
   float* delta;      // (B, H, sq_pad)
-  float* lse2;       // (B, H, sq_pad): lse * log2(e); null at D = 128
-  float* dq_acc;     // (B, H, sq_pad, 64) fp32 sums of dQ / scale; null at D = 128
+  float* lse2;       // (B, H, sq_pad): lse * log2(e); null at D = 512
+  float* dq_acc;     // (B, H, sq_pad, D) fp32 sums of dQ / scale; null at D = 512
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
@@ -170,29 +187,43 @@ __global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_ro
 }
 
 // ---------------------------------------------------------------------------
-// D = 64: the fused pass.
+// The fused pass, D = 64 and 128.
 // ---------------------------------------------------------------------------
 constexpr int kKeys = 128;          // keys per block, 64 per consumer warpgroup
 constexpr int kQ = 64;              // queries per tile
 constexpr int kFusedThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;   // arrivals that free a ring buffer or fill a dS^T buffer
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kStages = 4;                  // buffers of the query ring
-constexpr int kDsBufs = 2;                  // dS^T buffers
-constexpr uint32_t kKVBytes = kKeys * 128;  // one 128-key x 64-column bf16 tile (K, V, dS^T)
-constexpr uint32_t kTileBytes = kQ * 128;   // one 64-row x 64-column bf16 tile (Q, dO)
+constexpr int kDsBufs = 2;          // dS^T buffers
+constexpr uint32_t kDsBytes = kKeys * 128;  // one 128-key x 64-query bf16 dS^T tile
+constexpr uint32_t kBoxBytes = kQ * 128;    // one 64-row x 64-column bf16 box (a query tile's, or a consumer's keys)
 constexpr uint32_t kRowBytes = kQ * 4;      // one tile's L or delta
-constexpr uint32_t kDqBytes = kQ * 64 * 4;  // one tile's fp32 part of dQ
-// 1024 bytes of slack to align the tiles, then K, V, the dS^T buffers, a dQ
-// staging tile per consumer, the Q ring, the dO ring, the L and delta rings,
-// and the mbarriers.
-constexpr size_t kFusedSmem = 1024 + (2 + kDsBufs) * kKVBytes + 2 * kDqBytes + 2 * kStages * kTileBytes +
-                              2 * kStages * kRowBytes + (1 + 2 * kDsBufs + 2 * kStages) * 8;
+constexpr uint32_t kDqBytes = kQ * 64 * 4;  // one consumer's 64 x 64 fp32 part of a tile's dQ
+
+template <int D>
+struct Fused {
+  static constexpr int kBoxes = D / 64;                     // 64-column (128-byte) boxes per row
+  // Buffers of the query ring. At D = 128 three fill shared memory to 232,024
+  // of its 232,448 bytes; they ran faster than two on an H100.
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  // Registers of a producer / consumer thread: 128 (P + 2 C) <= 65536. At D =
+  // 128 a consumer holds 128 accumulators of dK and dV, 64 of S^T and dP^T
+  // and 32 of dQ.
+  static constexpr int kProducerRegs = D == 64 ? 40 : 24;
+  static constexpr int kConsumerRegs = D == 64 ? 232 : 240;
+  static constexpr uint32_t kKVBox = kKeys * 128;           // one 128-key x 64-column box
+  static constexpr uint32_t kKVBytes = kBoxes * kKVBox;     // K or V of the block
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // one Q or dO tile
+  // 1024 bytes of slack to align the tiles, then K, V, the dS^T buffers, a dQ
+  // staging tile per consumer, the Q ring, the dO ring, the L and delta rings,
+  // and the mbarriers.
+  static constexpr size_t kSmem = 1024 + 2 * kKVBytes + kDsBufs * kDsBytes + 2 * kDqBytes + 2 * kStages * kTileBytes +
+                                  2 * kStages * kRowBytes + (1 + 2 * kDsBufs + 2 * kStages) * 8;
+};
 
 struct FusedArgs {
   const float* lse2;   // (B, H, sq_pad)
   const float* delta;  // (B, H, sq_pad)
-  float* dq_acc;       // (B, H, sq_pad / 64, 4096) in staging order, zeroed by the caller
+  float* dq_acc;       // (B, H, sq_pad / 64, 64 * D) in staging order, zeroed by the caller
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   int64_t dk_sb, dk_ss, dk_sh;
@@ -243,24 +274,38 @@ __device__ __forceinline__ void load_a_sw128(uint32_t (&f)[4][4], const unsigned
   }
 }
 
+// acc (64 keys x 64 queries) = A (this consumer's 64 keys x 128 columns, `a`)
+// B^T (64 queries x 128 columns, `b`), both K-major in two 64-column boxes
+// (`a_box`, `b_box` descriptor units apart): S^T or dP^T at D = 128.
+__device__ __forceinline__ void scores_d128(float (&acc)[32], uint64_t a, uint32_t a_box, uint64_t b,
+                                            uint32_t b_box) {
+  wgmma_ss_n64_first<0, 0>(acc, a, b);
+#pragma unroll
+  for (int kk = 1; kk < 8; ++kk) {
+    wgmma_ss_n64<0, 0>(acc, a + (kk / 4) * a_box + (kk % 4) * 2, b + (kk / 4) * b_box + (kk % 4) * 2, 1);
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kFusedThreads, 1)
     flash_bwd_fused(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const FusedArgs a) {
+  using C = Fused<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ks = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* vs = ks + kKVBytes;
-  unsigned char* dss = vs + kKVBytes;  // dS^T of tile t at dss + (t % kDsBufs) * kKVBytes, 128 keys x 64 queries
-  unsigned char* dqs = dss + kDsBufs * kKVBytes;  // consumer cw's dQ staging tile at dqs + cw * kDqBytes
+  unsigned char* vs = ks + C::kKVBytes;
+  unsigned char* dss = vs + C::kKVBytes;  // dS^T of tile t at dss + (t % kDsBufs) * kDsBytes, 128 keys x 64 queries
+  unsigned char* dqs = dss + kDsBufs * kDsBytes;  // consumer cw's dQ staging tile at dqs + cw * kDqBytes
   unsigned char* qs = dqs + 2 * kDqBytes;         // stage st at qs + st * kTileBytes
-  unsigned char* dos = qs + kStages * kTileBytes;
-  float* lse_s = reinterpret_cast<float*>(dos + kStages * kTileBytes);  // [kStages][kQ]
-  float* dlt_s = lse_s + kStages * kQ;                                  // [kStages][kQ]
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dlt_s + kStages * kQ);
+  unsigned char* dos = qs + C::kStages * C::kTileBytes;
+  float* lse_s = reinterpret_cast<float*>(dos + C::kStages * C::kTileBytes);  // [kStages][kQ]
+  float* dlt_s = lse_s + C::kStages * kQ;                                     // [kStages][kQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dlt_s + C::kStages * kQ);
   uint64_t* ds_full = kv_full + 1;         // [kDsBufs]: both consumers have written their half of dS^T
-  uint64_t* ds_empty = ds_full + kDsBufs;  // [kDsBufs]: the dQ product has read it
+  uint64_t* ds_empty = ds_full + kDsBufs;  // [kDsBufs]: the dQ products have read it
   uint64_t* full = ds_empty + kDsBufs;     // [kStages]
-  uint64_t* empty = full + kStages;        // [kStages]
+  uint64_t* empty = full + C::kStages;     // [kStages]
 
   const int k0 = blockIdx.x * kKeys, h = blockIdx.y, b = blockIdx.z;
   __nv_bfloat16* dkb = a.dk + b * a.dk_sb + h * a.dk_sh;
@@ -268,8 +313,8 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 
   if (k0 >= a.kv_len) {  // every key of the tile is masked: zero rows
     const int rows = min(kKeys, a.skv - k0);
-    for (int i = threadIdx.x; i < rows * 8; i += kFusedThreads) {
-      const int r = i / 8, c = i % 8;
+    for (int i = threadIdx.x; i < rows * (D / 8); i += kFusedThreads) {
+      const int r = i / (D / 8), c = i % (D / 8);
       *reinterpret_cast<uint4*>(dkb + (int64_t)(k0 + r) * a.dk_ss + c * 8) = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(dvb + (int64_t)(k0 + r) * a.dv_ss + c * 8) = make_uint4(0, 0, 0, 0);
     }
@@ -287,9 +332,10 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
     mbar_init(kv_full, 1);
     for (int i = 0; i < kDsBufs; ++i) {
       mbar_init(ds_full + i, kConsumerWarps);
-      mbar_init(ds_empty + i, kConsumerWarps / 2);
+      // D = 64: one consumer reads a tile's dS^T; D = 128: both do.
+      mbar_init(ds_empty + i, D == 64 ? kConsumerWarps / 2 : kConsumerWarps);
     }
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < C::kStages; ++st) {
       mbar_init(full + st, 1);
       mbar_init(empty + st, kConsumerWarps);
     }
@@ -299,69 +345,101 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 
   if (wg == 0) {
     // Producer: one thread loads K and V, then keeps the query ring full.
-    reg_dealloc<kProducerRegs>();
+    reg_dealloc<C::kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(kv_full, 2 * kKVBytes);
-      tma_load(ks, &tk, kv_full, 0, k0, h, b);
-      tma_load(vs, &tv, kv_full, 0, k0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages;
+      mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load(ks + x * C::kKVBox, &tk, kv_full, x * 64, k0, h, b);
+        tma_load(vs + x * C::kKVBox, &tv, kv_full, x * 64, k0, h, b);
+      }
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {  // rolled: the group keeps kProducerRegs registers
+        const int st = t % C::kStages;
         const int qt = t + t0 < n_tiles ? t + t0 : t + t0 - n_tiles;
-        mbar_wait(empty + st, ((t / kStages) & 1) ^ 1);  // the first round finds the ring free
-        mbar_expect_tx(full + st, 2 * kTileBytes + 2 * kRowBytes);
-        tma_load(qs + st * kTileBytes, &tq, full + st, 0, qt * kQ, h, b);
-        tma_load(dos + st * kTileBytes, &tdo, full + st, 0, qt * kQ, h, b);
+        mbar_wait(empty + st, ((t / C::kStages) & 1) ^ 1);  // the first round finds the ring free
+        mbar_expect_tx(full + st, 2 * C::kTileBytes + 2 * kRowBytes);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(qs + st * C::kTileBytes + x * kBoxBytes, &tq, full + st, x * 64, qt * kQ, h, b);
+          tma_load(dos + st * C::kTileBytes + x * kBoxBytes, &tdo, full + st, x * 64, qt * kQ, h, b);
+        }
         bulk_load(lse_s + st * kQ, a.lse2 + row_base + qt * kQ, kRowBytes, full + st);
         bulk_load(dlt_s + st * kQ, a.delta + row_base + qt * kQ, kRowBytes, full + st);
       }
     }
   } else {
     // Consumers: warpgroup cw owns keys k0 + 64 cw .. + 63.
-    reg_alloc<kConsumerRegs>();
+    reg_alloc<C::kConsumerRegs>();
     const int cw = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, t4 = lane % 4;
     const bool leader = threadIdx.x % 128 == 0;  // starts this consumer's bulk reductions
     // K-major operands step 32 bytes along a 128-byte row per 16-deep k-step
-    // (2 descriptor units); MN-major ones 16 rows of 128 bytes (128 units).
-    // Every tile here is one 64-column box, so the leading offset is unused.
-    const uint64_t k_all_desc = sw128_desc(ks, 16, 1024);  // all 128 keys, for dQ
-    const uint64_t q_desc = sw128_desc(qs, 16, 1024);
-    const uint64_t do_desc = sw128_desc(dos, 16, 1024);
+    // (2 descriptor units), and a whole box (kBoxes > 1) every 4 steps;
+    // MN-major ones 16 rows of 128 bytes (128 units), their 64-column boxes
+    // the leading offset apart (unused where the product is 64 columns wide).
+    constexpr uint32_t kTileStep = C::kTileBytes / 16;  // descriptor units between ring stages
+    constexpr uint32_t kDsStep = kDsBytes / 16;         // and between the dS^T buffers
+    constexpr uint32_t kLead = D == 64 ? 16 : kBoxBytes;
+    const uint64_t q_desc = sw128_desc(qs, kLead, 1024);
+    const uint64_t do_desc = sw128_desc(dos, kLead, 1024);
     const uint64_t ds_desc = sw128_desc(dss, 16, 1024);
-    constexpr uint32_t kTileStep = kTileBytes / 16;  // descriptor units between ring stages
-    constexpr uint32_t kDsStep = kKVBytes / 16;      // and between the dS^T buffers
+    // dQ_part = dS K: at D = 64 over K's only box; at D = 128 consumer cw
+    // computes columns 64 cw .. + 63 of every tile, over K's box cw.
+    const uint64_t k_dq_desc = sw128_desc(ks + (D == 64 ? 0 : cw * C::kKVBox), 16, 1024);
     // This thread's dS^T elements: key rows 64 cw + 16 warp + g + 8 r, query
     // pairs 8 j + 2 t4; the 16-byte chunk j of row `row` sits at chunk j ^ (row % 8).
-    unsigned char* ds_thread = dss + cw * kTileBytes + warp * 2048 + g * 128 + 4 * t4;
+    unsigned char* ds_thread = dss + cw * kBoxBytes + warp * 2048 + g * 128 + 4 * t4;
     const int g16 = g * 16;
     const int key0 = k0 + cw * 64 + warp * 16 + g;  // this thread's key rows: key0 and key0 + 8
     const bool edge = k0 + kKeys > a.kv_len;
     float* dq_stage = reinterpret_cast<float*>(dqs + cw * kDqBytes);
     float* dq_thread = dq_stage + warp * 1024 + lane * 2;  // staging order, see staging_offset
-    float* dq_tiles = a.dq_acc + row_base * 64;
+    // Tile qt's 64 x D part of dQ sits at dq_tiles + qt * 64 D, its 64-column
+    // slices 4096 floats apart, each in staging order.
+    float* dq_tiles = a.dq_acc + row_base * D + (D == 64 ? 0 : cw * kQ * 64);
 
-    float dk[32], dv[32], s[32], dp[32], dq[32];
+    float dk[D / 2], dv[D / 2], s[32], dp[32], dq[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = s[i] = dp[i] = dq[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    if constexpr (D == 64) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = dq[i] = 0.f;
+    }
     uint32_t pa[4][4], dsa[4][4];
 
-    // K and V of this consumer's keys stay in registers as A fragments for the
-    // block's whole sweep: with them in shared memory, S^T and dP^T would read
-    // as many bytes per product as shared memory delivers in its time.
-    uint32_t kf[4][4], vf[4][4];
+    // D = 64: K and V of this consumer's keys stay in registers as A
+    // fragments for the block's whole sweep: with them in shared memory, S^T
+    // and dP^T would read as many bytes per product as shared memory delivers
+    // in its time. D = 128 has no registers for them (64 more a thread): S^T
+    // and dP^T read both operands from shared memory.
+    uint32_t kf[D == 64 ? 4 : 1][4], vf[D == 64 ? 4 : 1][4];
     mbar_wait(kv_full, 0);
-    load_a_sw128(kf, ks + cw * kTileBytes + warp * 2048 + g * 128, g, t4);
-    load_a_sw128(vf, vs + cw * kTileBytes + warp * 2048 + g * 128, g, t4);
+    if constexpr (D == 64) {
+      load_a_sw128(kf, ks + cw * kBoxBytes + warp * 2048 + g * 128, g, t4);
+      load_a_sw128(vf, vs + cw * kBoxBytes + warp * 2048 + g * 128, g, t4);
+    }
+    const uint64_t k_own = sw128_desc(ks + cw * kBoxBytes, 16, 1024);  // D = 128: this consumer's keys, K-major
+    const uint64_t v_own = sw128_desc(vs + cw * kBoxBytes, 16, 1024);
 
-    // dQ_part = dS K of tile `tile` over all 128 keys: A = dS^T and B = K, both MN-major.
+    // dQ_part = dS K of tile `tile`: A = dS^T and B = K over all 128 keys, both MN-major.
     auto start_dq = [&](int tile) {
       const int at = tile % kDsBufs;
       mbar_wait(ds_full + at, (tile / kDsBufs) & 1);  // both halves of dS^T are there
-      fence_regs(dq);
-      wgmma_fence();
+      if constexpr (D == 64) {
+        fence_regs(dq);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_ss_n64<1, 1>(dq, ds_desc + at * kDsStep + kk * 128, k_all_desc + kk * 128, kk > 0);
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_ss_n64<1, 1>(dq, ds_desc + at * kDsStep + kk * 128, k_dq_desc + kk * 128, kk > 0);
+        }
+      } else {  // the first k-step only writes dq, which stays dead from the last drain until here
+        wgmma_fence();
+        wgmma_ss_n64_first<1, 1>(dq, ds_desc + at * kDsStep, k_dq_desc);
+#pragma unroll
+        for (int kk = 1; kk < 8; ++kk) {
+          wgmma_ss_n64<1, 1>(dq, ds_desc + at * kDsStep + kk * 128, k_dq_desc + kk * 128, 1);
+        }
       }
       wgmma_commit();
     };
@@ -379,39 +457,48 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       fence_proxy_async();  // the bulk reduction reads shared memory through the async proxy
       named_barrier_sync(1 + cw, 128);
       if (leader) {
-        bulk_reduce_add_f32(dq_tiles + (int64_t)tile * (kQ * 64), dq_stage, kDqBytes);
+        bulk_reduce_add_f32(dq_tiles + (int64_t)tile * (kQ * D), dq_stage, kDqBytes);
         bulk_commit();
       }
     };
 
     int qt_prev = 0;
     for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % kStages, buf = t % kDsBufs;
-      // The consumers take turns at a tile's dQ: one product over all 128
-      // keys and one reduction into global memory, not two. It is started one
-      // tile late, behind the next tile's dV and dK, when the other consumer's
-      // half of dS^T has long arrived.
-      const bool has_dq = t > 0 && ((t - 1) & 1) == cw;
+      const int st = t % C::kStages, buf = t % kDsBufs;
+      // D = 64: the consumers take turns at a tile's dQ, one product over all
+      // 128 keys and one reduction into global memory, not two. D = 128:
+      // each consumer computes its 64 columns of every tile's dQ. It is
+      // started one tile late, behind the next tile's dV and dK, when the
+      // other consumer's half of dS^T has long arrived.
+      const bool has_dq = t > 0 && (D != 64 || ((t - 1) & 1) == cw);
       const int qt = t + t0 < n_tiles ? t + t0 : t + t0 - n_tiles;
       const float* lt = lse_s + st * kQ + 2 * t4;
       const float* dt = dlt_s + st * kQ + 2 * t4;
       const uint64_t q_tile = q_desc + st * kTileStep, do_tile = do_desc + st * kTileStep;
 
       // S^T = K Q^T and dP^T = V dO^T, one group each; Q and dO are K-major here.
-      mbar_wait(full + st, (t / kStages) & 1);
-      fence_regs(s);
-      fence_regs(dp);
-      wgmma_fence();
+      mbar_wait(full + st, (t / C::kStages) & 1);
+      if constexpr (D == 64) {
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_rs_n64_acc<0>(s, kf[kk], q_tile + kk * 2, kk > 0);
-      }
-      wgmma_commit();
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs_n64_acc<0>(s, kf[kk], q_tile + kk * 2, kk > 0);
+        }
+        wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_rs_n64_acc<0>(dp, vf[kk], do_tile + kk * 2, kk > 0);
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs_n64_acc<0>(dp, vf[kk], do_tile + kk * 2, kk > 0);
+        }
+        wgmma_commit();
+      } else {
+        wgmma_fence();
+        scores_d128(s, k_own, C::kKVBox / 16, q_tile, kBoxBytes / 16);
+        wgmma_commit();
+        scores_d128(dp, v_own, C::kKVBox / 16, do_tile, kBoxBytes / 16);
+        wgmma_commit();
       }
-      wgmma_commit();
 
       wgmma_wait<1>();  // S^T done; dP^T may still run
       fence_regs(s);
@@ -430,7 +517,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           if (key0 + 8 >= a.kv_len) s[4 * j + 2] = s[4 * j + 3] = 0.f;
         }
       }
-      to_bf16(s, pa);
+      if constexpr (D == 64) to_bf16(s, pa);
 
       wgmma_wait<0>();  // dP^T done
       fence_regs(dp);
@@ -441,8 +528,17 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d2.y);
         dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d2.x);
         dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d2.y);
+        if constexpr (D == 128) {
+          // P and dS to bf16 column pair by column pair, so that each pair's
+          // fp32 registers die at once: dK and dV's 128 leave no room for all
+          // of P, dS and their bf16 copies together.
+          pa[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j + 0], s[4 * j + 1]);
+          pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+          dsa[j / 2][2 * (j % 2)] = pack_bf16(dp[4 * j + 0], dp[4 * j + 1]);
+          dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+        }
       }
-      to_bf16(dp, dsa);
+      if constexpr (D == 64) to_bf16(dp, dsa);
       // dS^T into shared memory for the dQ product, once tile t - kDsBufs's product has read the buffer.
       mbar_wait(ds_empty + buf, ((t / kDsBufs) & 1) ^ 1);
 #pragma unroll
@@ -450,7 +546,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int j = 2 * kk + (i >> 1), r = i & 1;
-          *reinterpret_cast<uint32_t*>(ds_thread + buf * kKVBytes + r * 1024 + ((j * 16) ^ g16)) = dsa[kk][i];
+          *reinterpret_cast<uint32_t*>(ds_thread + buf * kDsBytes + r * 1024 + ((j * 16) ^ g16)) = dsa[kk][i];
         }
       }
       fence_proxy_async();  // wgmma reads shared memory through the async proxy
@@ -462,9 +558,21 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       fence_regs(dv);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(dv, pa[kk], do_tile + kk * 128);
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (D == 64) {
+          wgmma_rs_n64(dv, pa[kk], do_tile + kk * 128);
+        } else {
+          wgmma_rs_n128(dv, pa[kk], do_tile + kk * 128);
+        }
+      }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(dk, dsa[kk], q_tile + kk * 128);
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (D == 64) {
+          wgmma_rs_n64(dk, dsa[kk], q_tile + kk * 128);
+        } else {
+          wgmma_rs_n128(dk, dsa[kk], q_tile + kk * 128);
+        }
+      }
       wgmma_commit();
       if (has_dq) start_dq(t - 1);
       wgmma_wait<0>();
@@ -475,7 +583,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       }
       qt_prev = qt;
     }
-    if (((n_tiles - 1) & 1) == cw) {  // the last tile's dQ
+    if (D != 64 || ((n_tiles - 1) & 1) == cw) {  // the last tile's dQ
       start_dq(n_tiles - 1);
       wgmma_wait<0>();
       drain_dq(qt_prev);
@@ -490,7 +598,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         __nv_bfloat16* dkr = dkb + (int64_t)row * a.dk_ss;
         __nv_bfloat16* dvr = dvb + (int64_t)row * a.dv_ss;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * t4) =
               pack_bf16(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
           *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * t4) = pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
@@ -502,16 +610,19 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 }
 
 // dQ[b, s, h, :] = bf16(scale * dq_acc[b, h, s, :]), with dq_acc's tiles in
-// staging order: 8 threads a row of 64, 8 columns each.
+// staging order, their 64-column slices 4096 floats apart: D / 8 threads a
+// row, 8 columns each.
+template <int D>
 __global__ void __launch_bounds__(128) flash_bwd_store_dq(BwdParams p, int64_t n_rows) {
-  const int64_t row = (int64_t)blockIdx.x * 16 + threadIdx.x / 8;  // (b, s, h), h fastest
+  constexpr int TPR = D / 8, RPB = 128 / TPR;
+  const int64_t row = (int64_t)blockIdx.x * RPB + threadIdx.x / TPR;  // (b, s, h), h fastest
   if (row >= n_rows) return;
-  const int c = threadIdx.x % 8;
+  const int c = threadIdx.x % TPR;
   const int h = (int)(row % p.heads);
   const int s = (int)((row / p.heads) % p.sq);
   const int64_t b = row / ((int64_t)p.heads * p.sq);
-  const float* tile = p.dq_acc + ((b * p.heads + h) * p.sq_pad + s / kQ * kQ) * 64;
-  const float4* src = reinterpret_cast<const float4*>(tile + staging_offset(s % kQ, c));
+  const float* tile = p.dq_acc + ((b * p.heads + h) * p.sq_pad + s / kQ * kQ) * D + (c / 8) * (kQ * 64);
+  const float4* src = reinterpret_cast<const float4*>(tile + staging_offset(s % kQ, c % 8));
   const float4 x = src[0], y = src[1];
   uint4 out;
   out.x = pack_bf16(x.x * p.scale, x.y * p.scale);
@@ -523,16 +634,19 @@ __global__ void __launch_bounds__(128) flash_bwd_store_dq(BwdParams p, int64_t n
 
 // delta and L, the fused pass, then dQ to bf16. Returns a cudaError_t, or
 // kEncodeError + the CUresult when a tensor map cannot be encoded.
+template <int D>
 int run_fused(const BwdParams& p, int batch, cudaStream_t stream) {
+  using C = Fused<D>;
   CUtensorMap tq, tk, tv, tdo;
-  CUresult r = make_map(&tq, p.q, 64, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, kQ);
-  if (r == CUDA_SUCCESS) r = make_map(&tdo, p.dout, 64, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, kQ);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, p.k, 64, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, kKeys);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, p.v, 64, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, kKeys);
+  CUresult r = make_map(&tq, p.q, D, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, kQ);
+  if (r == CUDA_SUCCESS) r = make_map(&tdo, p.dout, D, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, kQ);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, p.k, D, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, kKeys);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, p.v, D, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, kKeys);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
 
   const int64_t pad_rows = (int64_t)batch * p.sq_pad * p.heads;
-  flash_bwd_delta<64><<<(unsigned)((pad_rows + 15) / 16), 128, 0, stream>>>(p, pad_rows);
+  constexpr int delta_rows = 128 / kDeltaTPR<D>;  // rows a block of flash_bwd_delta
+  flash_bwd_delta<D><<<(unsigned)((pad_rows + delta_rows - 1) / delta_rows), 128, 0, stream>>>(p, pad_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -550,28 +664,39 @@ int run_fused(const BwdParams& p, int batch, cudaStream_t stream) {
   a.heads = p.heads;
   a.scale = p.scale;
   a.scale_log2 = p.scale_log2;
-  err = cudaFuncSetAttribute(flash_bwd_fused, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFusedSmem);
+  err = cudaFuncSetAttribute(flash_bwd_fused<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_fused<<<dim3((p.skv + kKeys - 1) / kKeys, p.heads, batch), kFusedThreads, kFusedSmem, stream>>>(
+  flash_bwd_fused<D><<<dim3((p.skv + kKeys - 1) / kKeys, p.heads, batch), kFusedThreads, C::kSmem, stream>>>(
       tq, tk, tv, tdo, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const int64_t n_rows = (int64_t)batch * p.sq * p.heads;
-  flash_bwd_store_dq<<<(unsigned)((n_rows + 15) / 16), 128, 0, stream>>>(p, n_rows);
+  constexpr int store_rows = 128 / (D / 8);  // rows a block of flash_bwd_store_dq
+  flash_bwd_store_dq<D><<<(unsigned)((n_rows + store_rows - 1) / store_rows), 128, 0, stream>>>(p, n_rows);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// D = 128 and 512: the mma.sync kernels. A block owns DC output columns of dK
+// D = 512: the mma.sync kernels. A block owns DC output columns of dK
 // and dV (or of dQ), the D / DC column slices side by side on grid.x, and
-// recomputes S and dP over the whole D-deep contraction. With KSPLIT = 2 (D =
-// 512) the block has 8 warps: warps w and w + 4 own the same 16 rows, each
-// takes half of the contraction of S and dP and half of the block's DC
-// columns, and the pair swaps its fp32 partial scores through shared memory,
-// so that both hold the same S and dP bit for bit (fp32 addition commutes).
+// recomputes S and dP over the whole D-deep contraction. The block has 8
+// warps: warps w and w + 4 own the same 16 rows, each takes half of the
+// contraction of S and dP and half of the block's DC columns, and the pair
+// swaps its fp32 partial scores through shared memory, so that both hold the
+// same S and dP bit for bit (fp32 addition commutes).
 // dK/dV: one block per 64 keys and DC columns; warp w owns keys 16 (w % 4) .. + 15 of the tile.
 // ---------------------------------------------------------------------------
+// The pair's one configuration: head dim D, DC output columns a block, KSPLIT
+// warps sharing 16 rows, and tiles of TILE queries (the dK/dV sweep) or keys
+// (the dQ sweep): two 64-row x 512-column tiles already fill 130 KB of
+// shared memory.
+namespace pair {
+
+constexpr int D = 512, DC = 256, KSPLIT = 2, TILE = 16;
+constexpr int NT = 128 * KSPLIT, LD = D + 8, kSlices = D / DC;
+constexpr int CW = DC / KSPLIT;          // output columns of one warp
+constexpr int KSTEPS = D / KSPLIT / 16;  // its 16-deep steps of the S and dP contraction
 
 // This warp's partial S and dP (F floats each a thread) go to shared memory;
 // once its partner's are there, each adds the other's to its own. The
@@ -595,11 +720,8 @@ __device__ __forceinline__ void swap_partials(float (&s)[F / 4][4], float (&dp)[
   }
 }
 
-template <int D, int DC, int BQ, int KSPLIT>
-__global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dkdv(BwdParams p) {
-  constexpr int BN = 64, NT = 128 * KSPLIT, LD = D + 8, kSlices = D / DC;
-  constexpr int CW = DC / KSPLIT;      // output columns of one warp
-  constexpr int KSTEPS = D / KSPLIT / 16;  // its 16-deep steps of the S and dP contraction
+__global__ void __launch_bounds__(NT) flash_bwd_dkdv(BwdParams p) {
+  constexpr int BN = 64, BQ = TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* vs = ks + BN * LD;
@@ -607,7 +729,7 @@ __global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dkdv(BwdParams p) {
   __nv_bfloat16* dos = qs + 2 * BQ * LD;  // [2][BQ * LD]
   float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ], L * log2(e)
   float* dlt_s = lse_s + 2 * BQ;                                // [2][BQ]
-  float* xs = dlt_s + 2 * BQ;  // KSPLIT > 1: [8 warps][32 lanes][BQ / 2] partial S and dP
+  float* xs = dlt_s + 2 * BQ;  // [8 warps][32 lanes][BQ / 2] partial S and dP
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4, rg = warp % 4, half = warp / 4;
@@ -696,7 +818,7 @@ __global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dkdv(BwdParams p) {
         mma_bf16(dp[nt], va, ld32(dr), ld32(dr + 8));
       }
     }
-    if constexpr (KSPLIT > 1) swap_partials<BQ / 2>(s, dp, xs, warp, lane);
+    swap_partials<BQ / 2>(s, dp, xs, warp, lane);
 
     // P^T and dS^T as bf16 A fragments (16 keys x 16 queries each).
     uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
@@ -751,18 +873,16 @@ __global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dkdv(BwdParams p) {
 
 // ---------------------------------------------------------------------------
 // dQ: one block per 64 queries and DC columns, key tiles of BN; warp w owns
-// queries 16 (w % 4) .. + 15 (and with KSPLIT = 2 half of the contraction and of the columns).
+// queries 16 (w % 4) .. + 15 and half of the contraction and of the columns.
 // ---------------------------------------------------------------------------
-template <int D, int DC, int BN, int KSPLIT>
-__global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dq(BwdParams p) {
-  constexpr int BM = 64, NT = 128 * KSPLIT, LD = D + 8, kSlices = D / DC;
-  constexpr int CW = DC / KSPLIT, KSTEPS = D / KSPLIT / 16;
+__global__ void __launch_bounds__(NT) flash_bwd_dq(BwdParams p) {
+  constexpr int BM = 64, BN = TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dos = qs + BM * LD;
   __nv_bfloat16* ks = dos + BM * LD;     // [2][BN * LD]
   __nv_bfloat16* vs = ks + 2 * BN * LD;  // [2][BN * LD]
-  float* xs = reinterpret_cast<float*>(vs + 2 * BN * LD);  // KSPLIT > 1: [8 warps][32 lanes][BN / 2]
+  float* xs = reinterpret_cast<float*>(vs + 2 * BN * LD);  // [8 warps][32 lanes][BN / 2]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4, rg = warp % 4, half = warp / 4;
@@ -831,7 +951,7 @@ __global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dq(BwdParams p) {
         mma_bf16(dp[nt], da, ld32(vr), ld32(vr + 8));
       }
     }
-    if constexpr (KSPLIT > 1) swap_partials<BN / 2>(s, dp, xs, warp, lane);
+    swap_partials<BN / 2>(s, dp, xs, warp, lane);
 
     uint32_t dsa[BN / 16][4];
 #pragma unroll
@@ -876,36 +996,34 @@ __global__ void __launch_bounds__(128 * KSPLIT) flash_bwd_dq(BwdParams p) {
   }
 }
 
-// delta, then dK/dV, then dQ. BQ: queries a tile of the dK/dV sweep; BN: keys
-// a tile of the dQ sweep (both 16 at D = 512, where two 64-row x 512-column
-// tiles already fill 130 KB of shared memory).
-template <int D, int DC, int BQ, int BN, int KSPLIT>
+// delta, then dK/dV, then dQ.
 cudaError_t run(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int LD = D + 8, kSlices = D / DC, NT = 128 * KSPLIT;
-  constexpr size_t kSwap = KSPLIT > 1 ? 8 * 32 * sizeof(float) : 0;  // times the tile's BQ or BN
+  constexpr size_t kSwap = 8 * 32 * sizeof(float);  // partial scores, times the tile's rows
   const int64_t n_rows = (int64_t)batch * p.sq * p.heads;
   constexpr int rows_per_block = 128 / kDeltaTPR<D>;
   flash_bwd_delta<D><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), 128, 0, stream>>>(p, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t dkdv_smem =
-      (size_t)(2 * 64 + 4 * BQ) * LD * sizeof(__nv_bfloat16) + 4 * BQ * sizeof(float) + kSwap * BQ;
-  err = launch(flash_bwd_dkdv<D, DC, BQ, KSPLIT>, dim3((p.skv + 63) / 64 * kSlices, p.heads, batch), dkdv_smem, p,
-               stream, NT);
+      (size_t)(2 * 64 + 4 * TILE) * LD * sizeof(__nv_bfloat16) + 4 * TILE * sizeof(float) + kSwap * TILE;
+  err = launch(flash_bwd_dkdv, dim3((p.skv + 63) / 64 * kSlices, p.heads, batch), dkdv_smem, p, stream, NT);
   if (err != cudaSuccess) return err;
-  const size_t dq_smem = (size_t)(2 * 64 + 4 * BN) * LD * sizeof(__nv_bfloat16) + kSwap * BN;
-  return launch(flash_bwd_dq<D, DC, BN, KSPLIT>, dim3((p.sq + 63) / 64 * kSlices, p.heads, batch), dq_smem, p,
+  const size_t dq_smem = (size_t)(2 * 64 + 4 * TILE) * LD * sizeof(__nv_bfloat16) + kSwap * TILE;
+  return launch(flash_bwd_dq, dim3((p.sq + 63) / 64 * kSlices, p.heads, batch), dq_smem, p,
                 stream, NT);
 }
+
+}  // namespace pair
 
 }  // namespace
 
 // C entry point, every kernel on `stream`. Strides are in elements; the last
 // (D) stride must be 1 and every other stride a multiple of 8, with 16-byte
 // aligned base pointers (the Python wrapper checks this). `sq_pad` is the row
-// pitch of the fp32 scratch: at D = 64, Sq rounded up to 64, with `delta` and
-// `lse2` (B, H, sq_pad) and `dq_acc` (B, H, sq_pad * 64) zeroed by the caller;
-// at D = 128 and 512, Sq, with `delta` (B, H, Sq) and the other two null. Returns the
+// pitch of the fp32 scratch: at D = 64 and 128, Sq rounded up to 64, with
+// `delta` and `lse2` (B, H, sq_pad) and `dq_acc` (B, H, sq_pad * D), the last
+// zeroed by the caller; at D = 512, Sq, with `delta` (B, H, Sq) and the other
+// two null. Returns the
 // first failing launch's cudaError_t, kEncodeError + the CUresult when a
 // tensor map cannot be encoded, or 0.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -940,14 +1058,12 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      if (lse2 == nullptr || dq_acc == nullptr || sq_pad % kQ != 0 || sq_pad < sq) return (int)cudaErrorInvalidValue;
-      return run_fused(p, batch, s);
     case 128:
-      if (sq_pad != sq) return (int)cudaErrorInvalidValue;
-      return (int)run<128, 128, 32, 64, 1>(p, batch, s);
+      if (lse2 == nullptr || dq_acc == nullptr || sq_pad % kQ != 0 || sq_pad < sq) return (int)cudaErrorInvalidValue;
+      return head_dim == 64 ? run_fused<64>(p, batch, s) : run_fused<128>(p, batch, s);
     case 512:
       if (sq_pad != sq) return (int)cudaErrorInvalidValue;
-      return (int)run<512, 256, 16, 16, 2>(p, batch, s);
+      return (int)pair::run(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

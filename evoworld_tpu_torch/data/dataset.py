@@ -2,12 +2,13 @@
 `evoworld_tpu/data/dataset.py`).
 
 Host-side numpy, images through the port's own C++ loader
-(`data/native_io.py`: PNG on zlib, no PIL):
+(`data/native_io.py`: PNG on zlib, JPEG in libjpeg's arithmetic, no PIL):
 
   - episodes are directories holding `panorama/{001..}.png` frames and a
     `camera_poses.txt` CSV (`Frame,PosX,PosY,PosZ,RotX,RotY,RotZ`); a missing
-    `.png` falls back to the `.jpg` of the same name, which the loader then
-    refuses by name (it has no JPEG decoder);
+    `.png` falls back to the `.jpg` of the same name, decoded to the bytes
+    libjpeg's default decode gives (a JPEG variant the loader does not take
+    raises an error naming the file);
   - poses are converted Unity -> OpenCV by sign flips and positions scaled by
     `pos_scale` (default 0.1);
   - without `load_complete_episode` a sample is the last `sequence_length`

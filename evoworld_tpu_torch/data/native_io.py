@@ -3,13 +3,18 @@ and `native/imageio.cpp`).
 
 `csrc/imageio.cpp`, built at first use with g++ against zlib into the
 git-ignored `build/` beside the CUDA kernels (`ops/_build.py`), decodes PNG
-files, resizes them bilinearly (half-pixel centres, no antialiasing: the
-JAX package's native loader's arithmetic) and writes PNG files at deflate
-level 1 with no row filter. The H100 machine the port runs on has zlib but
-neither libpng, libjpeg nor PIL, so PNG is parsed, inflated and un-filtered
-in that file on zlib alone; JPEG has no decoder: a JPEG (or any file that is
-not a PNG) raises an error naming it (ROADMAP.md §3). The C calls release
-the GIL (ctypes), so a writer thread's encode overlaps the caller's work.
+and JPEG files, resizes them bilinearly (half-pixel centres, no
+antialiasing: the JAX package's native loader's arithmetic) and writes PNG
+files at deflate level 1 with no row filter. The H100 machine the port runs
+on has zlib but neither libpng, libjpeg nor PIL, so PNG is parsed, inflated
+and un-filtered in that file on zlib alone, and JPEG is decoded there in
+libjpeg's own integer arithmetic (the islow IDCT, fancy upsampling, the
+fixed-point YCbCr tables), giving the bytes libjpeg's default decode gives.
+A file is taken as PNG or JPEG by its first bytes, not its name. What the
+decoders refuse (arithmetic-coded, lossless, 12-bit or CMYK JPEGs, other
+chroma sampling, among others: `_REASONS`) raises an error naming the file.
+The C calls release the GIL (ctypes), so a writer thread's encode overlaps
+the caller's work.
 """
 
 from __future__ import annotations
@@ -23,8 +28,18 @@ import numpy as np
 from evoworld_tpu_torch.ops import _build
 
 SOURCE = "imageio.cpp"
-_REASONS = {1: "cannot be read", 2: "is not a PNG (JPEG has no decoder in the port)",
-            3: "is a PNG variant the decoder does not take, or corrupt", 4: "cannot be written"}
+_REASONS = {
+    1: "cannot be read",
+    2: "is neither a PNG nor a JPEG",
+    3: "is a PNG variant the decoder does not take, or corrupt",
+    4: "cannot be written",
+    5: "is a corrupt or truncated JPEG",
+    6: "is an arithmetic-coded JPEG (the decoder takes Huffman coding only)",
+    7: "is a lossless, hierarchical or 12-bit JPEG (the decoder takes 8-bit DCT frames only)",
+    8: "is a JPEG with neither 1 nor 3 components (CMYK and YCCK have 4)",
+    9: "is a JPEG with chroma sampling other than 4:4:4, 4:2:2 and 4:2:0",
+    10: "is a progressive JPEG whose scans leave low coefficients unrefined (libjpeg smooths those)",
+}
 
 
 def _lib() -> ctypes.CDLL:
@@ -54,7 +69,7 @@ def _raise_failures(paths: Sequence[str], status) -> None:
 def load_image_batch(
     paths: Sequence[str], height: int, width: int, minus1_1: bool = True, n_threads: int = 0
 ) -> np.ndarray:
-    """Load N PNG images -> (N, height, width, 3) float32 in [-1, 1] (or [0, 1]).
+    """Load N PNG or JPEG images -> (N, height, width, 3) float32 in [-1, 1] (or [0, 1]).
 
     An image already at (height, width) is converted as (v / 255) * 2 - 1 with
     no resize, as the JAX package's PIL route does; any other size is resized

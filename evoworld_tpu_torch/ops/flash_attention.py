@@ -25,21 +25,22 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     each owning 256 output columns and half of the Q K^T contraction, and
     swap their fp32 partial scores through shared memory; K and V come in
     64-column TMA boxes). Both write the row log-sum-exp when asked;
-  - backward, D = 64 (every attention with a gradient on the port's paths):
-    `flash_bwd_fused`, one pass per 128-key tile whose two consumer
-    warpgroups keep their K and V fragments and their dK and dV sums in
-    registers, stream query tiles through a TMA ring, do the five products
-    with wgmma and exp2 once, and add the tile's part of dQ into a zeroed
-    fp32 buffer with asynchronous bulk reductions, between `flash_bwd_delta`
-    (rowsum(dO * O) and the log-sum-exp in the exp2 domain) and
-    `flash_bwd_store_dq` (scale, to bf16). The order of those fp32 sums is
-    not fixed, so dQ may differ in its last bf16 bit between two calls; dK
-    and dV are repeatable;
-  - backward, D = 128 and 512 (no path runs either): the mma.sync kernels
+  - backward, D = 64 (every attention with a gradient on the port's paths)
+    and 128: `flash_bwd_fused`, one pass per 128-key tile whose two consumer
+    warpgroups keep their dK and dV sums in registers (at D = 64 their K and
+    V fragments too; at D = 128 K and V stay in shared memory), stream query
+    tiles through a TMA ring, do the five products with wgmma and exp2 once,
+    and add the tile's part of dQ into a zeroed fp32 buffer with
+    asynchronous bulk reductions (at D = 128 each consumer its 64 columns),
+    between `flash_bwd_delta` (rowsum(dO * O) and the log-sum-exp in the
+    exp2 domain) and `flash_bwd_store_dq` (scale, to bf16). The order of
+    those fp32 sums is not fixed, so dQ may differ in its last bf16 bit
+    between two calls; dK and dV are repeatable;
+  - backward, D = 512 (no path runs it): the mma.sync kernels
     `flash_bwd_dkdv` and `flash_bwd_dq`, which recompute the scores in each
-    and need no reduction across blocks; at D = 512 each block owns a
-    256-column half of its gradient, and two warps split each score's
-    512-deep sum and swap their partial sums.
+    and need no reduction across blocks; each block owns a 256-column half
+    of its gradient, and two warps split each score's 512-deep sum and swap
+    their partial sums.
 Other head dims are zero-padded along D up to the smallest kernel head dim
 that holds them (`kernel_head_dim`: 64, 128 or 512, in both directions) and
 the output is sliced back; the scale stays that of the true D. Zero columns
@@ -64,6 +65,7 @@ _LOG2_E = 1.4426950408889634  # log2(e)
 _GRID_LIMIT = 65535  # heads on grid.y, batch on grid.z
 _ENCODE_ERROR = 10000  # the C entry points return this + the CUresult when a TMA tensor map fails
 _BWD_QUERY_TILE = 64  # the fused backward's fp32 scratch is padded to whole query tiles
+_FUSED_BWD_DIMS = (64, 128)  # head dims of the fused backward pass (512: the mma.sync pair)
 _PLAIN_BLOCK_K = 512  # keys per step of the plain versions
 
 
@@ -278,10 +280,11 @@ def flash_attention_backward(
     """dQ, dK, dV from the forward's inputs, output `o`, row log-sum-exp `lse` and `do`.
 
     CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16;
-    the fused wgmma pass at D = 64, the mma.sync pair at D = 128 and 512); one launch
-    counts every kernel of a call. At D = 64 the call allocates a zeroed fp32
-    buffer shaped like q (padded to whole 64-query tiles) that the fused pass
-    sums dQ into; dQ may differ in its last bf16 bit between two calls. CPU
+    the fused wgmma pass at D = 64 and 128, the mma.sync pair at D = 512); one
+    launch counts every kernel of a call. At D = 64 and 128 the call allocates
+    a zeroed fp32 buffer shaped like q (padded to whole 64-query tiles) that
+    the fused pass sums dQ into; dQ may differ in its last bf16 bit between
+    two calls. CPU
     tensors go to `flash_attention_backward_plain`. Returns contiguous tensors
     shaped like q, k and v. A head dim without a kernel of its own is
     zero-padded to `kernel_head_dim` and the gradients sliced back.
@@ -303,7 +306,7 @@ def flash_attention_backward(
     _check(q, k, v, kv_len, grads={"o": o, "do": do, "lse": lse})
     b, sq, h, _ = q.shape
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-    if d == 64:
+    if d in _FUSED_BWD_DIMS:
         sq_pad = -(-sq // _BWD_QUERY_TILE) * _BWD_QUERY_TILE
         delta, lse2 = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
         dq_acc = torch.zeros((b, h, sq_pad, d), dtype=torch.float32, device=q.device)

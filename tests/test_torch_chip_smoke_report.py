@@ -47,3 +47,11 @@ def test_cli_phase_runs_at_tiny_size_on_the_cpu():
     assert result["single"]["parameters_equal"] == {"unet": True, "vae": True, "clip_tower": True}
     assert result["unified"]["vggt_parameters_equal"]
     assert result["unified"]["pngs"]["rendered_panorama_0"] == (4, [(128, 64)])
+
+
+def test_jpeg_phase_passes_on_the_cpu():
+    """Phase 2b needs no card: the port's JPEG decode of every committed
+    fixture equals the PNG of PIL's decode beside it."""
+    rows = chip_smoke.check_jpeg_fixtures()
+    assert [r["name"] for r in rows] == list(chip_smoke.JPEG_FIXTURES)
+    assert all(r["differing_pixels"] == 0 for r in rows)

@@ -7,9 +7,11 @@
   (`data/dataset.py::_load_image`) for every colour type PIL writes; a
   resize gives exactly what `native/imageio.cpp`, built from the repository's
   file with g++ into the test's directory, gives (skipped where libpng's
-  header is missing); the PNG writer round-trips; a JPEG is refused by name.
+  header is missing); the PNG writer round-trips; a JPEG decodes to PIL's
+  bytes and one the decoder does not take (CMYK) is refused by name
+  (`tests/test_torch_port_imageio.py` holds the JPEG decoder in full).
 - `EpisodeDataset` equals the JAX package's on a synthetic episode, in both
-  memory samplings, exactly.
+  memory samplings, exactly, and on an episode of `.jpg` frames.
 - `AsyncFrameWriter`'s repairs: the first error is the one raised, it is
   raised once (no self-chained traceback), float64 frames are scaled in
   float32, and a writer never closed warns.
@@ -25,12 +27,13 @@ import ctypes
 import dataclasses
 import gc
 import os
+import shutil
 import subprocess
 
 import numpy as np
 import pytest
 import torch
-from PIL import Image
+from PIL import Image, ImageFilter
 
 from evoworld_tpu import config as jconfig
 from evoworld_tpu.data import dataset as jdataset
@@ -73,6 +76,20 @@ def episode(tmp_path_factory):
         f.write("Frame,PosX,PosY,PosZ,RotX,RotY,RotZ\n")
         for i, row in enumerate(poses):
             f.write(",".join([str(i + 1)] + [f"{x:.6f}" for x in row]) + "\n")
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def jpg_episode(tmp_path_factory, episode):
+    """The same episode with its panoramas and memory renders as JPEGs at the
+    target size (4:2:0, quality 90): `_resolve` falls back to each `.jpg`."""
+    root = tmp_path_factory.mktemp("case_jpg")
+    for sub in ("panorama", "rendered_panorama_vggt_open3d"):
+        os.makedirs(root / sub)
+        for name in sorted(os.listdir(os.path.join(episode, sub))):
+            img = Image.open(os.path.join(episode, sub, name)).filter(ImageFilter.GaussianBlur(2))
+            img.save(root / sub / name.replace(".png", ".jpg"), quality=90)
+    shutil.copy(os.path.join(episode, "camera_poses.txt"), root / "camera_poses.txt")
     return str(root)
 
 
@@ -150,6 +167,9 @@ def test_resize_matches_native_imageio(tmp_path):
 
 
 def test_png_writer_round_trips_and_jpeg_is_refused(tmp_path, episode):
+    """PNGs written and read back; a JPEG beside them decodes to PIL's bytes
+    (the loader took none before the JPEG decoder), while a JPEG the decoder
+    does not take (CMYK) and a missing file are refused by name."""
     frames = np.random.default_rng(3).integers(0, 256, (3, 9, 17, 3), dtype=np.uint8)
     paths = [str(tmp_path / f"{i}.png") for i in range(3)]
     native_io.save_png_batch(paths, frames)
@@ -158,18 +178,28 @@ def test_png_writer_round_trips_and_jpeg_is_refused(tmp_path, episode):
     np.testing.assert_array_equal(back, frames.astype(np.float32) / 255.0)
     jpg = str(tmp_path / "frame.jpg")
     Image.fromarray(frames[0]).save(jpg)
-    with pytest.raises(IOError, match="frame.jpg is not a PNG"):
-        native_io.load_image_batch([paths[0], jpg], 9, 17)
+    both = native_io.load_image_batch([paths[0], jpg], 9, 17, minus1_1=False)
+    np.testing.assert_array_equal(both[1], np.asarray(Image.open(jpg).convert("RGB")).astype(np.float32) / 255.0)
+    cmyk = str(tmp_path / "ink.jpg")
+    Image.fromarray(np.zeros((9, 17, 4), np.uint8), "CMYK").save(cmyk)
+    with pytest.raises(IOError, match="ink.jpg is a JPEG with neither 1 nor 3 components"):
+        native_io.load_image_batch([paths[0], cmyk], 9, 17)
     with pytest.raises(IOError, match="cannot be read"):
         native_io.load_image_batch([str(tmp_path / "missing.png")], 9, 17)
 
 
-@pytest.mark.parametrize("sampling,complete", [("reprojection", False), ("empty_with_traj", True)])
-def test_episode_dataset_matches_jax(episode, sampling, complete, tmp_path):
+@pytest.mark.parametrize("sampling,complete,frames", [
+    pytest.param("reprojection", False, "png", id="reprojection-False"),
+    pytest.param("empty_with_traj", True, "png", id="empty_with_traj-True"),
+    pytest.param("reprojection", False, "jpg", id="reprojection-False-jpg"),
+])
+def test_episode_dataset_matches_jax(episode, jpg_episode, sampling, complete, frames, tmp_path):
     """The validation window (last `sequence_length` frames) with the memory
     renders after the first GT frame, or the whole episode with zero memory;
     positions scaled by pos_scale. A `memory_path` holding the renders under
-    the episode's name reads the same."""
+    the episode's name reads the same. With `.jpg` frames and renders both
+    packages fall back to them, and the port decodes libjpeg's bytes."""
+    episode = jpg_episode if frames == "jpg" else episode
     kw = dict(height=H, width=W, sequence_length=5, sampling=sampling, pos_scale=0.25,
               load_complete_episode=complete, single_episode=True)
     got, want = EpisodeDataset(episode, **kw)[0], jdataset.EpisodeDataset(episode, **kw)[0]
@@ -187,13 +217,18 @@ def test_episode_dataset_matches_jax(episode, sampling, complete, tmp_path):
 
 
 def test_jpg_fallback_is_refused_by_name(tmp_path):
+    """The `.jpg` fallback of a missing `.png` is read as the JAX package
+    reads it; a CMYK one is refused by name, never skipped."""
     os.makedirs(tmp_path / "panorama")
-    Image.fromarray(np.zeros((H, W, 3), np.uint8)).save(tmp_path / "panorama" / "001.jpg")
+    gradient = np.linspace(0, 255, H * W * 3).reshape(H, W, 3).astype(np.uint8)
+    Image.fromarray(gradient).save(tmp_path / "panorama" / "001.jpg", quality=85)
     (tmp_path / "camera_poses.txt").write_text("Frame,PosX,PosY,PosZ,RotX,RotY,RotZ\n1,0,0,0,0,0,0\n")
-    ds = EpisodeDataset(str(tmp_path), height=H, width=W, sampling="empty_with_traj", load_complete_episode=True,
-                        single_episode=True)
-    with pytest.raises(IOError, match="001.jpg is not a PNG"):
-        ds[0]
+    kw = dict(height=H, width=W, sampling="empty_with_traj", load_complete_episode=True, single_episode=True)
+    got = EpisodeDataset(str(tmp_path), **kw)[0].pixel_values
+    np.testing.assert_array_equal(got, jdataset.EpisodeDataset(str(tmp_path), **kw)[0].pixel_values)
+    Image.fromarray(np.zeros((H, W, 4), np.uint8), "CMYK").save(tmp_path / "panorama" / "001.jpg")
+    with pytest.raises(IOError, match="001.jpg is a JPEG with neither 1 nor 3 components"):
+        EpisodeDataset(str(tmp_path), **kw)[0]
 
 
 def test_writer_raises_the_first_error_once(tmp_path):

@@ -117,6 +117,12 @@ def test_forward_twice_is_bit_identical_on_card(cuda, d):
      (2, 200, 400, 250, 2, 64),     # kv_len < Skv inside the second key tile, Skv inside the fourth
      (4, 1024, 2048, 2048, 4, 64),  # 16 x 4 x 4 blocks: more than one wave of 132 SMs
      (1, 300, 333, 300, 2, 16),     # head dim 16, zero-padded to the D = 64 kernel
+     # the D = 128 fused pass (K and V read from shared memory, dQ split by
+     # columns between the two consumers)
+     (2, 200, 400, 250, 2, 128),    # kv_len < Skv inside the second key tile, Skv inside the fourth
+     (1, 65, 256, 256, 2, 128),     # one query past a tile
+     (1, 1, 130, 130, 2, 128),      # a single query
+     (1, 300, 333, 300, 2, 80),     # head dim 80, zero-padded to the D = 128 pass
      # the D = 512 pair (64 keys and one 256-column half a dK/dV block, split
      # between two warps of 128 columns each, 16-key tiles of the dQ sweep,
      # 16-query tiles of the dK/dV sweep)
@@ -165,13 +171,14 @@ def _backward_inputs(cuda, seed, b, sq, skv, kv_len, h, d=64):
 
 
 @pytest.mark.cuda
-def test_fused_backward_twice_repeats_on_card(cuda):
+@pytest.mark.parametrize("d", [64, 128])
+def test_fused_backward_twice_repeats_on_card(cuda, d):
     """Two calls on the same inputs: dK and dV are equal bit for bit. dQ is
     summed across key tiles with global fp32 reductions in no fixed order,
     which can move a sum across a bf16 rounding boundary: one bf16 step (2^-7
     of the value), beside 1e-4 of dQ's RMS for sums that nearly cancel. A dQ
     buffer that was not zeroed would double dQ in the second call."""
-    q, k, v, out, do, lse = _backward_inputs(cuda, 6, 2, 1000, 1100, 1041, 4)
+    q, k, v, out, do, lse = _backward_inputs(cuda, 6, 2, 1000, 1100, 1041, 4, d)
     first = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     second = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     torch.cuda.synchronize()
@@ -179,6 +186,29 @@ def test_fused_backward_twice_repeats_on_card(cuda):
     dq = first[0].float()
     gap = (second[0].float() - dq).abs()
     assert bool((gap <= 2.0 ** -7 * dq.abs() + 1e-4 * dq.pow(2).mean().sqrt()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,design,others", [
+    (64, ("flash_bwd_fused", "flash_bwd_delta", "flash_bwd_store_dq"), ("flash_bwd_dkdv", "flash_bwd_dq")),
+    (128, ("flash_bwd_fused", "flash_bwd_delta", "flash_bwd_store_dq"), ("flash_bwd_dkdv", "flash_bwd_dq")),
+    (512, ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta"), ("flash_bwd_fused", "flash_bwd_store_dq")),
+])
+def test_backward_trace_names_its_design_on_card(cuda, d, design, others):
+    """A profiler trace of one backward call holds its head dim's kernels and
+    none of the other design's: the fused pass at D = 64 and 128, the
+    mma.sync pair at D = 512."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, out, do, lse = _backward_inputs(cuda, 7, 1, 300, 300, 300, 2, d)
+    flash_attention_backward(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_backward(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+    names = " ".join(ev.key for ev in prof.key_averages())
+    assert all(n in names for n in design), names
+    assert not any(n in names for n in others), names
 
 
 @pytest.mark.cuda
