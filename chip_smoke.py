@@ -95,6 +95,12 @@ The JPEG slice (the redesigned D = 128 backward, JPEG decode) adds:
      padded to 5632, run the fused wgmma pass (flash_bwd_fused<128>) under
      the D = 64 rules: dQ within DQ_REPEAT_RTOL on a second call, and
      head_dim_128 within its BWD_MS_LINES line.
+The wide-backward slice (the D = 512 backward redesigned) adds:
+  3b. the D = 512 rows run three wgmma sweeps (flash_bwd_wide_dv, _dk, _dq)
+     after flash_bwd_delta: the trace must hold them and neither kernel of
+     the mma.sync pair they replaced (RETIRED_BWD_KERNELS); dQ, dK and dV
+     still repeat bit for bit, and vae_mid_d512 and vae_mid_d512_b2 keep to
+     their BWD_MS_LINES lines.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card: the entry points refuse a dtype other than bf16 on CUDA.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -140,17 +146,19 @@ BLOCK_REL_RMS = 0.05
 # kernel at D = 64/128, the wide kernel (D split across the consumers) at D = 512.
 FWD_KERNELS = {64: "flash_fwd_wgmma", 128: "flash_fwd_wgmma", 512: "flash_fwd_wide"}
 # The backward's kernels by head dim, as named in a profiler trace: the fused
-# wgmma pass between its two small passes, or the mma.sync pair.
+# wgmma pass between its two small passes, or three wgmma sweeps.
 BWD_DESIGNS = {
     64: ("fused wgmma pass", ("flash_bwd_fused", "flash_bwd_store_dq", "flash_bwd_delta")),
     128: ("fused wgmma pass, K and V read from shared memory, dQ split by columns between the consumers",
           ("flash_bwd_fused", "flash_bwd_store_dq", "flash_bwd_delta")),
-    512: ("mma.sync dK/dV and dQ kernels, a 256-column half a block, warp pairs splitting the scores' sum",
-          ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")),
+    512: ("wgmma dV, dK and dQ sweeps, D split across the consumers, which swap partial scores",
+          ("flash_bwd_wide_dv", "flash_bwd_wide_dk", "flash_bwd_wide_dq", "flash_bwd_delta")),
 }
-# Every kernel a backward call may launch: a row's trace must hold its
-# design's kernels and none of the others.
-BWD_KERNELS = tuple(sorted({n for _, names in BWD_DESIGNS.values() for n in names}))
+# The D = 512 mma.sync pair that the sweeps replaced: a trace must not hold it.
+RETIRED_BWD_KERNELS = ("flash_bwd_dkdv", "flash_bwd_dq")
+# Every kernel a backward call may launch, or once did: a row's trace must
+# hold its design's kernels and none of the others.
+BWD_KERNELS = tuple(sorted({n for _, names in BWD_DESIGNS.values() for n in names} | set(RETIRED_BWD_KERNELS)))
 # Two calls of a design that adds dQ's fp32 terms across blocks (the fused
 # pass, whose dQ then goes through flash_bwd_store_dq) add them in another
 # order, which can move a sum across a bf16 rounding boundary: one bf16 step
@@ -158,10 +166,11 @@ BWD_KERNELS = tuple(sorted({n for _, names in BWD_DESIGNS.values() for n in name
 # Every other design repeats dQ exactly.
 DQ_REPEAT_RTOL, DQ_REPEAT_RMS_ATOL = 2.0 ** -7, 1e-4
 DQ_SUMMED_DIMS = tuple(d for d, (_, names) in BWD_DESIGNS.items() if "flash_bwd_store_dq" in names)
-# The lines the D = 64 and 128 backward is held to in PERF.md, in ms on an
-# H100 at its full power limit, FULL_POWER_W: asserted there, only printed on
-# a card set below it (which runs slower under load).
-BWD_MS_LINES = {"unet_l0_train": 19.5, "ragged_padded_kv": 0.95, "head_dim_128": 1.45}
+# The lines the backward is held to in PERF.md, in ms on an H100 at its full
+# power limit, FULL_POWER_W: asserted there, only printed on a card set below
+# it (which runs slower under load).
+BWD_MS_LINES = {"unet_l0_train": 19.5, "ragged_padded_kv": 0.95, "head_dim_128": 1.45,
+                "vae_mid_d512": 21.0, "vae_mid_d512_b2": 6.5}
 # The same for the D = 512 forward at the VAE's three shapes.
 FWD_MS_LINES = {"vae_encoder_mid": 1.7, "vae_encoder_mid_train": 5.0, "vae_decoder_mid": 3.3}
 FULL_POWER_W = 700.0
@@ -355,10 +364,11 @@ def check_jpeg_fixtures() -> list[dict]:
 def ptxas_report(log_text: str) -> list[dict]:
     """Registers and spill bytes of each kernel entry in an nvcc -Xptxas -v log,
     and ptxas's warning where it serialized an entry's wgmma (printed before
-    the entries, naming the function)."""
+    the entries, naming the function "in the function '...'" or, where
+    registers ran short, "for the function '...'")."""
     rows, serialized = [], {}
     for line in log_text.splitlines():
-        warned = re.search(r"wgmma.*serialized.*in the function '(\w+)'", line)
+        warned = re.search(r"wgmma.*serialized.*(?:in|for) the function '(\w+)'", line)
         if warned:
             serialized[warned.group(1)] = line.strip()
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -390,7 +400,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
     exactly and dQ within DQ_REPEAT_RTOL (exactly at D = 512: those kernels
     sum nothing across blocks), and the trace must hold every kernel of the
     row's design and no other backward kernel. With the card at FULL_POWER_W
-    the D = 64 and 128 rows must also keep to BWD_MS_LINES. Times: the whole
+    the rows named in BWD_MS_LINES must also keep to their lines. Times: the whole
     call with CUDA events (the zeroing of the dQ buffer included), each of
     its kernels apart from a profiler trace, the plain version, and as a
     yardstick only `scaled_dot_product_attention` forward + backward less

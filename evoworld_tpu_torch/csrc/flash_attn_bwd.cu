@@ -79,33 +79,57 @@
 //     offset is the box distance); P and dS become bf16 column pair by
 //     column pair as dS is formed;
 //   - each consumer computes its own 64 columns of every tile's dQ over all
-//     128 keys (B = K's box cw), one tile late as at D = 64, and adds the
-//     64 x 64 fp32 part into a (B, H, Sq', 128) buffer with one bulk
-//     reduction; both consumers read each dS^T buffer;
+//     128 keys (B = K's box cw), one tile late as at D = 64 but only once
+//     the next tile's dK and dV products have drained (with all three in
+//     flight ptxas runs short of registers and serializes every wgmma of
+//     the pass), and adds the 64 x 64 fp32 part into a (B, H, Sq', 128)
+//     buffer with one bulk reduction; both consumers read each dS^T buffer;
 //   - the query ring has 3 stages (227 KB of shared memory in all).
 // The order of the fp32 sums into dQ changes from run to run, so dQ may
 // differ in its last bf16 bit between two calls; dK and dV are repeatable.
 //
 // D = 512 (the VAE's mid-block attention, one head of 512; no path of the
-// port or of the JAX package forms this gradient, the VAE being frozen) runs
-// the mma.sync kernels of the first port, `flash_bwd_dkdv` (one block per 64
-// keys) and `flash_bwd_dq` (one block per 64 queries), cp.async double
-// buffering, S and dP recomputed in both, no atomics, with their output
-// columns split: a block owns one
-// 256-column half of dK and dV for 64 keys (or of dQ for 64 queries), the
-// two halves side by side on grid.x. A 64 x 512 fp32 gradient tile would
-// take 256 registers a thread for each of dK and dV. The block has 8 warps:
-// warps w and w + 4 own the same 16 rows, each contracts S and dP over 256
-// of the 512 columns and accumulates 128 of the block's 256 output columns,
-// and the pair swaps its fp32 partial scores through shared memory
-// (`swap_partials`), so both hold S and dP bit for bit. Each block still
-// recomputes S and dP for its half, so the pair does 11 products' worth of
-// work where the function needs 5 (2.2x), and K, V and the query tiles of 16
-// rows fill ~211 KB of shared memory (one block, eight warps, per SM). Its
-// bound is the function's: 10*B*H*Sq*kv_len*512 flops, e.g. 3.52 ms at (8,
-// 9216, 1, 512) on an H100's 989 TFLOP/s; this simple design is far from it
-// (PERF.md §6). `flash_bwd_delta` reads a 512-wide row with one warp, two
-// chunks a thread.
+// port or of the JAX package forms this gradient, the VAE being frozen). A
+// 64 x 512 fp32 gradient tile takes 256 registers a thread, and dK and dV of
+// 64 keys together would fill the register file, so no block holds both and
+// one fused pass cannot exist here. After flash_bwd_delta (its scratch padded
+// as at D = 64) three wgmma + TMA sweeps run, each block shaped like
+// flash_fwd_wide's: a producer warpgroup (one thread starts every TMA load
+// into 64-column boxes in the 128-byte swizzle) and two consumers, consumer
+// c owning columns 256 c .. 256 c + 255 of the sweep's gradient (128 fp32
+// registers) and the same half of every 512-deep score contraction. The two
+// swap their fp32 partial scores through shared memory under named barriers
+// and each adds the other's to its own: fp32 addition commutes, so both hold
+// the same scores bit for bit.
+//   flash_bwd_wide_dv  one block per 64 keys, K resident; Q and dO in tiles
+//                      of 64 queries. S^T = K Q^T (m64n64k16), the exchange,
+//                      P^T = exp2(S^T * scale * log2(e) - L * log2(e)), dV +=
+//                      P^T dO (m64n256k16, P^T from registers, dO through
+//                      the transpose bit): flash_fwd_wide with Q and K
+//                      swapped, dO in V's place and no online softmax; tile
+//                      t's S^T and tile t - 1's dV product run together.
+//   flash_bwd_wide_dk  one block per 64 keys, K and V resident; Q and dO in
+//                      tiles of 32 queries. S^T and dP^T = V dO^T (m64n32k16),
+//                      one exchange for both, dS^T = P^T (dP^T - delta), dK +=
+//                      dS^T Q (m64n256k16, dS^T from registers, 2 k-steps).
+//   flash_bwd_wide_dq  one block per 64 queries, Q and dO resident; K and V
+//                      in tiles of 32 keys: S, dP, dS as in the dK sweep,
+//                      dQ += dS K.
+// That is 2 + 3 + 3 = 8 products where the function needs 5 (1.6x). A
+// streamed tile sits in one group of boxes per consumer and operand, each
+// with its own full and empty mbarrier. Shared memory (of the 232,448 bytes
+// a block may use):
+//   - dV sweep, 230,472 bytes: K (64 KB), one Q and one dO tile (64 KB
+//     each), and 32 KB of partials;
+//   - dK and dQ sweeps, 230,504 bytes: 128 KB resident, Q (K) in a
+//     two-stage ring of 32-row tiles (64 KB), so that the next tile's Q
+//     arrives during this one, and dO (V) in one stage (32 KB). Once a
+//     consumer's dP product has read its dO (V) boxes, they carry its
+//     partials to the other consumer: no separate partials buffer.
+// Keys at or past `kv_len` get P = 0 (masked in the last key tile only) and
+// zero rows of dK and dV. No sweep sums across blocks, so dQ, dK and dV
+// repeat bit for bit. The bound is the function's, 10*B*H*Sq*kv_len*512
+// flops: 3.52 ms at (8, 9216, 1, 512) on an H100's 989 TFLOP/s (PERF.md §6).
 
 #include "flash_attn_hopper.cuh"
 
@@ -121,7 +145,7 @@ struct BwdParams {
   const __nv_bfloat16* dout;
   const float* lse;  // (B, H, Sq), natural log
   float* delta;      // (B, H, sq_pad)
-  float* lse2;       // (B, H, sq_pad): lse * log2(e); null at D = 512
+  float* lse2;       // (B, H, sq_pad): lse * log2(e)
   float* dq_acc;     // (B, H, sq_pad, D) fp32 sums of dQ / scale; null at D = 512
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
@@ -184,6 +208,15 @@ __global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_ro
     p.delta[at] = acc;
     if (p.lse2 != nullptr) p.lse2[at] = real ? p.lse[(b * p.heads + h) * p.sq + s] * kLog2e : kPadLse;
   }
+}
+
+// flash_bwd_delta over every row of the padded scratch.
+template <int D>
+cudaError_t launch_delta(const BwdParams& p, int batch, cudaStream_t stream) {
+  const int64_t pad_rows = (int64_t)batch * p.sq_pad * p.heads;
+  constexpr int rows = 128 / kDeltaTPR<D>;  // rows a block
+  flash_bwd_delta<D><<<(unsigned)((pad_rows + rows - 1) / rows), 128, 0, stream>>>(p, pad_rows);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -468,8 +501,10 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       // D = 64: the consumers take turns at a tile's dQ, one product over all
       // 128 keys and one reduction into global memory, not two. D = 128:
       // each consumer computes its 64 columns of every tile's dQ. It is
-      // started one tile late, behind the next tile's dV and dK, when the
-      // other consumer's half of dS^T has long arrived.
+      // started one tile late, when the other consumer's half of dS^T has
+      // long arrived: at D = 64 behind the next tile's dV and dK, at D = 128
+      // once they are done (dK, dV and dQ in flight together leave ptxas
+      // short of registers, and it then serializes every wgmma of the pass).
       const bool has_dq = t > 0 && (D != 64 || ((t - 1) & 1) == cw);
       const int qt = t + t0 < n_tiles ? t + t0 : t + t0 - n_tiles;
       const float* lt = lse_s + st * kQ + 2 * t4;
@@ -574,10 +609,14 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         }
       }
       wgmma_commit();
-      if (has_dq) start_dq(t - 1);
+      if (D == 64 && has_dq) start_dq(t - 1);
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(empty + st);
       if (has_dq) {
+        if (D == 128) {
+          start_dq(t - 1);
+          wgmma_wait<0>();
+        }
         if (lane == 0) mbar_arrive(ds_empty + (t - 1) % kDsBufs);
         drain_dq(qt_prev);
       }
@@ -644,10 +683,7 @@ int run_fused(const BwdParams& p, int batch, cudaStream_t stream) {
   if (r == CUDA_SUCCESS) r = make_map(&tv, p.v, D, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, kKeys);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
 
-  const int64_t pad_rows = (int64_t)batch * p.sq_pad * p.heads;
-  constexpr int delta_rows = 128 / kDeltaTPR<D>;  // rows a block of flash_bwd_delta
-  flash_bwd_delta<D><<<(unsigned)((pad_rows + delta_rows - 1) / delta_rows), 128, 0, stream>>>(p, pad_rows);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<D>(p, batch, stream);
   if (err != cudaSuccess) return (int)err;
 
   FusedArgs a;
@@ -678,354 +714,564 @@ int run_fused(const BwdParams& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// D = 512: the mma.sync kernels. A block owns DC output columns of dK
-// and dV (or of dQ), the D / DC column slices side by side on grid.x, and
-// recomputes S and dP over the whole D-deep contraction. The block has 8
-// warps: warps w and w + 4 own the same 16 rows, each takes half of the
-// contraction of S and dP and half of the block's DC columns, and the pair
-// swaps its fp32 partial scores through shared memory, so that both hold the
-// same S and dP bit for bit (fp32 addition commutes).
-// dK/dV: one block per 64 keys and DC columns; warp w owns keys 16 (w % 4) .. + 15 of the tile.
+// D = 512: three wgmma + TMA sweeps with flash_fwd_wide's block. Consumer c
+// owns columns 256 c .. 256 c + 255 of the sweep's gradient and the same
+// half of every 512-deep score contraction; the consumers swap their fp32
+// partial scores through shared memory (see the file's header).
 // ---------------------------------------------------------------------------
-// The pair's one configuration: head dim D, DC output columns a block, KSPLIT
-// warps sharing 16 rows, and tiles of TILE queries (the dK/dV sweep) or keys
-// (the dQ sweep): two 64-row x 512-column tiles already fill 130 KB of
-// shared memory.
-namespace pair {
+namespace wide {
 
-constexpr int D = 512, DC = 256, KSPLIT = 2, TILE = 16;
-constexpr int NT = 128 * KSPLIT, LD = D + 8, kSlices = D / DC;
-constexpr int CW = DC / KSPLIT;          // output columns of one warp
-constexpr int KSTEPS = D / KSPLIT / 16;  // its 16-deep steps of the S and dP contraction
+constexpr int kD = 512;
+constexpr int kHalfBoxes = kD / 128;  // 64-column boxes of one consumer's 256 columns
+constexpr int kRows = 64;             // rows of a resident tile: a block's keys (dV, dK) or queries (dQ)
+constexpr int kThreads = 384;         // producer warpgroup + two consumer warpgroups
+// Registers of a producer / consumer thread, as flash_bwd_fused<128>: a
+// consumer holds 128 fp32 of its gradient beside 32 of scores.
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr uint32_t kResBox = kRows * 128;                 // one 64-row x 64-column bf16 box
+constexpr uint32_t kResBytes = 2 * kHalfBoxes * kResBox;  // one resident 64 x 512 tile
+constexpr int kXsFloats = 64 * 64;  // the dV sweep's partials of one consumer: 64 x 64 of S^T
+// Named barriers of the exchange (0 is __syncthreads): both consumers'
+// partials written; (dV sweep) consumer c's partials read by the other consumer.
+constexpr int kBarScores = 1, kBarRead = 2;
 
-// This warp's partial S and dP (F floats each a thread) go to shared memory;
-// once its partner's are there, each adds the other's to its own. The
-// caller's next __syncthreads keeps the buffer until both have read it.
-template <int F>
-__device__ __forceinline__ void swap_partials(float (&s)[F / 4][4], float (&dp)[F / 4][4], float* xs, int warp,
-                                              int lane) {
-  float4* mine = reinterpret_cast<float4*>(xs + (warp * 32 + lane) * 2 * F);
-  const float4* theirs = reinterpret_cast<const float4*>(xs + (((warp + 4) % 8) * 32 + lane) * 2 * F);
-#pragma unroll
-  for (int i = 0; i < F / 4; ++i) {
-    mine[i] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    mine[F / 4 + i] = make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+// A sweep whose streamed tiles have kTile rows. Its shared memory: 1024
+// bytes of slack to align the tiles, kRes resident tiles, kGroups groups of
+// streamed boxes, each holding one consumer's 256 columns of one streamed
+// operand, with a full and an empty mbarrier each, and in the dV sweep the
+// consumers' partials:
+//   dV sweep  group c: Q of consumer c, group 2 + c: dO; 230,472 bytes;
+//   dK / dQ   group 2 s + c: x0 (Q or K) of consumer c in stage s of a
+//             two-stage ring, group 4 + c: x1 (dO or V), which also carries
+//             consumer c's partials once its dP product has read it;
+//             230,504 of the 232,448 bytes.
+template <int kTile>
+struct Sweep {
+  static constexpr bool kDv = kTile == 64;
+  static constexpr int kRes = kDv ? 1 : 2;      // K (dV sweep); K and V, or Q and dO
+  static constexpr int kGroups = kDv ? 4 : 6;
+  static constexpr uint32_t kBox = kTile * 128;  // one streamed 64-column box
+  static constexpr uint32_t kGroup = kHalfBoxes * kBox;
+  static constexpr uint32_t kXsBytes = kDv ? 2 * kXsFloats * 4 : 0;
+  static constexpr size_t kSmem = 1024 + kRes * kResBytes + kGroups * kGroup + kXsBytes + (1 + 2 * kGroups) * 8;
+};
+
+struct Smem {
+  unsigned char* res;   // resident tile i at res + i * kResBytes
+  unsigned char* ring;  // group gi at ring + gi * kGroup
+  float* xs;            // dV sweep: consumer c's partials at xs + c * kXsFloats
+  uint64_t* res_full;
+  uint64_t* full;   // [kGroups], one per group
+  uint64_t* empty;  // [kGroups]
+};
+
+template <int kTile>
+__device__ __forceinline__ Smem smem_layout(unsigned char* raw) {
+  using S = Sweep<kTile>;
+  Smem m;
+  m.res = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  m.ring = m.res + S::kRes * kResBytes;
+  m.xs = reinterpret_cast<float*>(m.ring + S::kGroups * S::kGroup);
+  m.res_full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(m.xs) + S::kXsBytes);
+  m.full = m.res_full + 1;
+  m.empty = m.full + S::kGroups;
+  if (threadIdx.x == 0) {
+    mbar_init(m.res_full, 1);
+    for (int gi = 0; gi < S::kGroups; ++gi) {
+      mbar_init(m.full + gi, 1);
+      // The owning consumer's 4 warps; both consumers' 8 for the dK and dQ
+      // sweeps' x1 groups, which the other consumer reads partials from.
+      mbar_init(m.empty + gi, S::kDv || gi < 4 ? 4 : 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  named_barrier_sync(1 + warp % 4, 64);
-#pragma unroll
-  for (int i = 0; i < F / 4; ++i) {
-    const float4 a = theirs[i], c = theirs[F / 4 + i];
-    s[i][0] += a.x, s[i][1] += a.y, s[i][2] += a.z, s[i][3] += a.w;
-    dp[i][0] += c.x, dp[i][1] += c.y, dp[i][2] += c.z, dp[i][3] += c.w;
+  __syncthreads();
+  return m;
+}
+
+struct WideArgs {
+  const float* lse2;   // (B, H, sq_pad): L * log2(e), kPadLse on padded rows
+  const float* delta;  // (B, H, sq_pad), 0 on padded rows
+  __nv_bfloat16* out;  // dV, dK or dQ
+  int64_t out_sb, out_ss, out_sh;
+  int sq, sq_pad, skv, kv_len, heads;
+  float out_scale;   // 1 for dV, the softmax scale for dK and dQ
+  float scale_log2;  // scale * log2(e)
+};
+
+// Rows row0 .. row0 + rows - 1 of a 512-wide gradient as zeros (keys at or past kv_len).
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* base, int64_t ss, int row0, int rows) {
+  for (int i = threadIdx.x; i < rows * (kD / 8); i += kThreads) {
+    const int r = i / (kD / 8), c = i % (kD / 8);
+    *reinterpret_cast<uint4*>(base + (int64_t)(row0 + r) * ss + c * 8) = make_uint4(0, 0, 0, 0);
   }
 }
 
-__global__ void __launch_bounds__(NT) flash_bwd_dkdv(BwdParams p) {
-  constexpr int BN = 64, BQ = TILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + BN * LD;
-  __nv_bfloat16* qs = vs + BN * LD;      // [2][BQ * LD]
-  __nv_bfloat16* dos = qs + 2 * BQ * LD;  // [2][BQ * LD]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ], L * log2(e)
-  float* dlt_s = lse_s + 2 * BQ;                                // [2][BQ]
-  float* xs = dlt_s + 2 * BQ;  // [8 warps][32 lanes][BQ / 2] partial S and dP
+// The producer's thread: rows row0 .. row0 + 63 of `r0` (and of `r1` where
+// the sweep keeps two resident tiles), all 512 columns.
+template <int kTile>
+__device__ __forceinline__ void load_resident(const Smem& m, const CUtensorMap* r0, const CUtensorMap* r1, int row0,
+                                              int h, int b) {
+  constexpr int kRes = Sweep<kTile>::kRes;
+  mbar_expect_tx(m.res_full, kRes * kResBytes);
+#pragma unroll 1
+  for (int x = 0; x < 2 * kHalfBoxes; ++x) {
+    tma_load(m.res + x * kResBox, r0, m.res_full, x * 64, row0, h, b);
+    if (kRes == 2) tma_load(m.res + kResBytes + x * kResBox, r1, m.res_full, x * 64, row0, h, b);
+  }
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4, rg = warp % 4, half = warp / 4;
-  const int k0 = (int)(blockIdx.x / kSlices) * BN, c0 = (int)(blockIdx.x % kSlices) * DC;
-  const int h = blockIdx.y, b = blockIdx.z;
-  __nv_bfloat16* dkb = p.dk + b * p.dk_sb + h * p.dk_sh + c0;
-  __nv_bfloat16* dvb = p.dv + b * p.dv_sb + h * p.dv_sh + c0;
-
-  if (k0 >= p.kv_len) {  // every key of the tile is masked: zero rows
-    const int rows = min(BN, p.skv - k0);
-    for (int i = threadIdx.x; i < rows * (DC / 8); i += NT) {
-      const int r = i / (DC / 8), c = i % (DC / 8);
-      *reinterpret_cast<uint4*>(dkb + (int64_t)(k0 + r) * p.dk_ss + c * 8) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(dvb + (int64_t)(k0 + r) * p.dv_ss + c * 8) = make_uint4(0, 0, 0, 0);
+// The producer's thread: rows t * kTile .. of a streamed operand into
+// groups g0 (consumer 0's 256 columns) and g0 + 1 (consumer 1's), each once
+// freed for the `round`-th time (the first round finds them free). Rolled
+// loops: the producer keeps kProducerRegs registers.
+template <int kTile>
+__device__ __forceinline__ void load_streamed(const Smem& m, const CUtensorMap* map, int g0, int round, int t, int h,
+                                              int b) {
+  using S = Sweep<kTile>;
+  const uint32_t free_parity = (round & 1) ^ 1;
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+    const int gi = g0 + c;
+    mbar_wait(m.empty + gi, free_parity);
+    mbar_expect_tx(m.full + gi, S::kGroup);
+#pragma unroll 1
+    for (int j = 0; j < kHalfBoxes; ++j) {
+      tma_load(m.ring + gi * S::kGroup + j * S::kBox, map, m.full + gi, (c * kHalfBoxes + j) * 64, t * kTile, h, b);
     }
+  }
+}
+
+// This thread's float4 slots of a consumer's partials (128 float4 apart)
+// from v, and the other consumer's added to v. fp32 addition commutes, so
+// both consumers then hold the same sums bit for bit.
+template <int N>
+__device__ __forceinline__ void put_partials(float4* dst, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) dst[i * 128] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+template <int N>
+__device__ __forceinline__ void add_partials(float (&v)[N], const float4* src) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 x = src[i * 128];
+    v[4 * i] += x.x;
+    v[4 * i + 1] += x.y;
+    v[4 * i + 2] += x.z;
+    v[4 * i + 3] += x.w;
+  }
+}
+
+// A consumer's 64 x 256 fp32 gradient as bf16 times `mult`: this thread's
+// rows row0 and row0 + 8 where under `limit`, at `base` (its first column).
+__device__ __forceinline__ void store_rows(const float (&acc)[128], __nv_bfloat16* base, int64_t ss, int row0,
+                                           int limit, float mult, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < limit) {
+      __nv_bfloat16* dst = base + (int64_t)row * ss + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(acc[4 * j + 2 * r] * mult, acc[4 * j + 2 * r + 1] * mult);
+      }
+    }
+  }
+}
+
+// dV: one block per 64 keys (K resident), Q and dO in tiles of 64 queries.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_wide_dv(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo, const WideArgs a) {
+  using S = Sweep<64>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  __nv_bfloat16* outb = a.out + b * a.out_sb + h * a.out_sh;
+  if (k0 >= a.kv_len) {  // every key of the tile is masked: zero rows
+    zero_rows(outb, a.out_ss, k0, min(kRows, a.skv - k0));
     return;
   }
+  const Smem m = smem_layout<64>(smem_raw);
+  const int n_tiles = a.sq_pad / 64;
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-  const float* lseb = p.lse + ((int64_t)b * p.heads + h) * p.sq;
-  const float* dltb = p.delta + ((int64_t)b * p.heads + h) * p.sq;
-
-  auto load_queries = [&](int t, int buf) {
-    load_tile<D, LD, NT>(qs + buf * BQ * LD, qb, p.q_ss, t * BQ, BQ, p.sq);
-    load_tile<D, LD, NT>(dos + buf * BQ * LD, dob, p.do_ss, t * BQ, BQ, p.sq);
-    for (int i = threadIdx.x; i < BQ; i += NT) {
-      const int qi = t * BQ + i;
-      const bool ok = qi < p.sq;
-      lse_s[buf * BQ + i] = ok ? lseb[qi] * kLog2e : 0.f;
-      dlt_s[buf * BQ + i] = ok ? dltb[qi] : 0.f;
-    }
-  };
-
-  load_tile<D, LD, NT>(ks, kb, p.k_ss, k0, BN, p.kv_len);
-  load_tile<D, LD, NT>(vs, vb, p.v_ss, k0, BN, p.kv_len);
-  cp_async_commit();
-  load_queries(0, 0);
-  cp_async_commit();
-
-  float dk[CW / 8][4], dv[CW / 8][4];
-#pragma unroll
-  for (int i = 0; i < CW / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-  }
-  const int key0 = k0 + rg * 16 + g;  // this thread's key rows: key0 and key0 + 8
-  const bool key_ok[2] = {key0 < p.kv_len, key0 + 8 < p.kv_len};
-  const __nv_bfloat16* kw = ks + rg * 16 * LD + half * (D / KSPLIT);
-  const __nv_bfloat16* vw = vs + rg * 16 * LD + half * (D / KSPLIT);
-  const int cw = c0 + half * CW;  // this warp's first output column
-  const int n_tiles = (p.sq + BQ - 1) / BQ;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) load_queries(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V and query tile t have landed
-    __syncthreads();
-    const __nv_bfloat16* qt = qs + buf * BQ * LD;
-    const __nv_bfloat16* dot = dos + buf * BQ * LD;
-    const float* lt = lse_s + buf * BQ;
-    const float* dt = dlt_s + buf * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries, over its share of D.
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-    const __nv_bfloat16* qh = qt + half * (D / KSPLIT);
-    const __nv_bfloat16* doh = dot + half * (D / KSPLIT);
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<LD>(ka, kw, kk, g, t4);
-      load_a<LD>(va, vw, kk, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-        const __nv_bfloat16* qr = qh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
-        const __nv_bfloat16* dr = doh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
-        mma_bf16(s[nt], ka, ld32(qr), ld32(qr + 8));
-        mma_bf16(dp[nt], va, ld32(dr), ld32(dr + 8));
+  if (wg == 0) {
+    // Producer: Q of tile t goes out before dO of tile t - 1, whose groups free later.
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      load_resident<64>(m, &tk, &tk, k0, h, b);
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+        load_streamed<64>(m, &tq, 0, t, t, h, b);
+        if (t > 0) load_streamed<64>(m, &tdo, 2, t - 1, t - 1, h, b);
       }
+      load_streamed<64>(m, &tdo, 2, n_tiles - 1, n_tiles - 1, h, b);
     }
-    swap_partials<BQ / 2>(s, dp, xs, warp, lane);
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int c = wg - 1, ctid = threadIdx.x % 128, warp = ctid / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    uint64_t* q_full = m.full + c;
+    uint64_t* q_empty = m.empty + c;
+    uint64_t* do_full = m.full + 2 + c;
+    uint64_t* do_empty = m.empty + 2 + c;
+    const uint64_t k_desc = sw128_desc(m.res + c * kHalfBoxes * kResBox, 16, 1024);      // K-major
+    const uint64_t q_desc = sw128_desc(m.ring + c * S::kGroup, 16, 1024);               // K-major
+    const uint64_t do_desc = sw128_desc(m.ring + (2 + c) * S::kGroup, S::kBox, 1024);  // MN-major
+    float4* mine = reinterpret_cast<float4*>(m.xs + c * kXsFloats) + ctid;
+    const float4* theirs = reinterpret_cast<const float4*>(m.xs + (1 - c) * kXsFloats) + ctid;
+    const float* lse_cols = a.lse2 + ((int64_t)b * a.heads + h) * a.sq_pad + 2 * t4;
+    const int key0 = k0 + warp * 16 + g;  // this thread's key rows: key0 and key0 + 8
+    const bool edge = k0 + kRows > a.kv_len;
+    auto release = [&](uint64_t* bar) {  // one arrival per warp
+      if (lane == 0) mbar_arrive(bar);
+    };
 
-    // P^T and dS^T as bf16 A fragments (16 keys x 16 queries each).
-    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+    float s[32], dv[128];
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-      float pv[4], ds[4];
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + 2 * t4 + (e & 1);
-        const bool ok = key_ok[e >> 1] && t * BQ + qc < p.sq;
-        pv[e] = ok ? exp2f(s[nt][e] * p.scale_log2 - lt[qc]) : 0.f;
-        ds[e] = pv[e] * (dp[nt][e] - dt[qc]);
-      }
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(pv[0], pv[1]);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-      dsa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
+    for (int i = 0; i < 128; ++i) dv[i] = 0.f;
+    uint32_t p[4][4];
+    float2 l2[8];  // L * log2(e) of this thread's query columns 8 j + 2 t4 + (0, 1) of the tile
 
-    // dV += P^T dO and dK += dS^T Q over this warp's CW columns.
+    // This consumer's half of S^T = K Q^T: 16 k-steps over its 4 boxes.
+    auto scores = [&]() {
+      // Formed anew for each tile: held across the loop, the 32 descriptors
+      // would not fit in the registers beside dV.
+      uint64_t kd = k_desc, qd = q_desc;
+      asm volatile("" : "+l"(kd), "+l"(qd));
 #pragma unroll
-    for (int j = 0; j < BQ / 16; ++j) {
-#pragma unroll
-      for (int dn = 0; dn < CW / 8; dn += 2) {
-        uint32_t bo[4], bq[4];
-        ldmatrix_x4_trans(bo, trans_addr<LD>(dot, j * 16, cw + dn * 8, lane));
-        ldmatrix_x4_trans(bq, trans_addr<LD>(qt, j * 16, cw + dn * 8, lane));
-        mma_bf16(dv[dn], pa[j], bo[0], bo[1]);
-        mma_bf16(dv[dn + 1], pa[j], bo[2], bo[3]);
-        mma_bf16(dk[dn], dsa[j], bq[0], bq[1]);
-        mma_bf16(dk[dn + 1], dsa[j], bq[2], bq[3]);
+      for (int kk = 0; kk < 4 * kHalfBoxes; ++kk) {
+        const uint32_t off = ((kk / 4) * kResBox + (kk % 4) * 32) / 16;  // both operands in 64-row boxes
+        wgmma_ss_n64<0, 0>(s, kd + off, qd + off, kk > 0);
       }
-    }
-    __syncthreads();  // every warp is done with buffer `buf` (and its partner with xs) before they are refilled
-  }
+    };
+    auto exchange = [&](int t) {
+      if (t > 0) named_barrier_sync(kBarRead + c, 256);  // the other consumer has read tile t - 1's
+      put_partials(mine, s);
+      named_barrier_sync(kBarScores, 256);
+      add_partials(s, theirs);
+      if (t + 1 < n_tiles) named_barrier_arrive(kBarRead + 1 - c, 256);
+    };
+    auto load_lse = [&](int t) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) l2[j] = *reinterpret_cast<const float2*>(lse_cols + t * 64 + 8 * j);
+    };
+    // P^T = exp2(S^T * scale * log2(e) - L * log2(e)) in place; a padded
+    // query has a huge L and gets 0, a key at or past kv_len is masked.
+    auto probs = [&]() {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[4 * j + 0] = fast_exp2(fmaf(s[4 * j + 0], a.scale_log2, -l2[j].x));
+        s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], a.scale_log2, -l2[j].y));
+        s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], a.scale_log2, -l2[j].x));
+        s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], a.scale_log2, -l2[j].y));
+      }
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (key0 >= a.kv_len) s[4 * j + 0] = s[4 * j + 1] = 0.f;
+          if (key0 + 8 >= a.kv_len) s[4 * j + 2] = s[4 * j + 3] = 0.f;
+        }
+      }
+    };
+    // dV (64 keys x this half's 256 columns) += P^T (registers) dO.
+    auto dv_product = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n256(dv, p[kk], do_desc + kk * 16 * 128 / 16);
+    };
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = key0 + 8 * r;
-    if (row < p.skv) {
-      __nv_bfloat16* dkr = dkb + (int64_t)row * p.dk_ss + half * CW;
-      __nv_bfloat16* dvr = dvb + (int64_t)row * p.dv_ss + half * CW;
-#pragma unroll
-      for (int dn = 0; dn < CW / 8; ++dn) {
-        *reinterpret_cast<uint32_t*>(dkr + dn * 8 + 2 * t4) =
-            pack_bf16(dk[dn][2 * r] * p.scale, dk[dn][2 * r + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvr + dn * 8 + 2 * t4) = pack_bf16(dv[dn][2 * r], dv[dn][2 * r + 1]);
-      }
+    // Tile 0: S^T alone.
+    mbar_wait(m.res_full, 0);
+    load_lse(0);
+    mbar_wait(q_full, 0);
+    fence_regs(s);
+    wgmma_fence();
+    scores();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    release(q_empty);
+    exchange(0);
+    probs();
+    to_bf16(s, p);
+
+    for (int t = 1; t < n_tiles; ++t) {
+      // Tile t's S^T and tile t - 1's dV product go to the tensor cores together.
+      load_lse(t);
+      mbar_wait(q_full, t & 1);
+      mbar_wait(do_full, (t - 1) & 1);
+      fence_regs(s);
+      fence_regs(dv);
+      wgmma_fence();
+      scores();
+      wgmma_commit();
+      dv_product();
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T done; the dV product may still run
+      fence_regs(s);
+      release(q_empty);
+      exchange(t);
+      probs();
+      wgmma_wait<0>();  // the dV product done: p and the dO group are free
+      fence_regs(dv);
+      release(do_empty);
+      to_bf16(s, p);
     }
+    mbar_wait(do_full, (n_tiles - 1) & 1);
+    fence_regs(dv);
+    wgmma_fence();
+    dv_product();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    store_rows(dv, outb + c * kHalfBoxes * 64, a.out_ss, key0, a.skv, a.out_scale, t4);
   }
 }
 
-// ---------------------------------------------------------------------------
-// dQ: one block per 64 queries and DC columns, key tiles of BN; warp w owns
-// queries 16 (w % 4) .. + 15 and half of the contraction and of the columns.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT) flash_bwd_dq(BwdParams p) {
-  constexpr int BM = 64, BN = TILE;
+// dK (kKeys: K and V resident, Q and dO streamed in tiles of 32 queries) or
+// dQ (Q and dO resident, K and V streamed in tiles of 32 keys). r0 / x0 are
+// the operands of the scores (K / Q or Q / K), r1 / x1 those of dP (V / dO
+// or dO / V); the gradient product reads x0 again. x0 goes through a
+// two-stage ring, so tile t + 1's arrives while tile t is worked on; x1 has
+// one stage, and once both consumers' dP products have read tile t's x1 its
+// groups carry the consumers' partial scores of the exchange.
+template <bool kKeys>
+__device__ __forceinline__ void ds_sweep(const CUtensorMap* r0, const CUtensorMap* r1, const CUtensorMap* x0,
+                                         const CUtensorMap* x1, const WideArgs& a) {
+  using S = Sweep<32>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + BM * LD;
-  __nv_bfloat16* ks = dos + BM * LD;     // [2][BN * LD]
-  __nv_bfloat16* vs = ks + 2 * BN * LD;  // [2][BN * LD]
-  float* xs = reinterpret_cast<float*>(vs + 2 * BN * LD);  // [8 warps][32 lanes][BN / 2]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4, rg = warp % 4, half = warp / 4;
-  const int q0 = (int)(blockIdx.x / kSlices) * BM, c0 = (int)(blockIdx.x % kSlices) * DC;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-  const float* lseb = p.lse + ((int64_t)b * p.heads + h) * p.sq;
-  const float* dltb = p.delta + ((int64_t)b * p.heads + h) * p.sq;
-
-  load_tile<D, LD, NT>(qs, qb, p.q_ss, q0, BM, p.sq);
-  load_tile<D, LD, NT>(dos, dob, p.do_ss, q0, BM, p.sq);
-  load_tile<D, LD, NT>(ks, kb, p.k_ss, 0, BN, p.kv_len);
-  load_tile<D, LD, NT>(vs, vb, p.v_ss, 0, BN, p.kv_len);
-  cp_async_commit();
-
-  const int row0 = q0 + rg * 16 + g;  // this thread's query rows: row0 and row0 + 8
-  float lse_r[2], dlt_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lse_r[r] = row < p.sq ? lseb[row] * kLog2e : 0.f;
-    dlt_r[r] = row < p.sq ? dltb[row] : 0.f;
+  const int row0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  __nv_bfloat16* outb = a.out + b * a.out_sb + h * a.out_sh;
+  if (kKeys && row0 >= a.kv_len) {  // every key of the tile is masked: zero rows
+    zero_rows(outb, a.out_ss, row0, min(kRows, a.skv - row0));
+    return;
   }
-  float dq[CW / 8][4];
-#pragma unroll
-  for (int i = 0; i < CW / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-  const __nv_bfloat16* qw = qs + rg * 16 * LD + half * (D / KSPLIT);
-  const __nv_bfloat16* dw = dos + rg * 16 * LD + half * (D / KSPLIT);
-  const int cw = c0 + half * CW;
-  const int n_tiles = (p.kv_len + BN - 1) / BN;
+  const Smem m = smem_layout<32>(smem_raw);
+  const int n_tiles = ((kKeys ? a.sq : a.kv_len) + 31) / 32;
+  const int wg = threadIdx.x / 128;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile<D, LD, NT>(ks + (buf ^ 1) * BN * LD, kb, p.k_ss, (t + 1) * BN, BN, p.kv_len);
-      load_tile<D, LD, NT>(vs + (buf ^ 1) * BN * LD, vb, p.v_ss, (t + 1) * BN, BN, p.kv_len);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and key tile t have landed
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + buf * BN * LD;
-    const __nv_bfloat16* vt = vs + buf * BN * LD;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 queries x BN keys, over its share of D.
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-    const __nv_bfloat16* kh = kt + half * (D / KSPLIT);
-    const __nv_bfloat16* vh = vt + half * (D / KSPLIT);
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, qw, kk, g, t4);
-      load_a<LD>(da, dw, kk, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const __nv_bfloat16* kr = kh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
-        const __nv_bfloat16* vr = vh + (nt * 8 + g) * LD + kk * 16 + 2 * t4;
-        mma_bf16(s[nt], qa, ld32(kr), ld32(kr + 8));
-        mma_bf16(dp[nt], da, ld32(vr), ld32(vr + 8));
+  if (wg == 0) {
+    // Producer: tile t's x1 frees after tile t - 1's exchange, the stage of
+    // tile t + 1's x0 after tile t - 1's gradient product, in that order.
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      load_resident<32>(m, r0, r1, row0, h, b);
+      load_streamed<32>(m, x0, 0, 0, 0, h, b);
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+        load_streamed<32>(m, x1, 4, t, t, h, b);
+        if (t + 1 < n_tiles) load_streamed<32>(m, x0, 2 * ((t + 1) & 1), (t + 1) >> 1, t + 1, h, b);
       }
     }
-    swap_partials<BN / 2>(s, dp, xs, warp, lane);
-
-    uint32_t dsa[BN / 16][4];
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int c = wg - 1, ctid = threadIdx.x % 128, warp = ctid / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    constexpr uint32_t kStageStep = 2 * S::kGroup / 16;  // descriptor units between x0's stages
+    const uint64_t r0_desc = sw128_desc(m.res + c * kHalfBoxes * kResBox, 16, 1024);              // K-major
+    const uint64_t r1_desc = sw128_desc(m.res + kResBytes + c * kHalfBoxes * kResBox, 16, 1024);  // K-major
+    const uint64_t x0_desc = sw128_desc(m.ring + c * S::kGroup, 16, 1024);                        // K-major
+    const uint64_t x0_mn = sw128_desc(m.ring + c * S::kGroup, S::kBox, 1024);                    // MN-major
+    const uint64_t x1_desc = sw128_desc(m.ring + (4 + c) * S::kGroup, 16, 1024);                  // K-major
+    // Each consumer's partials go into its own x1 group (16 KB: 64 x 32 fp32 of S and of dP).
+    float4* mine = reinterpret_cast<float4*>(m.ring + (4 + c) * S::kGroup) + ctid;
+    const float4* theirs = reinterpret_cast<const float4*>(m.ring + (5 - c) * S::kGroup) + ctid;
+    const int64_t bh = ((int64_t)b * a.heads + h) * a.sq_pad;
+    const int rows0 = row0 + warp * 16 + g;  // this thread's rows: rows0 and rows0 + 8
+    const bool edge = kKeys && row0 + kRows > a.kv_len;
+    auto release = [&](uint64_t* bar) {  // one arrival per warp
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // dQ: L * log2(e) and delta of this thread's two query rows.
+    float l2r[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
+    if constexpr (!kKeys) {
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = t * BN + nt * 8 + 2 * t4 + (e & 1);
-        const float pv = col < p.kv_len ? exp2f(s[nt][e] * p.scale_log2 - lse_r[e >> 1]) : 0.f;
-        ds[e] = pv * (dp[nt][e] - dlt_r[e >> 1]);
-      }
-      dsa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dQ += dS K over this warp's CW columns.
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-#pragma unroll
-      for (int dn = 0; dn < CW / 8; dn += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4_trans(bk, trans_addr<LD>(kt, j * 16, cw + dn * 8, lane));
-        mma_bf16(dq[dn], dsa[j], bk[0], bk[1]);
-        mma_bf16(dq[dn + 1], dsa[j], bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer `buf` (and its partner with xs) before they are refilled
-  }
-
-  __nv_bfloat16* dqb = p.dq + b * p.dq_sb + h * p.dq_sh + cw;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row < p.sq) {
-      __nv_bfloat16* dqr = dqb + (int64_t)row * p.dq_ss;
-#pragma unroll
-      for (int dn = 0; dn < CW / 8; ++dn) {
-        *reinterpret_cast<uint32_t*>(dqr + dn * 8 + 2 * t4) =
-            pack_bf16(dq[dn][2 * r] * p.scale, dq[dn][2 * r + 1] * p.scale);
+      for (int r = 0; r < 2; ++r) {
+        l2r[r] = a.lse2[bh + rows0 + 8 * r];
+        dr[r] = a.delta[bh + rows0 + 8 * r];
       }
     }
+
+    float s[16], dp[16], acc[128];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    uint32_t dsa[2][4];
+
+    // This consumer's half of a 64 x 32 product over 512 columns: 16 k-steps
+    // over its 4 boxes of the resident tile and of the streamed one.
+    auto partial = [&](float (&d)[16], uint64_t rd, uint64_t xd) {
+      asm volatile("" : "+l"(rd), "+l"(xd));  // descriptors formed anew for each tile, as in dv's scores
+#pragma unroll
+      for (int kk = 0; kk < 4 * kHalfBoxes; ++kk) {
+        wgmma_ss_n32(d, rd + ((kk / 4) * kResBox + (kk % 4) * 32) / 16, xd + ((kk / 4) * S::kBox + (kk % 4) * 32) / 16,
+                     kk > 0);
+      }
+    };
+
+    mbar_wait(m.res_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t & 1;
+      // dK: L * log2(e) and delta of this thread's query columns 8 j + 2 t4 + (0, 1) of the tile.
+      float2 l2c[4], dc[4];
+      if constexpr (kKeys) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          l2c[j] = *reinterpret_cast<const float2*>(a.lse2 + bh + t * 32 + 8 * j + 2 * t4);
+          dc[j] = *reinterpret_cast<const float2*>(a.delta + bh + t * 32 + 8 * j + 2 * t4);
+        }
+      }
+      // S first: its x0 arrived during the previous tile; x1 was reloaded
+      // after the previous tile's exchange.
+      mbar_wait(m.full + 2 * st + c, (t >> 1) & 1);
+      fence_regs(s);
+      wgmma_fence();
+      partial(s, r0_desc, x0_desc + st * kStageStep);
+      wgmma_commit();
+      mbar_wait(m.full + 4 + c, t & 1);
+      fence_regs(dp);
+      wgmma_fence();
+      partial(dp, r1_desc, x1_desc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // One exchange for both partials, through the x1 groups; then both
+      // groups may take the next tile's x1 (8 arrivals each).
+      put_partials(mine, s);
+      put_partials(mine + 4 * 128, dp);
+      named_barrier_sync(kBarScores, 256);
+      add_partials(s, theirs);
+      add_partials(dp, theirs + 4 * 128);
+      fence_proxy_async();  // ordinary accesses before the TMA's next writes there
+      release(m.empty + 4);
+      release(m.empty + 5);
+
+      // P = exp2(S * scale * log2(e) - L * log2(e)) and dS = P (dP - delta),
+      // as bf16 A fragments: two 8-column blocks make one 16-deep k-step.
+      // A padded query has a huge L and gets P = 0; keys at or past kv_len
+      // are masked in the last key tile (dK: the block's rows, dQ: columns).
+      const bool last = !kKeys && t == n_tiles - 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float pv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l2 = kKeys ? ((e & 1) ? l2c[j].y : l2c[j].x) : l2r[e >> 1];
+          pv[e] = fast_exp2(fmaf(s[4 * j + e], a.scale_log2, -l2));
+          if (edge && rows0 + 8 * (e >> 1) >= a.kv_len) pv[e] = 0.f;
+          if (last && t * 32 + 8 * j + 2 * t4 + (e & 1) >= a.kv_len) pv[e] = 0.f;
+          const float d = kKeys ? ((e & 1) ? dc[j].y : dc[j].x) : dr[e >> 1];
+          pv[e] *= dp[4 * j + e] - d;
+        }
+        dsa[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
+        dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
+      }
+
+      // The gradient (64 rows x this half's 256 columns) += dS x0, x0 read
+      // MN-major: 2 k-steps of 16 streamed rows. Drained inside the tile: a
+      // product left in flight across the loop's back edge makes ptxas
+      // serialize every wgmma of the loop.
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) wgmma_rs_n256(acc, dsa[kk], x0_mn + st * kStageStep + kk * 16 * 128 / 16);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(m.empty + 2 * st + c);
+    }
+    store_rows(acc, outb + c * kHalfBoxes * 64, a.out_ss, rows0, kKeys ? a.skv : a.sq, a.out_scale, t4);
   }
 }
 
-// delta, then dK/dV, then dQ.
-cudaError_t run(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t kSwap = 8 * 32 * sizeof(float);  // partial scores, times the tile's rows
-  const int64_t n_rows = (int64_t)batch * p.sq * p.heads;
-  constexpr int rows_per_block = 128 / kDeltaTPR<D>;
-  flash_bwd_delta<D><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), 128, 0, stream>>>(p, n_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t dkdv_smem =
-      (size_t)(2 * 64 + 4 * TILE) * LD * sizeof(__nv_bfloat16) + 4 * TILE * sizeof(float) + kSwap * TILE;
-  err = launch(flash_bwd_dkdv, dim3((p.skv + 63) / 64 * kSlices, p.heads, batch), dkdv_smem, p, stream, NT);
-  if (err != cudaSuccess) return err;
-  const size_t dq_smem = (size_t)(2 * 64 + 4 * TILE) * LD * sizeof(__nv_bfloat16) + kSwap * TILE;
-  return launch(flash_bwd_dq, dim3((p.sq + 63) / 64 * kSlices, p.heads, batch), dq_smem, p,
-                stream, NT);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_wide_dk(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                      const WideArgs a) {
+  ds_sweep<true>(&tk, &tv, &tq, &tdo, a);
 }
 
-}  // namespace pair
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_wide_dq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      const WideArgs a) {
+  ds_sweep<false>(&tq, &tdo, &tk, &tv, a);
+}
+
+// Points `a` at one gradient.
+void set_out(WideArgs& a, __nv_bfloat16* out, int64_t sb, int64_t ss, int64_t sh, float scale) {
+  a.out = out;
+  a.out_sb = sb;
+  a.out_ss = ss;
+  a.out_sh = sh;
+  a.out_scale = scale;
+}
+
+// delta and L, then the dV, dK and dQ sweeps. Returns a cudaError_t, or
+// kEncodeError + the CUresult when a tensor map cannot be encoded.
+int run(const BwdParams& p, int batch, cudaStream_t stream) {
+  // 64-row boxes for the resident tiles and the dV sweep's query tiles,
+  // 32-row boxes for the dK and dQ sweeps' streamed tiles.
+  CUtensorMap q64, do64, k64, v64, q32, do32, k32, v32;
+  CUresult r = make_map(&q64, p.q, kD, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map(&q32, p.q, kD, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, 32);
+  if (r == CUDA_SUCCESS) r = make_map(&do64, p.dout, kD, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map(&do32, p.dout, kD, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, 32);
+  if (r == CUDA_SUCCESS) r = make_map(&k64, p.k, kD, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map(&k32, p.k, kD, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, 32);
+  if (r == CUDA_SUCCESS) r = make_map(&v64, p.v, kD, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map(&v32, p.v, kD, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, 32);
+  if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
+
+  cudaError_t err = launch_delta<kD>(p, batch, stream);
+  if (err != cudaSuccess) return (int)err;
+  WideArgs a;
+  a.lse2 = p.lse2;
+  a.delta = p.delta;
+  a.sq = p.sq;
+  a.sq_pad = p.sq_pad;
+  a.skv = p.skv;
+  a.kv_len = p.kv_len;
+  a.heads = p.heads;
+  a.scale_log2 = p.scale_log2;
+  const dim3 keys((p.skv + kRows - 1) / kRows, p.heads, batch), queries(p.sq_pad / kRows, p.heads, batch);
+
+  set_out(a, p.dv, p.dv_sb, p.dv_ss, p.dv_sh, 1.f);
+  err = cudaFuncSetAttribute(flash_bwd_wide_dv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<64>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_wide_dv<<<keys, kThreads, Sweep<64>::kSmem, stream>>>(k64, q64, do64, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  set_out(a, p.dk, p.dk_sb, p.dk_ss, p.dk_sh, p.scale);
+  err = cudaFuncSetAttribute(flash_bwd_wide_dk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<32>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_wide_dk<<<keys, kThreads, Sweep<32>::kSmem, stream>>>(k64, v64, q32, do32, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  set_out(a, p.dq, p.dq_sb, p.dq_ss, p.dq_sh, p.scale);
+  err = cudaFuncSetAttribute(flash_bwd_wide_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<32>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_wide_dq<<<queries, kThreads, Sweep<32>::kSmem, stream>>>(q64, do64, k32, v32, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
 
 }  // namespace
 
 // C entry point, every kernel on `stream`. Strides are in elements; the last
 // (D) stride must be 1 and every other stride a multiple of 8, with 16-byte
-// aligned base pointers (the Python wrapper checks this). `sq_pad` is the row
-// pitch of the fp32 scratch: at D = 64 and 128, Sq rounded up to 64, with
-// `delta` and `lse2` (B, H, sq_pad) and `dq_acc` (B, H, sq_pad * D), the last
-// zeroed by the caller; at D = 512, Sq, with `delta` (B, H, Sq) and the other
-// two null. Returns the
-// first failing launch's cudaError_t, kEncodeError + the CUresult when a
-// tensor map cannot be encoded, or 0.
+// aligned base pointers (the Python wrapper checks this). `sq_pad` is Sq
+// rounded up to 64, the row pitch of the fp32 scratch `delta` and `lse2` (B,
+// H, sq_pad); at D = 64 and 128 `dq_acc` (B, H, sq_pad * D), zeroed by the
+// caller, takes the sums of dQ; D = 512 sums nothing across blocks and reads
+// no `dq_acc`. Returns the first failing launch's cudaError_t, kEncodeError +
+// the CUresult when a tensor map cannot be encoded, or 0.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                               const float* lse, float* delta, float* lse2, float* dq_acc, void* dq, void* dk,
                               void* dv, int batch, int sq, int sq_pad, int skv, int heads, int head_dim, int kv_len,
@@ -1056,14 +1302,13 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
                       &p.dq_ss, &p.dq_sh, &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
   for (int i = 0; i < 24; ++i) *dst[i] = strides[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse2 == nullptr || sq_pad % kQ != 0 || sq_pad < sq) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 64:
     case 128:
-      if (lse2 == nullptr || dq_acc == nullptr || sq_pad % kQ != 0 || sq_pad < sq) return (int)cudaErrorInvalidValue;
+      if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
       return head_dim == 64 ? run_fused<64>(p, batch, s) : run_fused<128>(p, batch, s);
-    case 512:
-      if (sq_pad != sq) return (int)cudaErrorInvalidValue;
-      return (int)pair::run(p, batch, s);
+    case 512: return wide::run(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

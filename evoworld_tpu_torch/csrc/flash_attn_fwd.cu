@@ -71,7 +71,8 @@
 //   - With a non-null `lse` consumer 0 writes each row's log-sum-exp, as the
 //     wgmma kernel does: both consumers hold the same m and l bit for bit, so
 //     either one's is the row's. The VAE's forward passes null; a gradient
-//     through it (flash_attn_bwd.cu's D = 512 kernels) reads it.
+//     through it reads it: flash_attn_bwd.cu's D = 512 sweeps
+//     (flash_bwd_wide_dv, _dk, _dq), which keep this block's shape.
 
 #include <math.h>
 

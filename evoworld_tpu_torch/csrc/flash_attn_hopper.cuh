@@ -107,8 +107,10 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // wgmma m64nNk16, bf16 inputs, fp32 accumulator. Accumulator layout (thread
 // with warp w of its warpgroup, lane = 4 g + t4): d[4 j + 2 r + c] holds row
-// 16 w + g + 8 r, column 8 j + 2 t4 + c. The register A operand has the
-// mma.sync m16n8k16 A layout over the warp's 16 rows.
+// 16 w + g + 8 r, column 8 j + 2 t4 + c. A register A operand of one 16-deep
+// k-step holds bf16 pairs: a0 (row 16 w + g, k 2 t4 ..), a1 (row + 8, k 2 t4
+// ..), a2 (row, k 8 + 2 t4 ..), a3 (row + 8, k 8 + 2 t4 ..); two adjacent
+// 8-column accumulator blocks therefore make one k-step.
 
 // D (64 x 128 fp32) = A (64 x 16 bf16, shared, K-major) * B (128 x 16 bf16, shared, K-major)^T,
 // plus D when `accumulate` is nonzero.
@@ -129,6 +131,19 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 32 fp32) = A (64 x 16 bf16, shared, K-major) * B (32 x 16 bf16, shared, K-major)^T, plus D when
+// `accumulate` is nonzero.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

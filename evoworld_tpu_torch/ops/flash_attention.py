@@ -36,11 +36,14 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     exp2 domain) and `flash_bwd_store_dq` (scale, to bf16). The order of
     those fp32 sums is not fixed, so dQ may differ in its last bf16 bit
     between two calls; dK and dV are repeatable;
-  - backward, D = 512 (no path runs it): the mma.sync kernels
-    `flash_bwd_dkdv` and `flash_bwd_dq`, which recompute the scores in each
-    and need no reduction across blocks; each block owns a 256-column half
-    of its gradient, and two warps split each score's 512-deep sum and swap
-    their partial sums.
+  - backward, D = 512 (no path runs it): after `flash_bwd_delta`, three
+    wgmma sweeps with `flash_fwd_wide`'s block, `flash_bwd_wide_dv` (K
+    resident, 64-query tiles), `flash_bwd_wide_dk` (K and V resident, 32-query
+    tiles) and `flash_bwd_wide_dq` (Q and dO resident, 32-key tiles), 8
+    products where the function needs 5; in each the two consumers own 256
+    columns of the gradient and half of each score's 512-deep sum, and swap
+    their partial sums. No sweep sums across blocks, so all three gradients
+    repeat bit for bit.
 Other head dims are zero-padded along D up to the smallest kernel head dim
 that holds them (`kernel_head_dim`: 64, 128 or 512, in both directions) and
 the output is sliced back; the scale stays that of the true D. Zero columns
@@ -64,8 +67,8 @@ HEAD_DIMS = (64, 128, 512)  # head dims of the forward and of the backward kerne
 _LOG2_E = 1.4426950408889634  # log2(e)
 _GRID_LIMIT = 65535  # heads on grid.y, batch on grid.z
 _ENCODE_ERROR = 10000  # the C entry points return this + the CUresult when a TMA tensor map fails
-_BWD_QUERY_TILE = 64  # the fused backward's fp32 scratch is padded to whole query tiles
-_FUSED_BWD_DIMS = (64, 128)  # head dims of the fused backward pass (512: the mma.sync pair)
+_BWD_QUERY_TILE = 64  # the backward's fp32 scratch (delta, L in the exp2 domain) is padded to whole query tiles
+_FUSED_BWD_DIMS = (64, 128)  # head dims of the fused pass, which sums dQ in an fp32 buffer (512: the wide sweeps)
 _PLAIN_BLOCK_K = 512  # keys per step of the plain versions
 
 
@@ -280,14 +283,15 @@ def flash_attention_backward(
     """dQ, dK, dV from the forward's inputs, output `o`, row log-sum-exp `lse` and `do`.
 
     CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16;
-    the fused wgmma pass at D = 64 and 128, the mma.sync pair at D = 512); one
-    launch counts every kernel of a call. At D = 64 and 128 the call allocates
-    a zeroed fp32 buffer shaped like q (padded to whole 64-query tiles) that
-    the fused pass sums dQ into; dQ may differ in its last bf16 bit between
-    two calls. CPU
-    tensors go to `flash_attention_backward_plain`. Returns contiguous tensors
-    shaped like q, k and v. A head dim without a kernel of its own is
-    zero-padded to `kernel_head_dim` and the gradients sliced back.
+    the fused wgmma pass at D = 64 and 128, the three wide sweeps at D =
+    512); one launch counts every kernel of a call. Each call allocates fp32
+    delta and L scratch padded to whole 64-query tiles; at D = 64 and 128
+    also a zeroed fp32 buffer shaped like q (padded the same way) that the
+    fused pass sums dQ into, so that dQ may differ in its last bf16 bit
+    between two calls. CPU tensors go to `flash_attention_backward_plain`.
+    Returns contiguous tensors shaped like q, k and v. A head dim without a
+    kernel of its own is zero-padded to `kernel_head_dim` and the gradients
+    sliced back.
     """
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -306,20 +310,16 @@ def flash_attention_backward(
     _check(q, k, v, kv_len, grads={"o": o, "do": do, "lse": lse})
     b, sq, h, _ = q.shape
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-    if d in _FUSED_BWD_DIMS:
-        sq_pad = -(-sq // _BWD_QUERY_TILE) * _BWD_QUERY_TILE
-        delta, lse2 = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
-        dq_acc = torch.zeros((b, h, sq_pad, d), dtype=torch.float32, device=q.device)
-    else:
-        sq_pad, lse2, dq_acc = sq, None, None
-        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    sq_pad = -(-sq // _BWD_QUERY_TILE) * _BWD_QUERY_TILE
+    delta, lse2 = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
+    dq_acc = torch.zeros((b, h, sq_pad, d), dtype=torch.float32, device=q.device) if d in _FUSED_BWD_DIMS else None
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     fn = _bwd_fn()
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), None if lse2 is None else lse2.data_ptr(),
-            None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), lse2.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sq_pad, k.shape[1], h, d, kv_len, scale, strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )

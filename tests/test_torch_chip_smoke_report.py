@@ -6,6 +6,9 @@ entries' own lines, naming the function; the report must attach it to that
 entry so that the smoke run fails on it.
 """
 
+import re
+from pathlib import Path
+
 import chip_smoke
 from tests.test_torch_port_models import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -30,6 +33,30 @@ def test_ptxas_report_attaches_each_warning_to_its_entry():
     assert (second["entry"], second["spill_stores"], second["spill_loads"], second["registers"]) == (
         "_Z4wideILi2EEvv", 176, 172, 224)
     assert "serialized" in second["wgmma_serialized"]
+
+
+def test_ptxas_report_catches_a_serialization_for_want_of_registers():
+    """Where registers run short ptxas words its warning "... for the
+    function '...'" (C7512), not "in the function"; the entry must still
+    carry it, or the build phase passes a kernel whose wgmma runs serialized."""
+    log = LOG.replace(
+        "program dependence on compiler-inserted WG.AR in divergent path in the function '_Z4wideILi2EEvv'",
+        "insufficient register resources for the function '_Z5wgmmaILi64EEvv'")
+    first, second = chip_smoke.ptxas_report(log)
+    assert "insufficient register resources" in first["wgmma_serialized"]
+    assert "wgmma_serialized" not in second
+
+
+def test_every_kernel_the_smoke_run_names_is_a_global_function():
+    """The forward's and the backward's kernel names that phase 3 and 3b look
+    for in a profiler trace are `__global__` functions of the CUDA sources,
+    so that a renamed kernel fails here and not only on the card."""
+    csrc = Path(chip_smoke.__file__).resolve().parent / "evoworld_tpu_torch" / "csrc"
+    text = "\n".join(f.read_text() for f in sorted(csrc.glob("*.cu")))
+    defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
+    named = set(chip_smoke.FWD_KERNELS.values()) | {n for _, names in chip_smoke.BWD_DESIGNS.values() for n in names}
+    assert named <= defined, named - defined
+    assert not set(chip_smoke.RETIRED_BWD_KERNELS) & defined
 
 
 def test_cli_phase_runs_at_tiny_size_on_the_cpu():

@@ -123,14 +123,15 @@ def test_forward_twice_is_bit_identical_on_card(cuda, d):
      (1, 65, 256, 256, 2, 128),     # one query past a tile
      (1, 1, 130, 130, 2, 128),      # a single query
      (1, 300, 333, 300, 2, 80),     # head dim 80, zero-padded to the D = 128 pass
-     # the D = 512 pair (64 keys and one 256-column half a dK/dV block, split
-     # between two warps of 128 columns each, 16-key tiles of the dQ sweep,
-     # 16-query tiles of the dK/dV sweep)
-     (1, 1, 300, 300, 1, 512),      # a single query
-     (1, 200, 300, 129, 2, 512),    # one key past a 64-key tile (and a 16-key tile)
-     (2, 200, 400, 250, 1, 512),    # kv_len < Skv; the last key tiles all padding
-     (2, 1100, 1100, 1100, 2, 512),  # 18 x 2 halves x 2 x 2 dK/dV blocks: more than one wave
-     (1, 150, 150, 150, 1, 200)],   # head dim 200, zero-padded to the D = 512 kernels
+     # the D = 512 sweeps (64-key blocks of the dV and dK sweeps, 64-query
+     # blocks of the dQ sweep; streamed tiles of 64 queries in the dV sweep,
+     # of 32 queries in the dK sweep and of 32 keys in the dQ sweep)
+     (1, 1, 300, 300, 1, 512),      # a single query: one 64-query and one 32-query tile, mostly padding
+     (1, 200, 300, 129, 2, 512),    # one key past a 64-key block, and past four 32-key tiles
+     (2, 200, 400, 250, 1, 512),    # kv_len < Skv; the last key blocks all padding
+     (2, 1100, 1100, 1100, 2, 512),  # 18 x 2 x 2 blocks a sweep: more than one wave of 132 SMs
+     (1, 97, 97, 65, 1, 512),       # Sq one past three 32-query tiles, kv_len one past two 32-key tiles
+     (1, 150, 150, 150, 1, 200)],   # head dim 200, zero-padded to the D = 512 sweeps
 )
 def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
     """dQ, dK, dV on strided views (q a head-major transpose, k and v halves of
@@ -171,33 +172,41 @@ def _backward_inputs(cuda, seed, b, sq, skv, kv_len, h, d=64):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 512])
 def test_fused_backward_twice_repeats_on_card(cuda, d):
-    """Two calls on the same inputs: dK and dV are equal bit for bit. dQ is
-    summed across key tiles with global fp32 reductions in no fixed order,
-    which can move a sum across a bf16 rounding boundary: one bf16 step (2^-7
-    of the value), beside 1e-4 of dQ's RMS for sums that nearly cancel. A dQ
-    buffer that was not zeroed would double dQ in the second call."""
+    """Two calls on the same inputs: dK and dV are equal bit for bit. The
+    fused pass (D = 64, 128) sums dQ across key tiles with global fp32
+    reductions in no fixed order, which can move a sum across a bf16
+    rounding boundary: one bf16 step (2^-7 of the value), beside 1e-4 of
+    dQ's RMS for sums that nearly cancel; a dQ buffer that was not zeroed
+    would double dQ in the second call. The D = 512 sweeps sum nothing
+    across blocks, so there dQ repeats bit for bit too."""
     q, k, v, out, do, lse = _backward_inputs(cuda, 6, 2, 1000, 1100, 1041, 4, d)
     first = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     second = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     torch.cuda.synchronize()
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    if d == 512:
+        assert torch.equal(first[0], second[0])
     dq = first[0].float()
     gap = (second[0].float() - dq).abs()
     assert bool((gap <= 2.0 ** -7 * dq.abs() + 1e-4 * dq.pow(2).mean().sqrt()).all())
 
 
+_WIDE = ("flash_bwd_wide_dv", "flash_bwd_wide_dk", "flash_bwd_wide_dq")
+_PAIR = ("flash_bwd_dkdv", "flash_bwd_dq")  # the mma.sync pair the D = 512 sweeps replaced
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,design,others", [
-    (64, ("flash_bwd_fused", "flash_bwd_delta", "flash_bwd_store_dq"), ("flash_bwd_dkdv", "flash_bwd_dq")),
-    (128, ("flash_bwd_fused", "flash_bwd_delta", "flash_bwd_store_dq"), ("flash_bwd_dkdv", "flash_bwd_dq")),
-    (512, ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta"), ("flash_bwd_fused", "flash_bwd_store_dq")),
+    (64, ("flash_bwd_fused", "flash_bwd_delta", "flash_bwd_store_dq"), _WIDE + _PAIR),
+    (128, ("flash_bwd_fused", "flash_bwd_delta", "flash_bwd_store_dq"), _WIDE + _PAIR),
+    (512, _WIDE + ("flash_bwd_delta",), ("flash_bwd_fused", "flash_bwd_store_dq") + _PAIR),
 ])
 def test_backward_trace_names_its_design_on_card(cuda, d, design, others):
     """A profiler trace of one backward call holds its head dim's kernels and
-    none of the other design's: the fused pass at D = 64 and 128, the
-    mma.sync pair at D = 512."""
+    none of the other designs': the fused pass at D = 64 and 128, the three
+    wgmma sweeps at D = 512, never the mma.sync pair they replaced."""
     from torch.profiler import ProfilerActivity, profile
 
     q, k, v, out, do, lse = _backward_inputs(cuda, 7, 1, 300, 300, 300, 2, d)
@@ -226,8 +235,8 @@ def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2, d):
 @pytest.mark.cuda
 def test_autograd_function_uses_the_backward_kernel_and_d512_raises(cuda):
     """A gradient through `flash_attention` launches the backward kernel once
-    at D = 64 and, since the D = 512 pair landed, at D = 512 too; what still
-    raises is a head dim past every kernel's (520), before any launch."""
+    at D = 64 and at D = 512; what raises is a head dim past every kernel's
+    (520), before any launch."""
     g = torch.Generator(device=cuda).manual_seed(4)
     for d in (64, 512):
         q, k, v = (torch.randn((1, 300, 2, d), generator=g, device=cuda).bfloat16().requires_grad_()
