@@ -101,6 +101,27 @@ The wide-backward slice (the D = 512 backward redesigned) adds:
      the mma.sync pair they replaced (RETIRED_BWD_KERNELS); dQ, dK and dV
      still repeat bit for bit, and vae_mid_d512 and vae_mid_d512_b2 keep to
      their BWD_MS_LINES lines.
+The training-CLI and evaluation slice adds, on phase 11's files:
+  12. `cli.train.main` at full width from phase 11's checkpoint directories
+     and episode (the last 25 frames, bf16, EMA on): 2 steps with a
+     checkpoint and a validation clip (N = 4) at step 2, then a resume to
+     step 3; the flash launches of every step (`expected_train_launches`)
+     and of the validation clip (5N + 18), finite losses and gradient norms,
+     the loaded models equal to the files, the validation GIF's blocks (25
+     frames of 576 x 2048, parsed without PIL), the logged val_psnr /
+     val_ssim equal to `eval.metrics` on the CPU, the clip rendered with the
+     step-2 checkpoint's EMA, the resume at step 2 with the checkpoint's
+     EMA; it prints seconds per step, validation and
+     checkpoint save seconds, checkpoint bytes and peak memory;
+  13. with TF32 switched on for matmuls and cuDNN, `cli.calculate_metrics.main`
+     over three episodes at 1024x576 (phase 11's last segment and single clip,
+     phase 12's validation clip) with metric nets made sensitive to the
+     frames, each metric timed on the card, the harness on 2 episodes x 10
+     frames against the same on the CPU (SSIM within 1e-5, the feature
+     metrics above EVAL_FEATURE_FLOOR and within EVAL_FEATURE_RTOL; the
+     errors without the harness's fp32 guard reported beside them),
+     `cli.calculate_dreamsim.main` (dino_vitb16 and the ensemble) against the
+     CPU, no flash launch.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card: the entry points refuse a dtype other than bf16 on CUDA.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -110,14 +131,15 @@ name and power limit, a JSON line of the kernels, and ends with the JSON line
 
 from __future__ import annotations
 
+import contextlib
 import json
-import logging
 import math
 import os
 import re
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -186,6 +208,21 @@ STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5  # a tenth of one update at lr 1e-4
 # land in the neighbouring pixel under fp32 noise).
 SMALL_LOOP = dict(num_segments=3, num_frames=5, num_target_view=4, pers_height=16, pers_width=512)
 LOOP_FRAME_ATOL, LOOP_PIXEL_ATOL, LOOP_MAX_FLIPPED = 2e-3, 2e-3, 0.005
+# Phase 13, the harness on the card (TF32 switched on by the caller, off
+# inside the harness) against the CPU, per timestamp: FVD, LPIPS and the
+# latent MSEs relative to the CPU's value. Both sides compute in fp32 and
+# sum in other orders: the sensitive nets' metrics agree within 1e-6
+# relative, while with the harness's guard made to do nothing (the phase's
+# `unguarded_worst_rel_err`) FVD and the latent MSE miss by 2.9e-4 and
+# 9.6e-4 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), so EVAL_FEATURE_RTOL
+# sits between them. DreamSim's cosine distance of fp32 embeddings: absolute, as in the
+# CPU parity test. The metric nets are random ones made sensitive to the
+# frames they score (`sensitive_metric_weights`); each feature metric and
+# DreamSim score must come out above EVAL_FEATURE_FLOOR, so that nets whose
+# output ignores their input fail.
+EVAL_FEATURE_RTOL = 1e-4
+EVAL_FEATURE_FLOOR = 1e-3
+DREAMSIM_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -346,7 +383,7 @@ def check_jpeg_fixtures() -> list[dict]:
     rows = []
     for name in JPEG_FIXTURES:
         jpg, png = (os.path.join(JPEG_FIXTURE_DIR, f"{name}.{ext}") for ext in ("jpg", "png"))
-        width, height = png_size(png)
+        height, width = native_io.png_size(png)
         want = native_io.load_image_batch([png], height, width, minus1_1=False, n_threads=1)
         t0 = time.perf_counter()
         got = native_io.load_image_batch([jpg], height, width, minus1_1=False, n_threads=1)
@@ -753,27 +790,6 @@ def expected_train_launches(frames: int, vae_chunk: int, layers_per_block: int) 
     return vae + 2 * level0, level0
 
 
-class StepProbe(logging.Handler):
-    """Reads the kernel launch counts and the peak device memory at each of
-    `train`'s "step N" log lines (log_steps = 1), then resets the peak."""
-
-    def __init__(self, dev, counters):
-        super().__init__(logging.INFO)
-        self.dev, self.counters, self.rows = dev, counters, []
-        self.last = [c.launches for c in counters]
-
-    def emit(self, record) -> None:
-        import torch
-
-        if not record.getMessage().startswith("step "):
-            return
-        counts = [c.launches for c in self.counters]
-        self.rows.append(dict(fwd_launches=counts[0] - self.last[0], bwd_launches=counts[1] - self.last[1],
-                              peak_memory_bytes=torch.cuda.max_memory_allocated(self.dev)))
-        self.last = counts
-        torch.cuda.reset_peak_memory_stats(self.dev)
-
-
 def full_train(dev, steps: int, seed: int) -> dict:
     """TRAIN_STEPS full-width steps through `train` (EMA on, final checkpoint);
     checks launches, gradients, updates, the checkpoint and the EMA."""
@@ -803,27 +819,20 @@ def full_train(dev, steps: int, seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as out_dir:
         tc = TrainerConfig(output_dir=out_dir, max_steps=steps, log_steps=1, use_ema=True)
         free = shutil.disk_usage(out_dir).free
-        trainer_log = logging.getLogger(trainer_module.__name__)
-        level = trainer_log.level
-        trainer_log.setLevel(logging.INFO)
         torch.cuda.reset_peak_memory_stats(dev)
         flash_attention.launches = flash_attention_backward.launches = 0
-        probe = StepProbe(dev, (flash_attention, flash_attention_backward))
-        trainer_log.addHandler(probe)
+        probe = TrainProbe(dev, (flash_attention, flash_attention_backward))
         t0 = time.perf_counter()
-        try:
+        with probe.installed():
             state = trainer_module.train(unet, vae, clip, data, cfg, tc, compute_dtype=torch.bfloat16)
             torch.cuda.synchronize()
-        finally:
-            trainer_log.removeHandler(probe)
-            trainer_log.setLevel(level)
         seconds = time.perf_counter() - t0
         launches = [flash_attention.launches, flash_attention_backward.launches]
-        # the checkpoint's save, after the last step's log line
-        peak = max([r["peak_memory_bytes"] for r in probe.rows] + [torch.cuda.max_memory_allocated(dev)])
+        # the checkpoint's save, after the last step's tracker row
+        peak = max([r["peak_memory_bytes"] for r in probe.steps] + [torch.cuda.max_memory_allocated(dev)])
         with open(os.path.join(out_dir, "train_metrics.jsonl")) as f:
             rows = [{**json.loads(line), **probed, "expected_launches": list(expected)}
-                    for line, probed in zip(f, probe.rows)]
+                    for line, probed in zip(f, probe.steps)]
         ckpt_dir = os.path.join(out_dir, "checkpoints")
         ckpt_files = sorted(os.listdir(ckpt_dir))
         ckpt_path = os.path.join(ckpt_dir, f"{steps}.pt")
@@ -831,7 +840,7 @@ def full_train(dev, steps: int, seed: int) -> dict:
         ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     for row in rows:
         log("train step " + json.dumps(row))
-    if [r["step"] for r in rows] != list(range(1, steps + 1)) or len(probe.rows) != steps:
+    if [r["step"] for r in rows] != list(range(1, steps + 1)) or len(probe.steps) != steps:
         raise AssertionError(f"the tracker logged steps {[r['step'] for r in rows]}, expected 1..{steps}")
     for r in rows:
         if (r["fwd_launches"], r["bwd_launches"]) != expected:
@@ -1097,13 +1106,6 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     return result
 
 
-def png_size(path: str) -> tuple[int, int]:
-    """(width, height) from a PNG's IHDR chunk."""
-    with open(path, "rb") as f:
-        head = f.read(24)
-    return struct.unpack(">II", head[16:24])
-
-
 def write_episode(root: str, rows: int, memories: int, height: int, width: int, seed: int, dev) -> float:
     """A synthetic episode in the dataset's layout, written with the port's PNG
     writer: `rows` panoramas (smooth seeded colour fields with a little noise),
@@ -1176,26 +1178,28 @@ def write_checkpoints(root: str, config, dev, seed: int):
     return pipe, vggt, nbytes, seconds
 
 
-def same_parameters(loaded, source, cut_conv_in: bool = False) -> bool:
-    """Every tensor of `loaded`'s state dict equals `source`'s (conv_in: the
-    first 8 input channels equal and the rest zero, with `cut_conv_in`)."""
+def same_parameters(loaded, src: dict, cut_conv_in: bool = False) -> bool:
+    """Every tensor of `loaded`'s state dict equals the state dict `src`'s, cast
+    to its dtype (conv_in: the first 8 input channels equal and the rest zero,
+    with `cut_conv_in`, where `src` holds the full or the cut weight)."""
     import torch
 
-    src = source.state_dict()
     for name, t in loaded.state_dict().items():
-        want = src[name]
+        want = src[name].to(t.device, t.dtype)
         if cut_conv_in and name == "conv_in.weight":
             if not (torch.equal(t[:, :8], want[:, :8]) and not t[:, 8:].any()):
                 return False
-        elif not torch.equal(t, want.to(t.dtype)):
+        elif not torch.equal(t, want):
             return False
     return set(src) == set(loaded.state_dict())
 
 
-def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
+def full_cli(dev, steps: int, seed: int, overrides: tuple = (), workdir: str | None = None) -> dict:
     """The production CLIs at full width from checkpoint directories: a
     synthetic 1024x576 episode (97 panoramas, 24 memory renders) and
-    full-width random checkpoints written to a temporary directory, then
+    full-width random checkpoints written to `workdir` (`episode_000/`,
+    `svd/`, the CLIs' output under `out/`; a temporary directory where none
+    is given), then
     `cli.run_single_segment.main` and `cli.run_unified.main` (N steps, bf16,
     on the card, no random fallback). Checks that the loaded parameters equal
     the written ones, the PNGs' counts and sizes, the flash launches (5N + 18
@@ -1203,6 +1207,7 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
     that the writer thread's encode overlapped the card's compute (it was
     busy longer than the episode waited for it at the end). `overrides`
     (CLI flags) cut the configuration down for a rehearsal off the card."""
+    import contextlib
     import os
     import tempfile
 
@@ -1210,6 +1215,7 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
 
     from evoworld_tpu_torch.cli import run_single_segment, run_unified
     from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.data.native_io import png_size
     from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
     from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
     from evoworld_tpu_torch.runtime import VGGT_PRESETS
@@ -1229,7 +1235,8 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
             return captured[name]
         return build, wrapped
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp = workdir or stack.enter_context(tempfile.TemporaryDirectory())
         episode, ckpt = os.path.join(tmp, "episode_000"), os.path.join(tmp, "svd")
         episode_s = write_episode(episode, rows, loop_cfg.num_target_view, height, width, seed, dev)
         src_pipe, src_vggt, ckpt_bytes, write_s = write_checkpoints(ckpt, config, dev, seed)
@@ -1247,8 +1254,8 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
         sync()
         single_launches = [flash_attention.launches, flash_attention_backward.launches]
         loaded = captured.pop("build_pipeline")
-        pipeline_equal = {name: same_parameters(getattr(loaded, name), getattr(src_pipe, name), name == "unet")
-                          for name in ("unet", "vae", "clip_tower")}
+        pipeline_equal = {name: same_parameters(getattr(loaded, name), getattr(src_pipe, name).state_dict(),
+                                                name == "unet") for name in ("unet", "vae", "clip_tower")}
         del loaded, src_pipe
         if on_card:
             torch.cuda.empty_cache()
@@ -1262,12 +1269,12 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
             run_unified.build_reconstructor = original
         sync()
         unified_launches = [flash_attention.launches, flash_attention_backward.launches]
-        vggt_equal = same_parameters(captured.pop("build_reconstructor").model, src_vggt)
+        vggt_equal = same_parameters(captured.pop("build_reconstructor").model, src_vggt.state_dict())
         del src_vggt
 
-        def pngs(out_dir, sub):
+        def pngs(out_dir, sub):  # the count and the (width, height) of the PNGs
             names = sorted(os.listdir(os.path.join(out_dir, sub)))
-            return len(names), sorted({png_size(os.path.join(out_dir, sub, n)) for n in names})
+            return len(names), sorted({png_size(os.path.join(out_dir, sub, n))[::-1] for n in names})
 
         f, t = loop_cfg.num_frames, loop_cfg.num_target_view
         want = {"predictions": (f, [(width, height)]), "predictions_gt": (f, [(width, height)])}
@@ -1282,6 +1289,7 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
     expected_loop = expected_loop_launches(steps, loop_cfg, vggt_config, FLASH_MIN_SEQ) if on_card else 0
     expected_single = 5 * steps + 18 if on_card else 0  # CPU tensors take the plain versions
     result.update(
+        out_dir=unified["out_dir"],
         single=dict(load_s=single["load_s"], host_decode_s=single["host_decode_s"], generate_s=single["generate_s"],
                     host_save_s=single["host_save_s"], launches=single_launches, expected=[expected_single, 0],
                     parameters_equal=pipeline_equal, pngs=got),
@@ -1305,6 +1313,474 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = ()) -> dict:
                              f"expected {[expected_single, 0]} and {[expected_loop, 0]}")
     if not unified["writer_busy_s"] > unified["writer_wait_s"]:
         raise AssertionError(f"the writer's encode did not overlap the compute: {result['unified']}")
+    return result
+
+
+def gif_summary(path: str) -> dict:
+    """Walk a GIF's blocks (no decoding): the logical screen's (width,
+    height), each image's (width, height), each graphic control extension's
+    delay in hundredths of a second, and the NETSCAPE loop count (None if
+    absent). Raises ValueError on a malformed block structure."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError(f"{path} is not a GIF")
+    screen = struct.unpack("<HH", data[6:10])
+    pos = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    frames, delays, loop = [], [], None
+    while True:
+        if pos >= len(data):
+            raise ValueError(f"{path} ends without a trailer")
+        tag = data[pos]
+        if tag == 0x3B:
+            break
+        if tag == 0x21:
+            label = data[pos + 1]
+            if label == 0xF9:
+                delays.append(struct.unpack("<H", data[pos + 4 : pos + 6])[0])
+            elif label == 0xFF and data[pos + 3 : pos + 14] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", data[pos + 16 : pos + 18])[0]
+            pos = skip_sub_blocks(pos + 2)
+        elif tag == 0x2C:
+            frames.append(struct.unpack("<HH", data[pos + 5 : pos + 9]))
+            packed = data[pos + 9]
+            pos += 10 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)  # the LZW minimum code size, then the data
+        else:
+            raise ValueError(f"{path}: unexpected block 0x{tag:02x} at byte {pos}")
+    return dict(screen=screen, frames=frames, delays_cs=delays, loop=loop)
+
+
+class TrainProbe:
+    """Measures `train` (phase 8, and the training CLI's) through the
+    trainer's own seams while `installed`: at each tracker row (one a step
+    at `log_steps` = 1) the flash launches since the last reading and the
+    peak memory (then reset); each checkpoint save's step and seconds;
+    around each `run_validation` its launches, peak memory and seconds; the
+    step each run resumed from."""
+
+    def __init__(self, dev, counters):
+        self.dev, self.counters = dev, counters
+        self.steps, self.saves, self.validations, self.resumed = [], [], [], []
+        self.last = self._counts()
+
+    def _counts(self):
+        return [c.launches for c in self.counters]
+
+    def _since_last(self):
+        counts = self._counts()
+        diff = [a - b for a, b in zip(counts, self.last)]
+        self.last = counts
+        return diff
+
+    def _peak(self):
+        import torch
+
+        if self.dev.type != "cuda":
+            return None
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        return peak
+
+    @contextlib.contextmanager
+    def installed(self):
+        """The trainer's tracker, checkpoint manager and `run_validation`
+        replaced by measuring ones inside, the originals back after."""
+        from evoworld_tpu_torch.train import trainer
+
+        probe, originals = self, (trainer.JSONLTracker, trainer.CheckpointManager, trainer.run_validation)
+
+        class Tracker(trainer.JSONLTracker):
+            def log(self, step, scalars):
+                super().log(step, scalars)
+                fwd, bwd = probe._since_last()
+                probe.steps.append(dict(step=int(step), fwd_launches=fwd, bwd_launches=bwd,
+                                        peak_memory_bytes=probe._peak()))
+
+        class Checkpoints(trainer.CheckpointManager):
+            def save(self, step, state, ema=None):
+                t0 = time.perf_counter()
+                super().save(step, state, ema)
+                probe.saves.append(dict(step=int(step), seconds=time.perf_counter() - t0))
+
+            def restore(self, step, state):
+                probe.resumed.append(int(step))
+                return super().restore(step, state)
+
+        def run_validation(*args):
+            probe._since_last()
+            probe._peak()
+            t0 = time.perf_counter()
+            originals[2](*args)
+            fwd, bwd = probe._since_last()
+            probe.validations.append(dict(seconds=time.perf_counter() - t0, fwd_launches=fwd, bwd_launches=bwd,
+                                          peak_memory_bytes=probe._peak()))
+
+        trainer.JSONLTracker, trainer.CheckpointManager, trainer.run_validation = Tracker, Checkpoints, run_validation
+        try:
+            yield self
+        finally:
+            trainer.JSONLTracker, trainer.CheckpointManager, trainer.run_validation = originals
+
+
+def full_train_cli(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -> dict:
+    """Phase 12: `cli.train.main` at full width on phase 11's episode and
+    checkpoint directories (`workdir`): 2 steps with EMA, a checkpoint and a
+    validation clip at step 2 (N denoise steps), then a resume to step 3.
+    Checks the flash launches of each step (`expected_train_launches`) and of
+    the validation clip (5N + 18), finite losses and gradient norms, the
+    loaded models against the files, the GIF's blocks (frames of H x 2W),
+    the logged val_psnr / val_ssim against `eval.metrics` on the CPU, that
+    the clip rendered with the step-2 checkpoint's EMA (not its raw
+    parameters), and that the resumed run started at step 2 and carried the
+    checkpoint's EMA one step on (`TrainProbe` reads the steps, saves,
+    validation and resume). Returns the seconds, bytes and peak memory it read, and the
+    validation clip (frames and GT, [0, 1]) for phase 13."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.cli import train as train_cli
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.data.dataset import EpisodeDataset
+    from evoworld_tpu_torch.eval.metrics import batch_video_metrics
+    from evoworld_tpu_torch.models.weights import load_safetensors_dir
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from evoworld_tpu_torch.runtime import PRESETS
+
+    episode, ckpt, out = (os.path.join(workdir, d) for d in ("episode_000", "svd", "train"))
+    argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={ckpt}", "--runtime.allow_random_weights=false",
+            f"--runtime.save_dir={out}", f"--runtime.seed={seed}", f"--pipeline.num_steps={steps}",
+            "--train.warmup_steps=1", "--trainer.checkpointing_steps=2", "--trainer.validation_steps=2",
+            "--trainer.use_ema=true", "--trainer.log_steps=1", *overrides]
+    config = apply_overrides(EvoWorldConfig(), argv)
+    pc, on_card = config.pipeline, dev.type == "cuda"
+    loaded_equal, clips, rendered_with = {}, [], []
+    build = train_cli.build_trainer
+    navigator = train_cli.Navigator
+
+    def checked_build(*args, **kwargs):
+        models = build(*args, **kwargs)
+        for sub, model in zip(("unet", "vae", "image_encoder"), models):
+            loaded_equal.setdefault(sub, []).append(
+                same_parameters(model, load_safetensors_dir(os.path.join(ckpt, sub)), sub == "unet"))
+        return models
+
+    class Capturing(navigator):
+        def generate_segment(self, *args, **kwargs):
+            # The first, middle and last trainable parameters the clip renders with.
+            trainable = [(n, p) for n, p in self.pipeline.unet.unet.named_parameters() if p.requires_grad]
+            rendered_with.append({n: p.detach().cpu().clone()
+                                  for n, p in (trainable[0], trainable[len(trainable) // 2], trainable[-1])})
+            clips.append(super().generate_segment(*args, **kwargs))
+            return clips[-1]
+
+    if on_card:
+        torch.cuda.empty_cache()
+    free = shutil.disk_usage(workdir).free
+    probe = TrainProbe(dev, (flash_attention, flash_attention_backward))
+    train_cli.build_trainer, train_cli.Navigator = checked_build, Capturing
+    runs = []
+    try:
+        with probe.installed():
+            for total in (2, 3):
+                flash_attention.launches = flash_attention_backward.launches = 0
+                probe.last = probe._counts()
+                t0 = time.perf_counter()
+                state = train_cli.main([*argv, f"--train.total_steps={total}"], device=dev)
+                if on_card:
+                    torch.cuda.synchronize()
+                runs.append(dict(total_steps=total, seconds=time.perf_counter() - t0, final_step=state.step,
+                                 launches=[flash_attention.launches, flash_attention_backward.launches]))
+                if total == 2:
+                    ckpt2_bytes = os.path.getsize(os.path.join(out, "checkpoints", "2.pt"))
+                del state
+    finally:
+        train_cli.build_trainer, train_cli.Navigator = build, navigator
+    if on_card:
+        torch.cuda.empty_cache()
+
+    with open(os.path.join(out, "train_metrics.jsonl")) as f:
+        tracked = [json.loads(line) for line in f]
+    with open(os.path.join(out, "validation_metrics.jsonl")) as f:
+        val_rows = [json.loads(line) for line in f]
+    gif = os.path.join(out, "validation_000002.gif")
+    summary = gif_summary(gif)
+    ckpts = {s: torch.load(os.path.join(out, "checkpoints", f"{s}.pt"), map_location="cpu", weights_only=True,
+                           mmap=True) for s in (2, 3)}
+    decay = config.trainer.ema_decay
+    ema_carried = all(torch.equal(e, (ckpts[2]["ema"][n].float() * decay
+                                      + ckpts[3]["params"][n].float() * (1 - decay)).to(e.dtype))
+                      for n, e in ckpts[3]["ema"].items())
+    # Validation rendered with the step-2 checkpoint's EMA, not its raw parameters.
+    rendered_ema = len(rendered_with) == 1 and all(torch.equal(p, ckpts[2]["ema"][n]) for n, p in rendered_with[0].items())
+    rendered_raw = [torch.equal(p, ckpts[2]["params"][n]) for n, p in rendered_with[0].items()] if rendered_with else []
+    sample = EpisodeDataset(episode, height=pc.height, width=pc.width, sequence_length=config.data.sequence_length,
+                            sampling=config.data.sampling, single_episode=True)[0]
+    frames = clips[0].float().cpu()
+    gt = np.clip(sample.pixel_values[: frames.shape[0]] / 2 + 0.5, 0, 1)
+    cpu_scores = batch_video_metrics(frames[None], torch.from_numpy(gt[None]))
+    del ckpts
+
+    layers = PRESETS[config.runtime.model_preset][0].layers_per_block
+    expected_step = expected_train_launches(pc.num_frames, config.train.vae_encode_chunk, layers) \
+        if on_card else (0, 0)  # CPU tensors take the plain versions
+    expected_val = (5 * steps + 18, 0) if on_card else (0, 0)
+    result = dict(
+        runs=runs, steps=probe.steps, tracked=tracked, saves=probe.saves, validations=probe.validations,
+        resumed_from=probe.resumed, loaded_equal=loaded_equal, checkpoint_bytes=ckpt2_bytes, tmp_free_bytes=free,
+        gif=dict(path_bytes=os.path.getsize(gif), screen=summary["screen"], frames=len(summary["frames"]),
+                 frame_sizes=sorted(set(summary["frames"])), delays_cs=sorted(set(summary["delays_cs"])),
+                 loop=summary["loop"]),
+        val_psnr=val_rows[0].get("val_psnr"), val_ssim=val_rows[0].get("val_ssim"),
+        cpu_psnr=cpu_scores["psnr"], cpu_ssim=cpu_scores["ssim"], ema_carried=ema_carried,
+        validated_with_ema=rendered_ema, validated_params_equal_raw=rendered_raw,
+        expected_step_launches=list(expected_step), expected_validation_launches=list(expected_val),
+        sec_per_step=[r["sec_per_step"] for r in tracked])
+    log("train cli " + json.dumps({k: v for k, v in result.items() if k != "tracked"}))
+    if [r["step"] for r in tracked] != [1, 2, 3] or [r["step"] for r in probe.steps] != [1, 2, 3]:
+        raise AssertionError(f"the tracker logged steps {[r['step'] for r in tracked]}, expected 1, 2, 3")
+    if any((r["fwd_launches"], r["bwd_launches"]) != tuple(expected_step) for r in probe.steps):
+        raise AssertionError(f"steps launched {probe.steps}, expected {list(expected_step)} each")
+    if len(probe.validations) != 1 or (probe.validations[0]["fwd_launches"],
+                                       probe.validations[0]["bwd_launches"]) != expected_val:
+        raise AssertionError(f"validation launched {probe.validations}, expected one with {list(expected_val)}")
+    if not all(math.isfinite(r["train_loss"]) and math.isfinite(r["grad_norm"]) for r in tracked):
+        raise AssertionError(f"non-finite loss or gradient norm: {tracked}")
+    if not all(all(v) for v in loaded_equal.values()) or len(loaded_equal["unet"]) != 2:
+        raise AssertionError(f"the loaded models differ from the checkpoint files: {loaded_equal}")
+    want_frames = [(2 * pc.width, pc.height)]
+    if (summary["screen"], len(summary["frames"]), result["gif"]["frame_sizes"], summary["loop"]) != (
+            (2 * pc.width, pc.height), pc.num_frames, want_frames, 0) or result["gif"]["delays_cs"] != [10]:
+        raise AssertionError(f"the validation GIF holds {result['gif']}")
+    vals = (result["val_psnr"], result["val_ssim"])
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals):
+        raise AssertionError(f"validation scores {vals} are not finite")
+    if abs(vals[0] - cpu_scores["psnr"]) > 1e-5 + 2e-6 * abs(cpu_scores["psnr"]) or \
+            abs(vals[1] - cpu_scores["ssim"]) > 1e-5:
+        raise AssertionError(f"validation scores {vals} differ from the CPU's {cpu_scores['psnr']}, "
+                             f"{cpu_scores['ssim']}")
+    if not rendered_ema or all(rendered_raw):
+        raise AssertionError(f"validation did not render with the EMA parameters: equal to the EMA {rendered_ema}, "
+                             f"to the raw parameters {rendered_raw}")
+    if probe.resumed != [2] or [r["final_step"] for r in runs] != [2, 3] or not ema_carried:
+        raise AssertionError(f"the resume did not start at step 2 with the checkpoint's EMA: resumed from "
+                             f"{probe.resumed}, runs {runs}, EMA carried {ema_carried}")
+    result["clip"] = (frames.numpy(), gt)
+    return result
+
+
+def sensitive_metric_net_(model, *inputs) -> dict:
+    """Make a randomly drawn metric net's output depend on its input, as
+    trained weights do, and return its state dict (CPU tensors, without batch
+    norms' counters). Drawn at random, a deep net's output comes from its
+    last biases alone. LPIPS' linear heads become non-negative (the lpips
+    package clamps them so) and of order 1 instead of 1 / sqrt(channels).
+    Each batch norm's shift is raised by 1 (most ReLUs pass) and its
+    statistics are those of a pass over `inputs` in train mode, the
+    variances then raised by a tenth of the layer's mean (no near-constant
+    channel amplifies rounding)."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("lin"):
+                p.abs_().mul_(p.shape[1] ** 0.5)
+        norms = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+        if norms:
+            for m in norms:
+                m.bias += 1.0
+                m.reset_running_stats()
+                m.momentum = None  # a cumulative average: one pass gives that pass's statistics
+            model.train()(*inputs)
+            for m in norms:
+                m.momentum = 0.1
+                m.running_var += 0.1 * m.running_var.mean()
+        model.eval()
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+
+
+def sensitive_metric_weights(gen, gt, dev, i3d_size: int = 224) -> dict:
+    """{"lpips" | "inception_v4" [| "i3d"]: state dict}: the harness's
+    random nets (seeded 0) made sensitive, on `dev`, to the (N, F, H, W, 3)
+    [0, 1] videos they will score as the harness preprocesses them; I3D only
+    where the videos are long enough for FVD."""
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.eval import harness
+    from evoworld_tpu_torch.eval.feature_nets import i3d_preprocess
+    from evoworld_tpu_torch.eval.metrics import full_fp32
+
+    nets = harness.FeatureNets(device=dev)
+    videos = torch.from_numpy(np.concatenate([gen, gt])).to(dev)
+    inputs = {"lpips": lambda: (), "inception_v4": lambda: (harness._inception_preprocess(videos.flatten(0, 1)),)}
+    if videos.shape[1] >= 10:
+        inputs["i3d"] = lambda: (i3d_preprocess(videos, i3d_size),)
+    with full_fp32():
+        return {name: sensitive_metric_net_(nets.net(name), *make()) for name, make in inputs.items()}
+
+
+def full_eval(dev, workdir: str, cli_out: str, clip, overrides: tuple = ()) -> dict:
+    """Phase 13: the evaluation CLIs on the card with TF32 switched on (the
+    harness must keep its own fp32). `calculate_metrics.main` scores three
+    episodes laid out under `<workdir>/eval` from phases 11 and 12 (the last
+    segment of `run_unified`, the clip of `run_single_segment`, the
+    validation clip against its GT) with metric nets made sensitive to the
+    first 2 episodes' last 10 frames (`sensitive_metric_weights`, loaded by
+    the CLI from `--runtime.metric_weights_dir`); then those frames are
+    scored on the card one metric at a time, each timed (its net built
+    first), each feature metric above EVAL_FEATURE_FLOOR, and held against
+    `calculate_all_metrics` of the same frames on the CPU (SSIM within 1e-5,
+    PSNR within 1e-5 + 2e-6 relative, the feature metrics within
+    EVAL_FEATURE_RTOL relative), the errors with the harness's guard made to
+    do nothing reported beside them; `calculate_dreamsim.main` scores a pair
+    in both variants on the card and on the CPU (above EVAL_FEATURE_FLOOR,
+    within DREAMSIM_ATOL). No flash kernel may launch."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.cli import calculate_dreamsim, calculate_metrics
+    from evoworld_tpu_torch.cli.common import save_frames
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.eval import harness
+    from evoworld_tpu_torch.eval import metrics as metrics_module
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    config = apply_overrides(EvoWorldConfig(), list(overrides))
+    last = config.loop.num_segments - 1
+    root = os.path.join(workdir, "eval")
+    layout = {"episode_000": (f"predictions_{last}", f"predictions_gt_{last}"),
+              "episode_001": ("predictions", "predictions_gt")}
+    for name, (gen_dir, gt_dir) in layout.items():
+        os.makedirs(os.path.join(root, name))
+        os.symlink(os.path.join(cli_out, gen_dir), os.path.join(root, name, "predictions_2"))
+        os.symlink(os.path.join(cli_out, gt_dir), os.path.join(root, name, "predictions_gt_2"))
+    save_frames(clip[0], os.path.join(root, "episode_002", "predictions_2"))
+    save_frames(clip[1], os.path.join(root, "episode_002", "predictions_gt_2"))
+    videos = {sub: [calculate_metrics.read_video_dir(os.path.join(root, e, sub), config.pipeline.num_frames)
+                    for e in sorted(os.listdir(root)) if e.startswith("episode_")]
+              for sub in ("predictions_2", "predictions_gt_2")}
+    n = min(v.shape[0] for vs in videos.values() for v in vs)  # as the CLI cuts them
+    gen, gt = (np.stack([v[-n:] for v in videos[sub]]) for sub in ("predictions_2", "predictions_gt_2"))
+    cut_gen, cut_gt = gen[:2, -10:], gt[:2, -10:]  # what the card and the CPU both score
+    t0 = time.perf_counter()
+    weights = sensitive_metric_weights(cut_gen, cut_gt, dev)
+    weights_dir = os.path.join(workdir, "metric_weights")
+    os.makedirs(weights_dir)
+    for name, sd in weights.items():
+        torch.save(sd, os.path.join(weights_dir, f"{name}.pt"))
+    weights_s = time.perf_counter() - t0
+    argv = [f"--data.root={root}", f"--pipeline.num_frames={config.pipeline.num_frames}",
+            f"--runtime.metric_weights_dir={weights_dir}"]
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    flash_attention.launches = flash_attention_backward.launches = 0
+    try:
+        t0 = time.perf_counter()
+        scores = calculate_metrics.main(argv, device=dev)
+        sync()
+        cli_s = time.perf_counter() - t0
+        nets = harness.FeatureNets(weights, device=dev)
+        for name in weights:  # built before the timing
+            nets.net(name)
+        metrics = {"fvd": lambda: harness.calculate_fvd_batch(cut_gen, cut_gt, nets)} if n >= 10 else {}
+        metrics.update(
+            ssim=lambda: harness.calculate_ssim(cut_gen, cut_gt, dev),
+            psnr=lambda: harness.calculate_psnr(cut_gen, cut_gt, dev),
+            lpips=lambda: harness.calculate_lpips(cut_gen, cut_gt, nets),
+            latent_mse=lambda: harness.calculate_latent_mse(cut_gen, cut_gt, nets),
+            loop_closure_latent_mse=lambda: harness.calculate_latent_mse(cut_gen[:, -1:], cut_gt[:, -1:], nets))
+        on_dev, metric_s = {}, {}  # calculate_all_metrics' result, one timed metric at a time
+        for name, fn in metrics.items():
+            sync()
+            t0 = time.perf_counter()
+            on_dev[name] = fn()
+            sync()
+            metric_s[name] = time.perf_counter() - t0
+        # What the harness's own fp32 buys: every metric again with its guard
+        # (`full_fp32`) made to do nothing, so the caller's TF32 reaches it.
+        # Reported beside the guarded errors, not checked.
+        guard = metrics_module.full_fp32, harness.full_fp32
+        metrics_module.full_fp32 = harness.full_fp32 = contextlib.nullcontext
+        try:
+            unguarded = {name: fn() for name, fn in metrics.items()}
+        finally:
+            metrics_module.full_fp32, harness.full_fp32 = guard
+        pair = (os.path.join(root, "episode_000", "predictions_2", sorted(os.listdir(
+            os.path.join(root, "episode_000", "predictions_2")))[0]),
+            os.path.join(root, "episode_000", "predictions_gt_2", sorted(os.listdir(
+                os.path.join(root, "episode_000", "predictions_gt_2")))[0]))
+        dreamsim = {}
+        for variant in ("dino_vitb16", "ensemble"):
+            t0 = time.perf_counter()
+            got = calculate_dreamsim.main([f"--data.root={pair[0]}:{pair[1]}", f"--runtime.dreamsim_variant={variant}"],
+                                          device=dev)
+            sync()
+            dreamsim[variant] = dict(score=got["dreamsim"], weights=got["weights"], seconds=time.perf_counter() - t0)
+        sync()
+        launches = [flash_attention.launches, flash_attention_backward.launches]
+        flags_kept = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    on_cpu = harness.calculate_all_metrics(cut_gen, cut_gt, nets=harness.FeatureNets(weights, device="cpu"))
+    for variant in dreamsim:
+        dreamsim[variant]["cpu_score"] = calculate_dreamsim.main(
+            [f"--data.root={pair[0]}:{pair[1]}", f"--runtime.dreamsim_variant={variant}"], device="cpu")["dreamsim"]
+
+    def worst_rel(got, ref):
+        return max(abs(got["value"][t] - ref["value"][t]) / max(abs(ref["value"][t]), 1e-30) for t in ref["value"])
+
+    compared = {}
+    for metric, ref in on_cpu.items():
+        got = on_dev[metric]
+        compared[metric] = dict(card=got["value_mean"], cpu=ref["value_mean"], worst_rel_err=worst_rel(got, ref),
+                                max_abs_err=max(abs(got["value"][t] - ref["value"][t]) for t in ref["value"]),
+                                unguarded_worst_rel_err=worst_rel(unguarded[metric], ref))
+    result = dict(cli_seconds=cli_s, weights_seconds=weights_s, videos=list(gen.shape), timed_videos=list(cut_gen.shape),
+                  metric_seconds=metric_s, launches=launches,
+                  scores={k: v["value_mean"] for k, v in scores.items() if isinstance(v, dict)},
+                  weights={k: v.get("weights") for k, v in scores.items() if isinstance(v, dict)},
+                  compared=compared, dreamsim=dreamsim, tf32_flags_kept=flags_kept)
+    log("eval " + json.dumps(result))
+    want = {"ssim", "psnr", "lpips", "latent_mse", "loop_closure_latent_mse"} | ({"fvd"} if n >= 10 else set())
+    if set(result["scores"]) != want or not all(math.isfinite(v) for v in result["scores"].values()):
+        raise AssertionError(f"eval_score.json holds {result['scores']}, expected finite {sorted(want)}")
+    if set(on_cpu) != set(on_dev):
+        raise AssertionError(f"card and CPU results differ in keys: {sorted(on_dev)} and {sorted(on_cpu)}")
+    unresolved = {k: v for k, v in result["scores"].items()
+                  if k in ("fvd", "lpips", "latent_mse", "loop_closure_latent_mse") and abs(v) <= EVAL_FEATURE_FLOOR}
+    if unresolved or set(result["weights"].values()) != {None, "converted"}:
+        raise AssertionError(f"feature metrics {unresolved} are not above {EVAL_FEATURE_FLOOR}, or the nets were "
+                             f"not the sensitive ones ({result['weights']})")
+    for metric, c in compared.items():
+        if metric == "ssim":
+            ok = c["max_abs_err"] <= 1e-5
+        elif metric == "psnr":
+            ok = all(abs(on_dev[metric]["value"][t] - v) <= 1e-5 + 2e-6 * abs(v)
+                     for t, v in on_cpu[metric]["value"].items())
+        else:
+            ok = c["worst_rel_err"] <= EVAL_FEATURE_RTOL
+        if not ok:
+            raise AssertionError(f"{metric} on the card differs from the CPU: {c}")
+    for variant, d in dreamsim.items():
+        if not (d["score"] > EVAL_FEATURE_FLOOR and abs(d["score"] - d["cpu_score"]) <= DREAMSIM_ATOL):
+            raise AssertionError(f"dreamsim {variant} on the card {d['score']} differs from the CPU {d['cpu_score']}")
+    if launches != [0, 0] or not flags_kept:
+        raise AssertionError(f"the evaluation launched the flash kernels {launches} times or changed the caller's "
+                             f"TF32 flags ({flags_kept})")
     return result
 
 
@@ -1400,9 +1876,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_loop_against_cpu(dev, SEED)
     loop_run = full_loop(dev, STEPS, SEED)
-    t0 = time.perf_counter()
-    cli_run = full_cli(dev, STEPS, SEED)
-    log(f"cli phase wall seconds {time.perf_counter() - t0:.3f}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:  # phases 11-13 share it
+        t0 = time.perf_counter()
+        cli_run = full_cli(dev, STEPS, SEED, workdir=workdir)
+        log(f"cli phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        train_cli_run = full_train_cli(dev, STEPS, SEED, workdir)
+        log(f"train cli phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        eval_run = full_eval(dev, workdir, cli_run["out_dir"], train_cli_run.pop("clip"))
+        log(f"eval phase wall seconds {time.perf_counter() - t0:.3f}")
+    torch.cuda.empty_cache()
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
     train_run = full_train(dev, TRAIN_STEPS, SEED)
@@ -1413,6 +1897,7 @@ def main() -> int:
     d512_row = next(r for r in flash_bwd["shapes"] if r["label"] == "vae_mid_d512")
     d128_row = next(r for r in flash_bwd["shapes"] if r["label"] == "head_dim_128")
     fwd_total, bwd_total = train_run["summary"]["launches_total"]
+    cli_train = [sum(r["launches"][i] for r in train_cli_run["runs"]) for i in (0, 1)]
     kernels = [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -1423,7 +1908,8 @@ def main() -> int:
         "launches_by_path": {"loop": loop_run["flash_launches"], "train_steps": fwd_total,
                              "clip": runs[-1]["flash_launches"], "vae_mid_gradient": vae_grad["launches_fwd_bwd"][0],
                              "cli_single_segment": cli_run["single"]["launches"][0],
-                             "cli_unified": cli_run["unified"]["launches"][0]},
+                             "cli_unified": cli_run["unified"]["launches"][0],
+                             "cli_train": cli_train[0], "eval": eval_run["launches"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in flash["shapes"]),
         "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"],
@@ -1447,7 +1933,8 @@ def main() -> int:
         "launches_by_path": {"train_steps": bwd_total, "clip": 0, "loop": loop_run["bwd_launches"],
                              "vae_mid_gradient": vae_grad["launches_fwd_bwd"][1],
                              "cli_single_segment": cli_run["single"]["launches"][1],
-                             "cli_unified": cli_run["unified"]["launches"][1]},
+                             "cli_unified": cli_run["unified"]["launches"][1],
+                             "cli_train": cli_train[1], "eval": eval_run["launches"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"]),
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],

@@ -6,7 +6,8 @@ torch, numpy and the standard library only; it never imports JAX or
 `evoworld_tpu`.
 
 Layer map (bottom-up), the slices ported so far (one clip; EDM fine-tuning;
-the evolving-memory loop):
+the evolving-memory loop; the production CLIs; the training CLI and
+evaluation):
   geometry/   camera poses, equirectangular and pinhole ray grids, Pluecker
               embeddings, spherical resampling, similarity alignment
   ops/        attention dispatch, the hand-written Hopper flash-attention
@@ -19,10 +20,16 @@ the evolving-memory loop):
   diffusion/  Euler/Karras scheduler, EDM helpers, the single-clip pipeline
   memory/     the point-cloud confidence filter, memory panorama rendering
   loop/       the navigator and the evolving-memory loop (UnifiedLoop)
-  data/, utils/  camera poses, batch prefetching, the JSONL metrics tracker
-  train/      the EDM loss, optimizer and step; the training loop
+  data/, utils/  camera poses, episodes, image IO (PNG, JPEG, GIF), batch
+              prefetching, the JSONL metrics tracker, GIF export
+  train/      the EDM loss, optimizer and step; the training loop with its
+              validation hook
+  eval/       PSNR, SSIM, Frechet distance; LPIPS, Inception-v4, I3D and
+              DreamSim nets under upstream names; the reference-format harness
   runtime.py  build_pipeline, build_trainer and build_reconstructor: the
               entry points
+  cli/        run_unified, run_single_segment, train, calculate_metrics,
+              calculate_dreamsim
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without a
 card they raise instead of falling back.

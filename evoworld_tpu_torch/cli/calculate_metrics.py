@@ -1,0 +1,98 @@
+"""Metric aggregation over prediction directories -> eval_score.json
+(counterpart of `evoworld_tpu/cli/calculate_metrics.py`).
+
+Loads the last `pipeline.num_frames` PNGs of each episode's generated and
+GT directories (through the port's C++ decoder, `data/native_io.py`),
+computes fvd / ssim / psnr / lpips / latent_mse / loop_closure_latent_mse in
+the reference's result structure (`eval/harness.py`) and writes
+`<data.root>/eval_score.json`; prints a one-line JSON summary.
+
+Feature-net weights: `--runtime.metric_weights_dir=<dir>` holding any of
+lpips.pt / inception_v4.pt / i3d.pt (or i3d_torchscript.pt), upstream torch
+state dicts; a net without weights draws its own at random and is tagged
+`"weights": "random_seed0_torch"` (comparable across the port's runs only).
+
+Usage (on the card):
+  python -m evoworld_tpu_torch.cli.calculate_metrics --data.root=<save_dir> \\
+      --data.sampling=predictions_2:predictions_gt_2
+  (`data.sampling` doubles as "<generated subdir>:<GT subdir>")
+
+From Python, `main(argv, device="cpu")` runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from evoworld_tpu_torch.cli.common import logger, parse_config
+from evoworld_tpu_torch.data.native_io import load_image_batch, png_size
+from evoworld_tpu_torch.device import resolve_device
+from evoworld_tpu_torch.eval.harness import FeatureNets, calculate_all_metrics
+from evoworld_tpu_torch.eval.weights import load_metric_weights
+
+
+def read_video_dir(path: str, num_frames: int) -> np.ndarray:
+    """The last `num_frames` PNGs of a directory (sorted by name) ->
+    (N, H, W, 3) float32 in [0, 1]; the frames must share one size."""
+    names = sorted(f for f in os.listdir(path) if f.lower().endswith(".png"))[-num_frames:]
+    paths = [os.path.join(path, n) for n in names]
+    sizes = {png_size(p) for p in paths}
+    if len(sizes) != 1:
+        raise ValueError(f"{path}: frames of sizes {sorted(sizes)}; need one size")
+    (h, w), = sizes
+    return load_image_batch(paths, h, w, minus1_1=False)
+
+
+def main(argv=None, device: str | torch.device = "cuda") -> dict:
+    """Run the CLI; returns the scores written to eval_score.json."""
+    config = parse_config(argv, __doc__)
+    dev = resolve_device(device)
+    root = config.data.root
+    spec = config.data.sampling
+    gen_subdir, gt_subdir = (spec.split(":") + ["predictions_gt_2"])[:2] if ":" in spec \
+        else ("predictions_2", "predictions_gt_2")
+    num_frames = config.pipeline.num_frames
+
+    episodes = sorted(e for e in os.listdir(root) if os.path.isdir(os.path.join(root, e, gen_subdir)))
+    if not episodes and os.path.isdir(os.path.join(root, gen_subdir)):
+        episodes = [""]
+    if not episodes:
+        raise SystemExit(f"no episodes with {gen_subdir} under {root}")
+
+    gen = [read_video_dir(os.path.join(root, e, gen_subdir), num_frames) for e in episodes]
+    gt = [read_video_dir(os.path.join(root, e, gt_subdir), num_frames) for e in episodes]
+    n_frames = min(min(v.shape[0] for v in gen), min(v.shape[0] for v in gt))
+    gen = np.stack([v[-n_frames:] for v in gen])
+    gt = np.stack([v[-n_frames:] for v in gt])
+    logger.info(f"{len(episodes)} episodes, videos {gen.shape}")
+
+    nets = FeatureNets(load_metric_weights(config.runtime.metric_weights_dir), device=dev)
+    scores = calculate_all_metrics(gen, gt, nets=nets)
+    scores["num_videos"] = int(gen.shape[0])
+
+    out_path = os.path.join(root, "eval_score.json")
+    with open(out_path, "w") as f:
+        json.dump(scores, f, indent=2)
+    logger.info(
+        f"wrote {out_path}: psnr={scores['psnr']['value_mean']:.3f} "
+        f"ssim={scores['ssim']['value_mean']:.4f} "
+        f"lpips={scores['lpips']['value_mean']:.4f} "
+        f"latent_mse={scores['latent_mse']['value_mean']:.5f}"
+    )
+    print(json.dumps({
+        "psnr": scores["psnr"]["value_mean"],
+        "ssim": scores["ssim"]["value_mean"],
+        "lpips": scores["lpips"]["value_mean"],
+        "latent_mse": scores["latent_mse"]["value_mean"],
+        "loop_closure_latent_mse": scores["loop_closure_latent_mse"]["value_mean"],
+        **({"fvd": scores["fvd"]["value_mean"]} if "fvd" in scores else {}),
+    }))
+    return scores
+
+
+if __name__ == "__main__":
+    main()

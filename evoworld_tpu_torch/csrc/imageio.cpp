@@ -1022,6 +1022,231 @@ void parallel_for(int n, int n_threads, Job job) {
   for (auto& t : threads) t.join();
 }
 
+// ---------------------------------------------------------------------------
+// GIF: an animated GIF89a of uint8 RGB frames (the validation side-by-sides),
+// where the JAX package calls PIL. Each frame gets its own 256-colour
+// palette: a histogram of the frame at 6 bits a channel, a median cut over
+// its occupied cells (the box of largest count-weighted variance is split at
+// the weighted median of its widest axis, 256 boxes), then kLloydPasses
+// k-means passes over the cells weighted by their pixel counts; every pixel
+// takes the entry nearest its cell's mean colour. No dithering, no frame
+// differencing (each frame is whole), so the bytes are not PIL's; the
+// encoder is held by decoding (tests/test_torch_port_train_cli.py).
+namespace gif {
+
+constexpr int kCellBits = 6;
+constexpr int kCells = 1 << (3 * kCellBits);
+constexpr int kLloydPasses = 4;
+
+inline int cell_of(const uint8_t* p) {
+  constexpr int s = 8 - kCellBits;
+  return ((p[0] >> s) << (2 * kCellBits)) | ((p[1] >> s) << kCellBits) | (p[2] >> s);
+}
+
+struct Cell {
+  float rgb[3];  // mean colour of the cell's pixels
+  uint32_t n;    // pixel count
+};
+
+inline int nearest(const float* c, const float* palette, int k) {
+  int best = 0;
+  float best_d = 3e38f;
+  for (int j = 0; j < k; ++j) {
+    const float* q = palette + 3 * j;
+    const float d = (c[0] - q[0]) * (c[0] - q[0]) + (c[1] - q[1]) * (c[1] - q[1]) + (c[2] - q[2]) * (c[2] - q[2]);
+    if (d < best_d) best_d = d, best = j;
+  }
+  return best;
+}
+
+// Median cut over cells[begin, end): count-weighted mean colours of up to 256 boxes.
+std::vector<float> median_cut(std::vector<Cell>& cells) {
+  struct Box { size_t begin, end; double score; int axis; };
+  auto measure = [&](Box& b) {
+    double n = 0, s[3] = {0, 0, 0}, ss[3] = {0, 0, 0};
+    for (size_t i = b.begin; i < b.end; ++i) {
+      for (int a = 0; a < 3; ++a) {
+        s[a] += double(cells[i].n) * cells[i].rgb[a];
+        ss[a] += double(cells[i].n) * cells[i].rgb[a] * cells[i].rgb[a];
+      }
+      n += cells[i].n;
+    }
+    b.score = 0, b.axis = 0;
+    double widest = -1;
+    for (int a = 0; a < 3; ++a) {
+      const double var = ss[a] - s[a] * s[a] / n;  // n times the variance
+      b.score += var;
+      if (var > widest) widest = var, b.axis = a;
+    }
+    if (b.end - b.begin < 2) b.score = -1;  // one cell: nothing to split
+  };
+  std::vector<Box> boxes(1, Box{0, cells.size(), 0, 0});
+  measure(boxes[0]);
+  while (boxes.size() < 256) {
+    size_t pick = 0;
+    for (size_t i = 1; i < boxes.size(); ++i) {
+      if (boxes[i].score > boxes[pick].score) pick = i;
+    }
+    Box b = boxes[pick];
+    if (b.score <= 0) break;
+    const int a = b.axis;
+    std::sort(cells.begin() + b.begin, cells.begin() + b.end,
+              [a](const Cell& x, const Cell& y) { return x.rgb[a] < y.rgb[a]; });
+    double total = 0, run = 0;
+    for (size_t i = b.begin; i < b.end; ++i) total += cells[i].n;
+    size_t cut = b.begin + 1;
+    for (size_t i = b.begin; i < b.end - 1; ++i) {
+      run += cells[i].n;
+      cut = i + 1;
+      if (run >= total / 2) break;
+    }
+    Box lo{b.begin, cut, 0, 0}, hi{cut, b.end, 0, 0};
+    measure(lo);
+    measure(hi);
+    boxes[pick] = lo;
+    boxes.push_back(hi);
+  }
+  std::vector<float> palette;
+  for (const Box& b : boxes) {
+    double n = 0, s[3] = {0, 0, 0};
+    for (size_t i = b.begin; i < b.end; ++i) {
+      n += cells[i].n;
+      for (int a = 0; a < 3; ++a) s[a] += double(cells[i].n) * cells[i].rgb[a];
+    }
+    for (int a = 0; a < 3; ++a) palette.push_back(float(s[a] / n));
+  }
+  return palette;
+}
+
+// One frame's palette (768 bytes, `k` entries used) and the index of every pixel.
+void quantize(const uint8_t* rgb, size_t n_px, uint8_t* palette_out, std::vector<uint8_t>& index) {
+  std::vector<uint32_t> count(kCells, 0);
+  std::vector<uint64_t> sum(3 * size_t(kCells), 0);
+  for (size_t i = 0; i < n_px; ++i) {
+    const uint8_t* p = rgb + 3 * i;
+    const int c = cell_of(p);
+    ++count[c];
+    for (int a = 0; a < 3; ++a) sum[3 * size_t(c) + a] += p[a];
+  }
+  std::vector<Cell> cells;
+  std::vector<int> id;  // cell number of cells[i] before the median cut reorders them
+  for (int c = 0; c < kCells; ++c) {
+    if (!count[c]) continue;
+    Cell cell;
+    for (int a = 0; a < 3; ++a) cell.rgb[a] = float(double(sum[3 * size_t(c) + a]) / count[c]);
+    cell.n = count[c];
+    cells.push_back(cell);
+    id.push_back(c);
+  }
+  std::vector<Cell> work = cells;
+  std::vector<float> palette = median_cut(work);
+  const int k = int(palette.size() / 3);
+  for (int pass = 0; pass < kLloydPasses; ++pass) {
+    std::vector<double> acc(4 * size_t(k), 0.0);
+    for (const Cell& cell : cells) {
+      double* a = &acc[4 * size_t(nearest(cell.rgb, palette.data(), k))];
+      for (int j = 0; j < 3; ++j) a[j] += double(cell.n) * cell.rgb[j];
+      a[3] += cell.n;
+    }
+    for (int j = 0; j < k; ++j) {
+      if (acc[4 * j + 3] > 0) {
+        for (int a = 0; a < 3; ++a) palette[3 * j + a] = float(acc[4 * j + a] / acc[4 * j + 3]);
+      }
+    }
+  }
+  memset(palette_out, 0, 768);
+  for (int j = 0; j < 3 * k; ++j) {
+    const float v = palette[j] + 0.5f;
+    palette_out[j] = uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v));
+    palette[j] = palette_out[j];  // pixels map to the colours the file holds
+  }
+  std::vector<uint8_t> of_cell(kCells, 0);
+  for (size_t i = 0; i < cells.size(); ++i) of_cell[id[i]] = uint8_t(nearest(cells[i].rgb, palette.data(), k));
+  index.resize(n_px);
+  for (size_t i = 0; i < n_px; ++i) index[i] = of_cell[cell_of(rgb + 3 * i)];
+}
+
+// GIF's variable-length LZW (minimum code size 8, as giflib's EGifCompressLine:
+// a code widens once the next code to assign needs another bit, and the table
+// is cleared when it reaches 4095 codes), packed into sub-blocks of at most
+// 255 bytes and a zero-length terminator.
+void lzw(const std::vector<uint8_t>& index, std::vector<uint8_t>& out) {
+  constexpr int kClear = 256, kEnd = 257, kMaxCode = 4095;
+  std::vector<uint16_t> table(size_t(kMaxCode + 1) << 8, 0);  // (prefix << 8 | byte) -> code, 0: absent
+  std::vector<uint32_t> used;
+  std::vector<uint8_t> bytes;
+  uint32_t acc = 0;
+  int nbits = 0, size = 9, next = kEnd + 1;
+  auto put = [&](int code) {
+    acc |= uint32_t(code) << nbits;
+    nbits += size;
+    while (nbits >= 8) {
+      bytes.push_back(uint8_t(acc));
+      acc >>= 8;
+      nbits -= 8;
+    }
+    if (next >= (1 << size) && size < 12) ++size;
+  };
+  put(kClear);
+  int prefix = index.empty() ? 0 : index[0];
+  for (size_t i = 1; i < index.size(); ++i) {
+    const uint32_t key = (uint32_t(prefix) << 8) | index[i];
+    if (table[key]) {
+      prefix = table[key];
+      continue;
+    }
+    put(prefix);
+    if (next >= kMaxCode) {
+      put(kClear);
+      for (uint32_t u : used) table[u] = 0;
+      used.clear();
+      size = 9, next = kEnd + 1;
+    } else {
+      table[key] = uint16_t(next++);
+      used.push_back(key);
+    }
+    prefix = index[i];
+  }
+  put(prefix);
+  put(kEnd);
+  if (nbits > 0) bytes.push_back(uint8_t(acc));
+  out.push_back(8);  // minimum code size
+  for (size_t i = 0; i < bytes.size(); i += 255) {
+    const size_t len = std::min<size_t>(255, bytes.size() - i);
+    out.push_back(uint8_t(len));
+    out.insert(out.end(), bytes.begin() + i, bytes.begin() + i + len);
+  }
+  out.push_back(0);
+}
+
+void put_le16(std::vector<uint8_t>& out, int v) {
+  out.push_back(uint8_t(v & 0xff));
+  out.push_back(uint8_t((v >> 8) & 0xff));
+}
+
+// One frame: graphic control extension (no disposal, `delay_cs` hundredths
+// of a second), image descriptor with a 256-entry local colour table, data.
+void encode_frame(const uint8_t* rgb, int h, int w, int delay_cs, std::vector<uint8_t>& out) {
+  uint8_t palette[768];
+  std::vector<uint8_t> index;
+  quantize(rgb, size_t(h) * w, palette, index);
+  const uint8_t gce[4] = {0x21, 0xF9, 0x04, 0x04};
+  out.insert(out.end(), gce, gce + 4);
+  put_le16(out, delay_cs);
+  out.push_back(0);  // transparent index (unused)
+  out.push_back(0);
+  out.push_back(0x2C);
+  put_le16(out, 0);
+  put_le16(out, 0);
+  put_le16(out, w);
+  put_le16(out, h);
+  out.push_back(0x87);  // local colour table of 2^(7+1) entries, not interlaced
+  out.insert(out.end(), palette, palette + 768);
+  lzw(index, out);
+}
+
+}  // namespace gif
+
 }  // namespace
 
 extern "C" {
@@ -1053,6 +1278,29 @@ int evt_save_pngs(const char** paths, const uint8_t* data, int n, int h, int w, 
     if (status[i] != kOk) failed.fetch_add(1);
   });
   return failed.load();
+}
+
+// Write n uint8 HWC RGB frames (data + i*h*w*3) to `path` as an animated GIF
+// that loops forever (NETSCAPE2.0, loop count 0), each frame shown for
+// delay_cs hundredths of a second; frames are quantized and compressed on
+// n_threads threads. Returns a Status.
+int evt_save_gif(const char* path, const uint8_t* data, int n, int h, int w, int delay_cs, int n_threads) {
+  std::vector<std::vector<uint8_t>> frames(n);
+  parallel_for(n, n_threads, [&](int i) { gif::encode_frame(data + size_t(i) * h * w * 3, h, w, delay_cs, frames[i]); });
+  std::vector<uint8_t> out = {'G', 'I', 'F', '8', '9', 'a'};
+  gif::put_le16(out, w);
+  gif::put_le16(out, h);
+  out.push_back(0x70);  // no global colour table, 8 bits of colour resolution
+  out.push_back(0);     // background colour index
+  out.push_back(0);     // pixel aspect ratio
+  const uint8_t loop[19] = {0x21, 0xFF, 0x0B, 'N', 'E', 'T', 'S', 'C', 'A', 'P', 'E', '2', '.', '0', 0x03, 0x01, 0, 0, 0};
+  out.insert(out.end(), loop, loop + 19);
+  FILE* fp = fopen(path, "wb");
+  if (!fp) return kWriteFailed;
+  bool ok = fwrite(out.data(), 1, out.size(), fp) == out.size();
+  for (const auto& f : frames) ok = ok && fwrite(f.data(), 1, f.size(), fp) == f.size();
+  ok = ok && fputc(0x3B, fp) != EOF;  // trailer
+  return (fclose(fp) == 0 && ok) ? kOk : kWriteFailed;
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ and `native/imageio.cpp`).
 git-ignored `build/` beside the CUDA kernels (`ops/_build.py`), decodes PNG
 and JPEG files, resizes them bilinearly (half-pixel centres, no
 antialiasing: the JAX package's native loader's arithmetic) and writes PNG
-files at deflate level 1 with no row filter. The H100 machine the port runs
+files at deflate level 1 with no row filter, and animated GIFs (a palette of
+256 colours a frame, LZW). The H100 machine the port runs
 on has zlib but neither libpng, libjpeg nor PIL, so PNG is parsed, inflated
 and un-filtered in that file on zlib alone, and JPEG is decoded there in
 libjpeg's own integer arithmetic (the islow IDCT, fancy upsampling, the
@@ -52,6 +53,9 @@ def _lib() -> ctypes.CDLL:
         lib.evt_save_pngs.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_uint8),
                                       c_int, c_int, c_int, c_int, p_int]
         lib.evt_save_pngs.restype = c_int
+        lib.evt_save_gif.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), c_int, c_int, c_int, c_int,
+                                     c_int]
+        lib.evt_save_gif.restype = c_int
     return lib
 
 
@@ -88,6 +92,17 @@ def load_image_batch(
     return out
 
 
+def png_size(path: str) -> tuple[int, int]:
+    """(height, width) of a PNG file from its IHDR chunk; raises IOError for
+    a file that is not a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if len(head) < 24 or head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise IOError(f"{path} is not a PNG")
+    width, height = int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+    return height, width
+
+
 def save_png_batch(paths: Sequence[str], frames: np.ndarray, n_threads: int = 0) -> None:
     """Write (N, H, W, 3) uint8 frames to PNG files; raises IOError naming each failed write."""
     frames = np.ascontiguousarray(frames, np.uint8)
@@ -101,3 +116,18 @@ def save_png_batch(paths: Sequence[str], frames: np.ndarray, n_threads: int = 0)
     _lib().evt_save_pngs(names, frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, h, w,
                          _threads(n_threads), status)
     _raise_failures(paths, status)
+
+
+def save_gif(path: str, frames: np.ndarray, delay_cs: int, n_threads: int = 0) -> None:
+    """Write (N, H, W, 3) uint8 frames to `path` as an animated GIF that loops
+    forever, each frame shown for `delay_cs` hundredths of a second; raises
+    IOError when the file cannot be written."""
+    frames = np.ascontiguousarray(frames, np.uint8)
+    if frames.ndim != 4 or frames.shape[-1] != 3 or not len(frames):
+        raise ValueError(f"frames {frames.shape}: need (N, H, W, 3) with N >= 1")
+    n, h, w, _ = frames.shape
+    if max(h, w) > 65535 or not 0 <= delay_cs <= 65535:
+        raise ValueError(f"a GIF holds sizes and delays below 65536, got {h}x{w} and {delay_cs}")
+    status = _lib().evt_save_gif(os.fsencode(path), frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, h, w,
+                                 int(delay_cs), _threads(n_threads))
+    _raise_failures([path], [status])

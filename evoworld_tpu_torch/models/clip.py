@@ -36,6 +36,9 @@ class CLIPVisionConfig:
     mlp_dim: int = 5120
     projection_dim: int = 1024
     layer_norm_eps: float = 1e-5
+    # "gelu" (exact: the SVD image encoder, open_clip) or "quick_gelu"
+    # (x * sigmoid(1.702 x): OpenAI CLIP, DreamSim's clip_vitb32 branch).
+    hidden_act: str = "gelu"
 
 
 class Linear(nn.Linear):
@@ -61,15 +64,19 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    """fc1 -> exact GELU (the SVD image encoder's activation) -> fc2."""
+    """fc1 -> the config's GELU -> fc2."""
 
     def __init__(self, cfg: CLIPVisionConfig):
         super().__init__()
+        if cfg.hidden_act not in ("gelu", "quick_gelu"):
+            raise ValueError(f"unknown hidden_act {cfg.hidden_act!r}")
+        self.quick = cfg.hidden_act == "quick_gelu"
         self.fc1 = Linear(cfg.hidden_size, cfg.mlp_dim)
         self.fc2 = Linear(cfg.mlp_dim, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        h = self.fc1(x)
+        return self.fc2(h * torch.sigmoid(1.702 * h) if self.quick else F.gelu(h))
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -242,7 +242,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Draws on the generator's device in fp32 and casts into each parameter.
     """
-    norms = (nn.GroupNorm, nn.LayerNorm)
+    norms = (nn.GroupNorm, nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
     for mod in module.modules():
         for name, p in mod.named_parameters(recurse=False):
             if isinstance(mod, norms) and name == "weight":

@@ -12,7 +12,9 @@
   kernel widened by the factor when downsampling (its antialias). VGGT's
   preprocessing upsamples 384x512 crops to 392x518, where no antialias term
   enters and it equals F.interpolate(mode="bilinear", align_corners=False);
-  the positional embedding's 37x37 -> 28x37 bicubic resize downsamples.
+  the positional embedding's 37x37 -> 28x37 bicubic resize downsamples;
+  the evaluation harness resizes frames to 299 and 224 with it, and
+  `antialias=False` serves I3D's preprocessing.
 Channels-last (..., H, W, C) at the public functions, as in the JAX package.
 """
 
@@ -124,10 +126,10 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
 _HALF_PIXEL_KERNELS = {"bilinear": lambda x: np.maximum(0.0, 1.0 - np.abs(x)), "cubic": _keys_cubic}
 
 
-def _half_pixel_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
-    """(n_out, n_in) weights of `jax.image.resize` along one axis (antialias on)."""
+def _half_pixel_matrix(n_in: int, n_out: int, method: str, antialias: bool = True) -> np.ndarray:
+    """(n_out, n_in) weights of `jax.image.resize` along one axis."""
     inv_scale = n_in / n_out
-    kernel_scale = max(inv_scale, 1.0)
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
     # One rounding to fp32 of the exact (i + 0.5) * s - 0.5, as the fused
     # multiply-add of compiled code gives it (XLA's, and F.interpolate's).
     sample = ((np.arange(n_out) + 0.5) * np.float64(np.float32(inv_scale)) - 0.5).astype(np.float32)
@@ -140,15 +142,18 @@ def _half_pixel_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
     return np.where(inside[None, :], weights, 0.0).T.astype(np.float32)
 
 
-def resize_half_pixel(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+def resize_half_pixel(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bilinear",
+                      antialias: bool = True) -> torch.Tensor:
     """`jax.image.resize` over the H and W axes of (..., H, W, C), in fp32 and
-    returned in x's dtype; an axis whose size does not change is left as it is."""
+    returned in x's dtype; an axis whose size does not change is left as it
+    is. `antialias` False keeps the kernel's width when downsampling (plain
+    half-pixel interpolation, `jax.image.resize(..., antialias=False)`)."""
     h, w = x.shape[-3], x.shape[-2]
     out = x.float()
     if out_hw[0] != h:
-        wh = torch.from_numpy(_half_pixel_matrix(h, out_hw[0], method)).to(x.device)
+        wh = torch.from_numpy(_half_pixel_matrix(h, out_hw[0], method, antialias)).to(x.device)
         out = torch.einsum("oh,...hwc->...owc", wh, out)
     if out_hw[1] != w:
-        ww = torch.from_numpy(_half_pixel_matrix(w, out_hw[1], method)).to(x.device)
+        ww = torch.from_numpy(_half_pixel_matrix(w, out_hw[1], method, antialias)).to(x.device)
         out = torch.einsum("pw,...hwc->...hpc", ww, out)
     return out.to(x.dtype)

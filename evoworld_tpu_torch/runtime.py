@@ -9,8 +9,9 @@ directory: `unet/`, `vae/` and `image_encoder/`, each holding `*.safetensors`
 modules keep, so each model is filled by a strict `load_state_dict`; SVD's
 8-channel `conv_in` is zero-padded to the UNet's 18. `build_reconstructor(
 vggt_checkpoint=...)` reads facebook/VGGT-1B's `model.pt` under upstream's
-names. `build_trainer` still draws at random. The repository ships no
-checkpoint (WEIGHTS.md); the tests write small random ones.
+names. `build_trainer(checkpoint_dir=...)` reads the same directory as
+`build_pipeline`. The repository ships no checkpoint (WEIGHTS.md); the tests
+write small random ones.
 
 On CUDA every entry point takes bfloat16 only: the Hopper flash-attention
 kernels are bf16 kernels, and the attention dispatch never falls back to
@@ -115,23 +116,30 @@ def build_pipeline(
     check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
     unet_cfg, vae_cfg, clip_cfg = _preset(PRESETS, model_preset)
-    if checkpoint_dir and os.path.isdir(checkpoint_dir):
-        logger.info(f"Loading checkpoint from {checkpoint_dir}")
-        states = [load_safetensors_dir(os.path.join(checkpoint_dir, sub)) for sub in ("unet", "vae", "image_encoder")]
-        if all(states):
-            models = [
-                load_checkpoint_(empty_model(cls, cfg, dev, compute_dtype), state)
-                for cls, cfg, state in zip(
-                    (UNetSpatioTemporal, AutoencoderKLTemporal, CLIPVisionTower), (unet_cfg, vae_cfg, clip_cfg), states)
-            ]
-            return PanoDiffusionPipeline(*models, pipeline_config, compute_dtype)
-        logger.warning(f"checkpoint dir {checkpoint_dir} incomplete; falling back")
-    if not allow_random_weights:
-        raise FileNotFoundError(f"no usable checkpoint at {checkpoint_dir!r} and allow_random_weights is False")
+    models = _load_checkpoint_models(checkpoint_dir, (unet_cfg, vae_cfg, clip_cfg), dev, (compute_dtype,) * 3,
+                                     allow_random_weights)
+    if models is not None:
+        return PanoDiffusionPipeline(*models, pipeline_config, compute_dtype)
     logger.warning(f"Building the {model_preset} pipeline with RANDOM weights (seed {seed})")
     return make_random_pipeline(
         pipeline_config, unet_cfg, vae_cfg, clip_cfg, seed=seed, compute_dtype=compute_dtype, device=dev
     )
+
+
+def _load_checkpoint_models(checkpoint_dir, configs, dev, dtypes, allow_random_weights: bool):
+    """(unet, vae, clip) of `configs` filled from a diffusers pipeline
+    directory in `dtypes`, or None where there is none to read and random
+    weights are allowed (FileNotFoundError where they are not)."""
+    if checkpoint_dir and os.path.isdir(checkpoint_dir):
+        logger.info(f"Loading checkpoint from {checkpoint_dir}")
+        states = [load_safetensors_dir(os.path.join(checkpoint_dir, sub)) for sub in ("unet", "vae", "image_encoder")]
+        if all(states):
+            return [load_checkpoint_(empty_model(cls, cfg, dev, dtype), state) for cls, cfg, dtype, state in zip(
+                (UNetSpatioTemporal, AutoencoderKLTemporal, CLIPVisionTower), configs, dtypes, states)]
+        logger.warning(f"checkpoint dir {checkpoint_dir} incomplete; falling back")
+    if not allow_random_weights:
+        raise FileNotFoundError(f"no usable checkpoint at {checkpoint_dir!r} and allow_random_weights is False")
+    return None
 
 
 def build_trainer(
@@ -139,28 +147,44 @@ def build_trainer(
     seed: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
+    checkpoint_dir: str | None = None,
+    allow_random_weights: bool = True,
 ) -> tuple[UNetSpatioTemporal, AutoencoderKLTemporal, CLIPVisionTower]:
-    """(unet, vae, clip_tower) with deterministic random weights, ready for `train`.
+    """(unet, vae, clip_tower) ready for `train`, from a checkpoint directory
+    or with deterministic random weights.
 
-    The UNet is drawn in fp32 (stream seed*3 + 0, as in `build_pipeline`),
-    then cast to the master-weight policy: fp32 trainable parameters,
-    `compute_dtype` frozen ones; its blocks are checkpointed (remat). The VAE and
-    CLIP are frozen in `compute_dtype`. Runs on CUDA unless `device="cpu"` is
-    passed; raises RuntimeError when CUDA is asked for and absent, ValueError
-    for a compute dtype other than bfloat16 on CUDA.
+    With `checkpoint_dir` holding `unet/`, `vae/` and `image_encoder/`
+    safetensors (as for `build_pipeline`: strict names and shapes, conv_in
+    zero-padded to 18 input channels) the UNet is read in fp32, the VAE and
+    CLIP in `compute_dtype`; without one (a warning, or FileNotFoundError
+    when `allow_random_weights` is False) the UNet is drawn in fp32 (stream
+    seed*3 + 0, as in `build_pipeline`) and the others in `compute_dtype`.
+    The UNet is then cast to the master-weight policy: fp32 trainable
+    parameters (a checkpoint's own values, where the JAX package rounds them
+    to the compute dtype first), `compute_dtype` frozen ones; its blocks are
+    checkpointed (remat). The VAE and CLIP are frozen. Runs on CUDA unless
+    `device="cpu"` is passed; raises RuntimeError when CUDA is asked for and
+    absent, ValueError for a compute dtype other than bfloat16 on CUDA
+    (before any file is read).
     """
     check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
     unet_cfg, vae_cfg, clip_cfg = _preset(PRESETS, model_preset)
+    configs = (dataclasses.replace(unet_cfg, remat=True), vae_cfg, clip_cfg)
+    models = _load_checkpoint_models(checkpoint_dir, configs, dev, (torch.float32, compute_dtype, compute_dtype),
+                                     allow_random_weights)
+    if models is None:
+        logger.warning(f"Building the {model_preset} trainer with RANDOM weights (seed {seed})")
 
-    def gen(salt):
-        return torch.Generator(device=dev).manual_seed(seed * 3 + salt)
+        def gen(salt):
+            return torch.Generator(device=dev).manual_seed(seed * 3 + salt)
 
-    unet = random_model(UNetSpatioTemporal, dataclasses.replace(unet_cfg, remat=True), gen(0), dev, torch.float32)
+        models = [random_model(cls, cfg, gen(salt), dev, dtype) for salt, (cls, cfg, dtype) in enumerate(zip(
+            (UNetSpatioTemporal, AutoencoderKLTemporal, CLIPVisionTower), configs,
+            (torch.float32, compute_dtype, compute_dtype)))]
+    unet, vae, clip = models
     freeze_master_cast(unet.train(), compute_dtype)
-    vae = random_model(AutoencoderKLTemporal, vae_cfg, gen(1), dev, compute_dtype).eval().requires_grad_(False)
-    clip = random_model(CLIPVisionTower, clip_cfg, gen(2), dev, compute_dtype).eval().requires_grad_(False)
-    return unet, vae, clip
+    return unet, vae.eval().requires_grad_(False), clip.eval().requires_grad_(False)
 
 
 def _keep_fp32(name: str) -> bool:

@@ -1,10 +1,11 @@
-"""Training orchestration: batching, accumulation, EMA, checkpointing, logging.
+"""Training orchestration: batching, accumulation, EMA, checkpointing,
+validation, logging.
 
 Counterpart of `evoworld_tpu/train/trainer.py` on one device: checkpoints
 are `torch.save` files with keep-limit pruning and resume-latest, the EMA of
-the parameters is kept beside them, and scalars go to a JSONL tracker. The
-JAX loop's validation hook and per-device batch size serve its CLI
-(`cli/train.py`) and come with that CLI's port.
+the parameters is kept beside them, scalars go to a JSONL tracker, and a
+caller's validation hook runs every `validation_steps` steps on the EMA
+parameters (`cli/train.py` renders and scores a clip there).
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ class TrainerConfig:
     ema_decay: float = 0.9999
     # Batches built ahead by a background thread (0: synchronous iteration).
     prefetch_depth: int = 2
-    # The JAX trainer's validation interval and per-device batch, kept so that
-    # both packages take the same flags; read by the training CLI (ROADMAP item 18).
+    # Steps between calls of `train`'s validation hook; the batch of one card
+    # (the training CLI's batch size).
     validation_steps: int = 1000
     per_device_batch_size: int = 1
 
@@ -107,6 +108,33 @@ class CheckpointManager:
         return ckpt["ema"]
 
 
+def run_validation(validation_fn, state: TrainState, ema: Optional[dict[str, torch.Tensor]], step: int) -> None:
+    """`validation_fn(state, step)` with the EMA parameters in the UNet (when
+    `ema` is given), leaving training as it was: the fp32 masters go back
+    bit for bit, the EMA and the optimizer are not touched, and the UNet's
+    train mode is restored. Only the trainable parameters are swapped: a
+    frozen parameter's EMA equals it exactly (an average of equal values,
+    rounded back to its bf16 or fp32)."""
+    unet = state.unet
+    training = unet.training
+    masters = None
+    if ema is not None:
+        masters = {n: p.detach().clone() for n, p in unet.named_parameters() if p.requires_grad}
+        with torch.no_grad():
+            for n, p in unet.named_parameters():
+                if n in masters:
+                    p.copy_(ema[n])
+    try:
+        validation_fn(state, step)
+    finally:
+        if masters is not None:
+            with torch.no_grad():
+                for n, p in unet.named_parameters():
+                    if n in masters:
+                        p.copy_(masters[n])
+        unet.train(training)
+
+
 def episode_batches(dataset, batch_size: int, latent_hw: tuple[int, int], seed: int = 0) -> Iterator[dict]:
     """Train batches with Pluecker embeddings at latent resolution, forever.
 
@@ -144,6 +172,7 @@ def train(
     trainer_config: TrainerConfig,
     batch_size: int = 1,
     compute_dtype: torch.dtype = torch.bfloat16,
+    validation_fn=None,
 ) -> TrainState:
     """Run the training loop on the UNet's device; returns the final TrainState.
 
@@ -155,6 +184,10 @@ def train(
     come from a torch generator on the UNet's device seeded with 0, as the
     JAX loop's key. With EMA, the EMA parameters are loaded into the UNet at
     the end (after the final checkpoint, which keeps the raw ones).
+    `validation_fn(state, step)`, where given, runs after step `step`'s
+    checkpoint whenever `step` is a multiple of `validation_steps`, through
+    `run_validation` (the EMA parameters in the UNet; nothing of training
+    changed, the loss's generator not drawn from).
     """
     tc = trainer_config
     state = make_train_state(config, unet, compute_dtype)
@@ -197,6 +230,9 @@ def train(
             if (step + 1) % tc.checkpointing_steps == 0:
                 ckpt.save(step + 1, state, ema)
                 logger.info(f"checkpoint saved at step {step + 1}")
+
+            if validation_fn is not None and (step + 1) % tc.validation_steps == 0:
+                run_validation(validation_fn, state, ema, step + 1)
     finally:
         close = getattr(batches, "close", None)
         if close is not None:
