@@ -122,6 +122,24 @@ The training-CLI and evaluation slice adds, on phase 11's files:
      errors without the harness's fp32 guard reported beside them),
      `cli.calculate_dreamsim.main` (dino_vitb16 and the ensemble) against the
      CPU, no flash launch.
+The data-preparation slice (cube_to_pano, pano_to_pers, sky segmentation,
+reproject) adds:
+  3. a row at VGGT's global attention over a 97-frame episode's 73 source
+     frames, (1, 75993, 16, 64);
+  14. on phase 11's episode (97 panoramas of 1024x576) and VGGT-1B model.pt:
+     `cli.pano_to_pers.main` (97 crops of 384x512 and the camera file), then
+     `cli.reproject.main` with the sky mask on, from a full-width random
+     U^2-Net made sensitive to the crops (`sensitive_skyseg_onnx`) and
+     written as skyseg.onnx by the port's ONNX writer: 24 renders at
+     576x1024, finite and not one value, exactly 24 flash launches (reset
+     just before), `--data.start_idx` / `--data.end_idx` selecting the
+     episode they name among three, a second call that builds no VGGT,
+     launches nothing and writes nothing; the sky mask of 4 crops on the
+     card against the CPU by flipped share (PREP_MASK_MAX_FLIPPED); then
+     `cli.cube_to_pano.main` on synthetic faces of 1024 in the Unity and UE
+     layouts into 1000x2000 panoramas, against the CPU by flipped share
+     (CUBE_MAX_FLIPPED); it prints the seconds of the crops, VGGT, the mask,
+     the alignment and render, and cube_to_pano, and the peak memory.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card: the entry points refuse a dtype other than bf16 on CUDA.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -223,6 +241,16 @@ LOOP_FRAME_ATOL, LOOP_PIXEL_ATOL, LOOP_MAX_FLIPPED = 2e-3, 2e-3, 0.005
 EVAL_FEATURE_RTOL = 1e-4
 EVAL_FEATURE_FLOOR = 1e-3
 DREAMSIM_ATOL = 1e-4
+# Phase 14, card against CPU. The sky masks (0 on sky, 255 elsewhere) of the
+# U^2-Net in fp32: a min-max normalized value near 1 can floor either way
+# (the CPU parity test's limit, tests/test_torch_port_skyseg.py). The
+# cubemap panoramas: nearest texels picked after fp32 trigonometry, which
+# can fall on either side of a face seam or texel edge (the CPU parity
+# test's share, tests/test_torch_port_cubemap.py).
+PREP_MASK_MAX_FLIPPED = 0.01
+CUBE_MAX_FLIPPED = 1e-3
+CUBE_FACE = 1024  # a capture's face size
+CUBE_PANO = (1000, 2000)  # the panoramas' size, the upstream converter's
 
 
 def log(msg: str) -> None:
@@ -299,6 +327,8 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         # 1041 tokens: no tile divides either length (51009 = 398 x 128 + 65)
         ("vggt_global_25", 1, 26025, 26025, 16, 64, 26025, False, False),
         ("vggt_global_49", 1, 51009, 51009, 16, 64, 51009, False, False),
+        # reproject's VGGT over a 97-frame episode's 73 source frames (75993 = 593 x 128 + 89)
+        ("vggt_global_73", 1, 75993, 75993, 16, 64, 75993, False, False),
         # a head dim without a kernel (the tiny presets' 16), zero-padded to 64
         ("padded_d16", 2, 9216, 9216, 2, 16, 9216, False, False),
     ]
@@ -383,7 +413,7 @@ def check_jpeg_fixtures() -> list[dict]:
     rows = []
     for name in JPEG_FIXTURES:
         jpg, png = (os.path.join(JPEG_FIXTURE_DIR, f"{name}.{ext}") for ext in ("jpg", "png"))
-        height, width = native_io.png_size(png)
+        height, width = native_io.image_size(png)
         want = native_io.load_image_batch([png], height, width, minus1_1=False, n_threads=1)
         t0 = time.perf_counter()
         got = native_io.load_image_batch([jpg], height, width, minus1_1=False, n_threads=1)
@@ -1027,21 +1057,28 @@ def vggt_tokens_per_frame(vggt_config, pers_hw) -> tuple[int, int]:
     return 1 + agg.num_register_tokens + patches, 1 + agg.dino_num_register_tokens + patches
 
 
-def expected_loop_launches(steps: int, loop_cfg, vggt_config, flash_min_seq: int) -> int:
-    """Flash launches of one episode: 5N + 18 per clip, and per rebuild one
-    launch for each VGGT attention whose sequence reaches `flash_min_seq`: the
-    global attention (frames x tokens, once per aggregator pair), the frame
-    attention and the patch encoder's (tokens a frame), the camera head's
-    trunk (one token a frame, trunk depth x 4 refinements). A rebuild after
-    segment k sees num_frames + k (num_frames - 1) frames."""
+def vggt_launches(frames: int, pers_hw, vggt_config, flash_min_seq: int) -> int:
+    """Flash launches of one VGGT reconstruction of `frames` crops of
+    `pers_hw`: one for each attention whose sequence reaches `flash_min_seq`,
+    the global attention (frames x tokens, once per aggregator pair), the
+    frame attention and the patch encoder's (tokens a frame), the camera
+    head's trunk (one token a frame, trunk depth x 4 refinements)."""
     agg = vggt_config.aggregator
-    tokens, dino_tokens = vggt_tokens_per_frame(vggt_config, (loop_cfg.pers_height, loop_cfg.pers_width))
+    tokens, dino_tokens = vggt_tokens_per_frame(vggt_config, pers_hw)
+    return (agg.depth * ((frames * tokens >= flash_min_seq) + (tokens >= flash_min_seq))
+            + agg.patch_encoder_depth * (dino_tokens >= flash_min_seq)
+            + vggt_config.camera_trunk_depth * 4 * (frames >= flash_min_seq))
+
+
+def expected_loop_launches(steps: int, loop_cfg, vggt_config, flash_min_seq: int) -> int:
+    """Flash launches of one episode: 5N + 18 per clip, and a VGGT
+    reconstruction per rebuild; the rebuild after segment k sees
+    num_frames + k (num_frames - 1) frames."""
+    pers_hw = (loop_cfg.pers_height, loop_cfg.pers_width)
     total = loop_cfg.num_segments * (5 * steps + 18)
     for k in range(loop_cfg.num_segments - 1):
-        frames = loop_cfg.num_frames + k * (loop_cfg.num_frames - 1)
-        total += agg.depth * ((frames * tokens >= flash_min_seq) + (tokens >= flash_min_seq))
-        total += agg.patch_encoder_depth * (dino_tokens >= flash_min_seq)
-        total += vggt_config.camera_trunk_depth * 4 * (frames >= flash_min_seq)
+        total += vggt_launches(loop_cfg.num_frames + k * (loop_cfg.num_frames - 1), pers_hw, vggt_config,
+                               flash_min_seq)
     return total
 
 
@@ -1215,7 +1252,7 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = (), workdir: str | N
 
     from evoworld_tpu_torch.cli import run_single_segment, run_unified
     from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
-    from evoworld_tpu_torch.data.native_io import png_size
+    from evoworld_tpu_torch.data.native_io import image_size
     from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
     from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
     from evoworld_tpu_torch.runtime import VGGT_PRESETS
@@ -1274,7 +1311,7 @@ def full_cli(dev, steps: int, seed: int, overrides: tuple = (), workdir: str | N
 
         def pngs(out_dir, sub):  # the count and the (width, height) of the PNGs
             names = sorted(os.listdir(os.path.join(out_dir, sub)))
-            return len(names), sorted({png_size(os.path.join(out_dir, sub, n))[::-1] for n in names})
+            return len(names), sorted({image_size(os.path.join(out_dir, sub, n))[::-1] for n in names})
 
         f, t = loop_cfg.num_frames, loop_cfg.num_target_view
         want = {"predictions": (f, [(width, height)]), "predictions_gt": (f, [(width, height)])}
@@ -1784,6 +1821,275 @@ def full_eval(dev, workdir: str, cli_out: str, clip, overrides: tuple = ()) -> d
     return result
 
 
+def random_u2net_state(seed: int) -> dict:
+    """A full-width U^2-Net state (upstream names, no batch-norm counters)
+    drawn on the host from a numpy seed, the same on every machine: He-scaled
+    conv kernels, small biases, batch-norm affines near (1, 0)."""
+    import numpy as np
+
+    from evoworld_tpu_torch.memory.u2net import U2Net
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, t in U2Net().state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if t.dim() == 4:
+            value = rng.normal(size=t.shape) * np.sqrt(2.0 / np.prod(t.shape[1:]))
+        elif name.endswith("running_var"):
+            value = 1.0 + 0.1 * np.abs(rng.normal(size=t.shape))
+        elif name.endswith("bn_s1.weight"):
+            value = 1.0 + 0.1 * rng.normal(size=t.shape)
+        else:
+            value = 0.1 * rng.normal(size=t.shape)
+        state[name] = value.astype(np.float32)
+    return state
+
+
+def sensitive_skyseg_onnx(path: str, crops, dev, seed: int) -> None:
+    """Write `path`, a skyseg.onnx (by the port's ONNX writer) of a random
+    full-width U^2-Net made sensitive to `crops`, (N, H, W, 3) in [0, 1], as
+    the sky mask feeds them (resized to 320 x 320, ImageNet-normalized, in
+    fp32): batch-norm statistics from a pass over them
+    (`sensitive_metric_net_`), then the fused head scaled so that its logit
+    over them has median 0 and range 40. The sigmoid then saturates below
+    the median, as a trained net's does off the sky, and the mask (kept
+    where the min-max normalized map floors to 0) covers part of each crop
+    instead of the few pixels at a continuous map's minimum."""
+    import torch
+
+    from evoworld_tpu_torch.eval.metrics import full_fp32
+    from evoworld_tpu_torch.memory import skyseg
+    from evoworld_tpu_torch.memory.onnx_io import write_onnx_initializers
+    from evoworld_tpu_torch.memory.u2net import U2Net
+    from evoworld_tpu_torch.ops.resize import resize_half_pixel
+
+    net = skyseg.load_u2net_state_(U2Net(), random_u2net_state(seed)).to(dev)
+    crops = torch.as_tensor(crops).to(dev, torch.float32)
+    mean, std = (torch.tensor(c, device=dev) for c in (skyseg._IMAGENET_MEAN, skyseg._IMAGENET_STD))
+    logits = []
+    with full_fp32(), torch.no_grad():
+        x = ((resize_half_pixel(crops, (skyseg.NET_SIZE, skyseg.NET_SIZE)) - mean) / std).permute(0, 3, 1, 2)
+        sensitive_metric_net_(net, x.contiguous())
+        hook = net.outconv.register_forward_hook(lambda module, args, out: logits.append(out))
+        net(x.contiguous())
+        hook.remove()
+        z = logits[0]
+        scale = 40.0 / (z.max() - z.min()).clamp_min(1e-12)
+        net.outconv.weight.mul_(scale)
+        net.outconv.bias.sub_(z.median()).mul_(scale)
+    write_onnx_initializers(path, {k: v.cpu().numpy() for k, v in net.state_dict().items()
+                                   if not k.endswith("num_batches_tracked")})
+
+
+def write_cube_captures(root: str, layout: str, frames: int, face: int, seed: int) -> None:
+    """`frames` synthetic captures of six `face` x `face` PNG faces (smooth
+    seeded colour fields with a little noise) in the Unity layout (a
+    directory per frame) or the UE one (flat `<id>_<face>.png` files)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from evoworld_tpu_torch.data.engine import FACE_ORDER
+    from evoworld_tpu_torch.data.native_io import save_png_batch
+
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((frames * 6, 3, 8, 8), generator=g)
+    fine = F.interpolate(coarse, size=(face, face), mode="bicubic", align_corners=False)
+    fine = fine + 0.02 * torch.randn(fine.shape, generator=g)
+    faces = (fine.clamp(0, 1) * 255).to(torch.uint8).permute(0, 2, 3, 1).numpy().reshape(frames, 6, face, face, 3)
+    paths = []
+    for i in range(frames):
+        for name in FACE_ORDER:
+            if layout == "unity":
+                os.makedirs(os.path.join(root, f"{i:03d}"), exist_ok=True)
+                paths.append(os.path.join(root, f"{i:03d}", f"{name}.png"))
+            else:
+                os.makedirs(root, exist_ok=True)
+                paths.append(os.path.join(root, f"{i + 1}_{name}.png"))
+    save_png_batch(paths, np.ascontiguousarray(faces.reshape(-1, face, face, 3)))
+
+
+def tree_state(root: str) -> dict:
+    """{path: (size, mtime_ns)} of every file under `root` (links followed)."""
+    out = {}
+    for d, _, files in os.walk(root, followlinks=True):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def full_prep(dev, workdir: str, seed: int, overrides: tuple = (), cube_face: int = CUBE_FACE,
+              mask_crops: int = 4) -> dict:
+    """Phase 14: the data-preparation CLIs on phase 11's files in `workdir`
+    (`episode_000/`, `svd/model.pt`). A dataset of three episodes under
+    `<workdir>/prep`: `ep_1` holds phase 11's panoramas (linked) and camera
+    file, `ep_0` and `ep_2` no crops. `cli.pano_to_pers.main` crops `ep_1`;
+    `cli.reproject.main` with `--data.start_idx=1 --data.end_idx=2` renders
+    it with the sky mask of a sensitive random U^2-Net (skyseg.onnx from
+    the port's writer), then again over all three (nothing to do); the sky
+    mask of `mask_crops` crops on `dev` against the CPU; `cli.cube_to_pano.main`
+    on two frames of each capture layout at faces of `cube_face`, on `dev`
+    against the CPU. `overrides` (CLI flags) cut the configuration down for a
+    rehearsal off the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.cli import cube_to_pano, pano_to_pers, reproject
+    from evoworld_tpu_torch.cli.common import load_frames
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.data.native_io import image_size
+    from evoworld_tpu_torch.memory.skyseg import SkySegmentation
+    from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from evoworld_tpu_torch.runtime import VGGT_PRESETS
+
+    config = apply_overrides(EvoWorldConfig(), list(overrides))
+    loop_cfg, height, width = config.loop, config.pipeline.height, config.pipeline.width
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    prep = os.path.join(workdir, "prep")
+    episode = os.path.join(prep, "ep_1")
+    for name in ("ep_0", "ep_2"):
+        os.makedirs(os.path.join(prep, name, "panorama"))
+    os.makedirs(episode)
+    os.symlink(os.path.join(workdir, "episode_000", "panorama"), os.path.join(episode, "panorama"))
+    shutil.copy(os.path.join(workdir, "episode_000", "camera_poses.txt"), episode)
+    result = {}
+
+    t0 = time.perf_counter()
+    n_crops = pano_to_pers.main([f"--data.root={episode}", *overrides], device=dev)
+    sync()
+    result["crops_s"] = time.perf_counter() - t0
+    pers_dir = os.path.join(episode, "perspective_look_at_center")
+    crop_paths = [os.path.join(pers_dir, n) for n in sorted(os.listdir(pers_dir))]
+    n_frames = len(os.listdir(os.path.join(episode, "panorama")))
+    crop_sizes = {image_size(p) for p in crop_paths}
+    sources = n_frames - loop_cfg.num_target_view
+
+    few = torch.from_numpy(np.stack(load_frames(crop_paths[:mask_crops])))
+    onnx = os.path.join(workdir, "skyseg.onnx")
+    t0 = time.perf_counter()
+    sensitive_skyseg_onnx(onnx, few, dev, seed + 14)
+    result["skyseg_write_s"] = time.perf_counter() - t0
+
+    builds, renders = [], []
+    build, render = reproject.build_reconstructor, reproject.render_memory_panoramas
+
+    def counting_build(*args, **kwargs):  # keeps each build's seconds (the checkpoint's load)
+        t0 = time.perf_counter()
+        built = build(*args, **kwargs)
+        sync()
+        builds.append(time.perf_counter() - t0)
+        return built
+
+    def keeping_render(*args, **kwargs):
+        renders.append(render(*args, **kwargs))
+        return renders[-1]
+
+    argv = [f"--data.root={prep}", f"--runtime.vggt_checkpoint={workdir}/svd/model.pt",
+            "--runtime.allow_random_weights=false", f"--runtime.skyseg_onnx={onnx}", *overrides]
+    reproject.build_reconstructor, reproject.render_memory_panoramas = counting_build, keeping_render
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        flash_attention.launches = flash_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        first = reproject.main(argv + ["--data.start_idx=1", "--data.end_idx=2"], device=dev)
+        sync()
+        result["reproject_s"] = time.perf_counter() - t0
+        launches = [flash_attention.launches, flash_attention_backward.launches]
+        result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev) if on_card else None
+        before = tree_state(prep)
+        flash_attention.launches = flash_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        second = reproject.main(argv, device=dev)
+        sync()
+        result["rerun_s"] = time.perf_counter() - t0
+        rerun_launches = [flash_attention.launches, flash_attention_backward.launches]
+        unchanged = tree_state(prep) == before
+    finally:
+        reproject.build_reconstructor, reproject.render_memory_panoramas = build, render
+
+    out_dir = os.path.join(episode, config.data.reprojection_name)
+    names = sorted(os.listdir(out_dir))
+    pngs = np.stack(load_frames([os.path.join(out_dir, n) for n in names])) if names else np.zeros((0,))
+    panos = renders[0] if renders else torch.zeros(0)
+    stages = first[0]["stage_seconds"] if first else {}
+    expected = vggt_launches(sources, (loop_cfg.pers_height, loop_cfg.pers_width),
+                             VGGT_PRESETS["tiny" if config.runtime.vggt_tiny else "full"], FLASH_MIN_SEQ) \
+        if on_card else 0
+
+    # the sky mask of a few crops on the card against the CPU
+    t0 = time.perf_counter()
+    card_masks = SkySegmentation(onnx, dev).sky_masks(few).cpu()
+    sync()
+    mask_s = time.perf_counter() - t0
+    cpu_masks = SkySegmentation(onnx, "cpu").sky_masks(few)
+
+    # cube_to_pano on both capture layouts, on the card against the CPU
+    cube_flags = [f"--data.height={CUBE_PANO[0]}", f"--data.width={CUBE_PANO[1]}", *overrides]
+    cube_hw = apply_overrides(EvoWorldConfig(), cube_flags).data
+    cube = {}
+    for layout in ("unity", "ue"):
+        captures = os.path.join(workdir, "cubes", layout)
+        write_cube_captures(captures, layout, 2, cube_face, seed + 15)
+        outs = {}
+        for where, d in (("dev", dev), ("cpu", torch.device("cpu"))):
+            outs[where] = os.path.join(workdir, "cubes", f"{layout}_{where}")
+            flags = [f"--data.root={captures}", f"--runtime.save_dir={outs[where]}", f"--data.engine={layout}"]
+            t0 = time.perf_counter()
+            written = cube_to_pano.main(flags + cube_flags, device=d)
+            sync()
+            cube[f"{layout}_{where}_s"] = time.perf_counter() - t0
+        a, b = (np.stack(load_frames([os.path.join(outs[w], n) for n in sorted(os.listdir(outs[w]))]))
+                for w in ("dev", "cpu"))
+        cube[layout] = dict(panoramas=len(written), shape=list(a.shape[1:]),
+                            flipped=float((a != b).any(-1).mean()), std=float(a.std()))
+
+    result.update(
+        pers_crops=n_crops, crop_sizes=sorted(crop_sizes), sources=sources,
+        vggt_s=stages.get("reconstruct"), sky_mask_s=stages.get("sky_mask"), render_s=stages.get("render"),
+        first_call=[(os.path.basename(r["episode"]), r["rendered"]) for r in first],
+        second_call=[(os.path.basename(r["episode"]), r["rendered"]) for r in second],
+        vggt_builds=len(builds), vggt_load_s=builds[0] if builds else None, launches=launches, expected=[expected, 0], rerun_launches=rerun_launches,
+        rerun_wrote_nothing=unchanged, renders=len(names), render_shape=list(pngs.shape[1:]),
+        render_finite=bool(torch.isfinite(panos).all()) if len(renders) else False,
+        render_std=float(pngs.std()) if names else 0.0,
+        render_coverage=float((pngs.sum(-1) > 0).mean()) if names else 0.0,
+        sky_mask_card_s=mask_s, sky_share=float((card_masks == 0).float().mean()),
+        sky_mask_flipped=float((card_masks != cpu_masks).float().mean()), cube_to_pano=cube)
+    log("prep " + json.dumps(result))
+    want_first = [("ep_1", True)]
+    want_second = [("ep_0", False), ("ep_1", False), ("ep_2", False)]
+    if n_crops != n_frames or crop_sizes != {(loop_cfg.pers_height, loop_cfg.pers_width)}:
+        raise AssertionError(f"pano_to_pers wrote {n_crops} crops of {crop_sizes}, expected {n_frames} of "
+                             f"{(loop_cfg.pers_height, loop_cfg.pers_width)}")
+    if result["first_call"] != want_first or result["second_call"] != want_second or len(builds) != 1:
+        raise AssertionError(f"reproject selected {result['first_call']} and {result['second_call']} with "
+                             f"{len(builds)} VGGT builds, expected {want_first}, {want_second} and 1")
+    if names != [f"{i:02d}.png" for i in range(loop_cfg.num_target_view)] or result["render_shape"] != [
+            height, width, 3] or not result["render_finite"] or result["render_std"] <= 0:
+        raise AssertionError(f"reproject rendered {names} of {result['render_shape']}, finite "
+                             f"{result['render_finite']}, std {result['render_std']}")
+    if launches != [expected, 0] or rerun_launches != [0, 0] or not unchanged:
+        raise AssertionError(f"reproject launched the flash kernels {launches} times (expected {[expected, 0]}), "
+                             f"its rerun {rerun_launches} times, rerun left the files unchanged: {unchanged}")
+    if not (0.02 < result["sky_share"] < 0.98) or result["sky_mask_flipped"] > PREP_MASK_MAX_FLIPPED:
+        raise AssertionError(f"the sky mask on the card: sky share {result['sky_share']}, "
+                             f"{result['sky_mask_flipped']} flipped against the CPU")
+    for layout in ("unity", "ue"):
+        c = cube[layout]
+        if c["panoramas"] != 2 or c["shape"] != [cube_hw.height, cube_hw.width, 3] or c["std"] <= 0 \
+                or c["flipped"] > CUBE_MAX_FLIPPED:
+            raise AssertionError(f"cube_to_pano {layout}: {c}")
+    return result
+
+
 def full_clips(dev, steps: int, seed: int) -> list[dict]:
     """Two full-width clips (cold, warm); checks launch counts and outputs."""
     import torch
@@ -1876,7 +2182,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_loop_against_cpu(dev, SEED)
     loop_run = full_loop(dev, STEPS, SEED)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:  # phases 11-13 share it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:  # phases 11-14 share it
         t0 = time.perf_counter()
         cli_run = full_cli(dev, STEPS, SEED, workdir=workdir)
         log(f"cli phase wall seconds {time.perf_counter() - t0:.3f}")
@@ -1886,6 +2192,9 @@ def main() -> int:
         t0 = time.perf_counter()
         eval_run = full_eval(dev, workdir, cli_run["out_dir"], train_cli_run.pop("clip"))
         log(f"eval phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        prep_run = full_prep(dev, workdir, SEED)
+        log(f"prep phase wall seconds {time.perf_counter() - t0:.3f}")
     torch.cuda.empty_cache()
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
@@ -1909,7 +2218,8 @@ def main() -> int:
                              "clip": runs[-1]["flash_launches"], "vae_mid_gradient": vae_grad["launches_fwd_bwd"][0],
                              "cli_single_segment": cli_run["single"]["launches"][0],
                              "cli_unified": cli_run["unified"]["launches"][0],
-                             "cli_train": cli_train[0], "eval": eval_run["launches"][0]},
+                             "cli_train": cli_train[0], "eval": eval_run["launches"][0],
+                             "reproject": prep_run["launches"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in flash["shapes"]),
         "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"],
@@ -1934,7 +2244,8 @@ def main() -> int:
                              "vae_mid_gradient": vae_grad["launches_fwd_bwd"][1],
                              "cli_single_segment": cli_run["single"]["launches"][1],
                              "cli_unified": cli_run["unified"]["launches"][1],
-                             "cli_train": cli_train[1], "eval": eval_run["launches"][1]},
+                             "cli_train": cli_train[1], "eval": eval_run["launches"][1],
+                             "reproject": prep_run["launches"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"]),
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],

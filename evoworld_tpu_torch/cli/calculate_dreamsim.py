@@ -6,7 +6,8 @@ with `--runtime.dreamsim_variant=ensemble`. Weights load from
 `--runtime.metric_weights_dir`: dreamsim.pt (DINO naming, the dino branch)
 and, for the ensemble, dreamsim_clip.pt / dreamsim_open_clip.pt (OpenAI
 `visual.*` naming); absent files leave a branch random (tagged
-"random_seed0_torch"). Images are read as PNG through `data/native_io.py`.
+"random_seed0_torch"). Images are read as PNG or JPEG (by their first
+bytes) through `data/native_io.py`.
 
 Usage (on the card):
   python -m evoworld_tpu_torch.cli.calculate_dreamsim --data.root=<image1.png>:<image2.png>
@@ -22,7 +23,7 @@ import os
 import torch
 
 from evoworld_tpu_torch.cli.common import logger, parse_config
-from evoworld_tpu_torch.data.native_io import load_image_batch, png_size
+from evoworld_tpu_torch.data.native_io import image_size, load_image_batch
 from evoworld_tpu_torch.device import resolve_device
 from evoworld_tpu_torch.eval.dreamsim import clip_visual_state_dict, dino_state_dict, make_dreamsim
 
@@ -61,7 +62,7 @@ def main(argv=None, device: str | torch.device = "cuda") -> dict:
                           device=dev)
 
     def load(p):
-        return load_image_batch([p], *png_size(p), minus1_1=False)
+        return load_image_batch([p], *image_size(p), minus1_1=False)
 
     score = float(model(load(path1), load(path2))[0])
     logger.info(f"dreamsim({os.path.basename(path1)}, {os.path.basename(path2)}) = {score:.5f}")

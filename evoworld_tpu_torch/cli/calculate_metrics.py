@@ -29,18 +29,19 @@ import numpy as np
 import torch
 
 from evoworld_tpu_torch.cli.common import logger, parse_config
-from evoworld_tpu_torch.data.native_io import load_image_batch, png_size
+from evoworld_tpu_torch.data.native_io import image_size, load_image_batch
 from evoworld_tpu_torch.device import resolve_device
 from evoworld_tpu_torch.eval.harness import FeatureNets, calculate_all_metrics
 from evoworld_tpu_torch.eval.weights import load_metric_weights
 
 
 def read_video_dir(path: str, num_frames: int) -> np.ndarray:
-    """The last `num_frames` PNGs of a directory (sorted by name) ->
-    (N, H, W, 3) float32 in [0, 1]; the frames must share one size."""
+    """The last `num_frames` `.png` files of a directory (sorted by name; each
+    decoded as the PNG or JPEG its first bytes name) -> (N, H, W, 3) float32
+    in [0, 1]; the frames must share one size."""
     names = sorted(f for f in os.listdir(path) if f.lower().endswith(".png"))[-num_frames:]
     paths = [os.path.join(path, n) for n in names]
-    sizes = {png_size(p) for p in paths}
+    sizes = {image_size(p) for p in paths}
     if len(sizes) != 1:
         raise ValueError(f"{path}: frames of sizes {sorted(sizes)}; need one size")
     (h, w), = sizes

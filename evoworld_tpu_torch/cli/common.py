@@ -21,16 +21,30 @@ import numpy as np
 import torch
 
 from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides, describe
-from evoworld_tpu_torch.data.native_io import save_png_batch
+from evoworld_tpu_torch.data.native_io import image_size, load_image_batch, save_png_batch
 
 
 logger = logging.getLogger("evoworld_tpu_torch")  # the runtime's too
 
 
+class _StderrHandler(logging.StreamHandler):
+    """A stream handler on whatever `sys.stderr` is when a record is emitted:
+    one bound at creation keeps writing to a stream that a caller (a test
+    runner's capture) has since replaced and closed."""
+
+    @property
+    def stream(self):
+        return sys.stderr
+
+    @stream.setter
+    def stream(self, value):
+        pass
+
+
 def _log_to_stderr() -> None:
     """Timestamped INFO lines of the port's logger on stderr, once per process."""
     if not logger.handlers:
-        handler = logging.StreamHandler()
+        handler = _StderrHandler()
         handler.setFormatter(logging.Formatter("%(asctime)s - %(levelname)s - %(message)s"))
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
@@ -80,6 +94,19 @@ def save_frames(frames, out_dir: str, start_index: int = 0, fmt: str = "{:03d}.p
     os.makedirs(out_dir, exist_ok=True)
     u8 = to_uint8(frames)
     save_png_batch([os.path.join(out_dir, fmt.format(start_index + i)) for i in range(len(u8))], u8)
+
+
+def load_frames(paths) -> list[np.ndarray]:
+    """PNG or JPEG files -> (H, W, 3) float32 arrays in [0, 1], each at its own
+    size (v / 255, as PIL's decode gives it), files of one size decoded in
+    one call on the thread pool."""
+    sizes = [image_size(p) for p in paths]
+    out: list = [None] * len(paths)
+    for size in dict.fromkeys(sizes):
+        idx = [i for i, s in enumerate(sizes) if s == size]
+        for i, frame in zip(idx, load_image_batch([paths[i] for i in idx], *size, minus1_1=False)):
+            out[i] = frame
+    return out
 
 
 def frames_from_minus1_1(frames) -> np.ndarray:

@@ -41,7 +41,7 @@ class DataConfig:
     single_episode: bool = True
     start_idx: int = 0
     end_idx: int = -1
-    # Sky masking for the offline reprojection tool (not ported yet).
+    # Sky masking in the offline reprojection tool (`cli/reproject.py`).
     mask_sky: bool = True
 
 

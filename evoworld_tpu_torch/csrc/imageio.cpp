@@ -18,9 +18,11 @@
 //
 // PNG variants read: colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey +
 // alpha), 6 (RGBA) at 8 or 16 bits, palette and grey also at 1, 2, 4 bits;
-// no interlacing. As libpng with the JAX loader's transforms: 16-bit samples
-// keep their high byte (png_set_strip_16), grey is replicated to RGB and
-// alpha dropped without compositing (png_set_strip_alpha).
+// plain or Adam7-interlaced (each of the seven passes un-filtered as an
+// image of its own, then scattered into place, as libpng de-interlaces). As
+// libpng with the JAX loader's transforms: 16-bit samples keep their high
+// byte (png_set_strip_16), grey is replicated to RGB and alpha dropped
+// without compositing (png_set_strip_alpha).
 
 #include <zlib.h>
 
@@ -75,12 +77,12 @@ uint8_t paeth(int a, int b, int c) {
 
 // Undo the row filters in place: `raw` holds h rows of 1 filter byte +
 // `stride` bytes; `bpp` is the filter's byte distance (at least 1).
-bool unfilter(std::vector<uint8_t>& raw, int h, size_t stride, int bpp) {
+bool unfilter(uint8_t* raw, int h, size_t stride, int bpp) {
   for (int y = 0; y < h; ++y) {
-    uint8_t* row = raw.data() + size_t(y) * (stride + 1);
+    uint8_t* row = raw + size_t(y) * (stride + 1);
     const uint8_t type = row[0];
     uint8_t* cur = row + 1;
-    const uint8_t* prev = y > 0 ? raw.data() + size_t(y - 1) * (stride + 1) + 1 : nullptr;
+    const uint8_t* prev = y > 0 ? raw + size_t(y - 1) * (stride + 1) + 1 : nullptr;
     for (size_t i = 0; i < stride; ++i) {
       const int a = i >= size_t(bpp) ? cur[i - bpp] : 0;
       const int b = prev ? prev[i] : 0;
@@ -125,7 +127,7 @@ int decode_png(const std::vector<uint8_t>& bytes, Image& out) {
     at += 12 + size_t(len);
   }
   // A header from outside the program: sizes past 2^16 a side are refused before any allocation.
-  if (out.w <= 0 || out.h <= 0 || out.w > (1 << 16) || out.h > (1 << 16) || interlace != 0 || idat.empty()) {
+  if (out.w <= 0 || out.h <= 0 || out.w > (1 << 16) || out.h > (1 << 16) || interlace > 1 || idat.empty()) {
     return kBadPng;
   }
   int channels;
@@ -139,41 +141,67 @@ int decode_png(const std::vector<uint8_t>& bytes, Image& out) {
   const bool low = depth == 1 || depth == 2 || depth == 4;
   if (!(depth == 8 || depth == 16 || (low && (color == 0 || color == 3)))) return kBadPng;
   if (color == 3 && (depth == 16 || palette.size() < 3)) return kBadPng;
-  const size_t stride = (size_t(out.w) * channels * depth + 7) / 8;
+
+  // The passes of the scan, each (x0, y0, dx, dy): the whole image, or
+  // Adam7's seven. Each pass is a sub-image of its own rows (filter byte +
+  // stride bytes, a sub-byte row rounded up to whole bytes) and filters;
+  // an empty pass has no bytes at all.
+  static const int kWhole[1][4] = {{0, 0, 1, 1}};
+  static const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                                   {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+  const int (*passes)[4] = interlace ? kAdam7 : kWhole;
+  const int n_passes = interlace ? 7 : 1;
+  int pass_w[7], pass_h[7];
+  size_t pass_stride[7], total = 0;
+  for (int p = 0; p < n_passes; ++p) {
+    pass_w[p] = (out.w - passes[p][0] + passes[p][2] - 1) / passes[p][2];
+    pass_h[p] = (out.h - passes[p][1] + passes[p][3] - 1) / passes[p][3];
+    if (pass_w[p] <= 0 || pass_h[p] <= 0) pass_w[p] = pass_h[p] = 0;
+    pass_stride[p] = (size_t(pass_w[p]) * channels * depth + 7) / 8;
+    total += size_t(pass_h[p]) * (pass_stride[p] + (pass_w[p] > 0));
+  }
   const int bpp = depth < 8 ? 1 : channels * depth / 8;
-  std::vector<uint8_t> raw(size_t(out.h) * (stride + 1));
+  std::vector<uint8_t> raw(total);
   uLongf raw_len = raw.size();
   if (uncompress(raw.data(), &raw_len, idat.data(), idat.size()) != Z_OK || raw_len != raw.size()) return kBadPng;
-  if (!unfilter(raw, out.h, stride, bpp)) return kBadPng;
 
   out.rgb.resize(size_t(out.h) * out.w * 3);
   const int step = depth == 16 ? 2 : 1;  // a 16-bit sample keeps its high byte
-  for (int y = 0; y < out.h; ++y) {
-    const uint8_t* row = raw.data() + size_t(y) * (stride + 1) + 1;
-    uint8_t* dst = out.rgb.data() + size_t(y) * out.w * 3;
-    for (int x = 0; x < out.w; ++x) {
-      uint8_t r, g, b;
-      if (low) {
-        const int per_byte = 8 / depth;
-        const int v = (row[x / per_byte] >> ((per_byte - 1 - x % per_byte) * depth)) & ((1 << depth) - 1);
-        if (color == 3) {
-          if (size_t(v) * 3 + 2 >= palette.size()) return kBadPng;
-          r = palette[v * 3], g = palette[v * 3 + 1], b = palette[v * 3 + 2];
+  uint8_t* pass_raw = raw.data();
+  for (int p = 0; p < n_passes; ++p) {
+    if (!pass_w[p]) continue;
+    const size_t stride = pass_stride[p];
+    uint8_t* rows = pass_raw;
+    pass_raw += size_t(pass_h[p]) * (stride + 1);
+    if (!unfilter(rows, pass_h[p], stride, bpp)) return kBadPng;
+    for (int y = 0; y < pass_h[p]; ++y) {
+      const uint8_t* row = rows + size_t(y) * (stride + 1) + 1;
+      uint8_t* dst = out.rgb.data() + (size_t(passes[p][1] + y * passes[p][3]) * out.w + passes[p][0]) * 3;
+      const size_t dst_step = size_t(passes[p][2]) * 3;
+      for (int x = 0; x < pass_w[p]; ++x, dst += dst_step) {
+        uint8_t r, g, b;
+        if (low) {
+          const int per_byte = 8 / depth;
+          const int v = (row[x / per_byte] >> ((per_byte - 1 - x % per_byte) * depth)) & ((1 << depth) - 1);
+          if (color == 3) {
+            if (size_t(v) * 3 + 2 >= palette.size()) return kBadPng;
+            r = palette[v * 3], g = palette[v * 3 + 1], b = palette[v * 3 + 2];
+          } else {
+            r = g = b = uint8_t(v * 255 / ((1 << depth) - 1));
+          }
         } else {
-          r = g = b = uint8_t(v * 255 / ((1 << depth) - 1));
+          const uint8_t* px = row + size_t(x) * channels * step;
+          if (color == 3) {
+            if (size_t(px[0]) * 3 + 2 >= palette.size()) return kBadPng;
+            r = palette[px[0] * 3], g = palette[px[0] * 3 + 1], b = palette[px[0] * 3 + 2];
+          } else if (channels >= 3) {
+            r = px[0], g = px[step], b = px[2 * step];
+          } else {
+            r = g = b = px[0];
+          }
         }
-      } else {
-        const uint8_t* px = row + size_t(x) * channels * step;
-        if (color == 3) {
-          if (size_t(px[0]) * 3 + 2 >= palette.size()) return kBadPng;
-          r = palette[px[0] * 3], g = palette[px[0] * 3 + 1], b = palette[px[0] * 3 + 2];
-        } else if (channels >= 3) {
-          r = px[0], g = px[step], b = px[2 * step];
-        } else {
-          r = g = b = px[0];
-        }
+        dst[0] = r, dst[1] = g, dst[2] = b;
       }
-      dst[3 * x] = r, dst[3 * x + 1] = g, dst[3 * x + 2] = b;
     }
   }
   return kOk;

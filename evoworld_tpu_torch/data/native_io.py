@@ -92,15 +92,42 @@ def load_image_batch(
     return out
 
 
-def png_size(path: str) -> tuple[int, int]:
-    """(height, width) of a PNG file from its IHDR chunk; raises IOError for
-    a file that is not a PNG."""
+# JPEG frame headers (SOFn): every marker C0-CF but C4 (DHT), C8 (JPG) and CC (DAC).
+_JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(height, width) of a PNG or JPEG file, read from its header: a PNG's
+    IHDR chunk, or a JPEG's first frame header (SOFn), found by walking the
+    marker segments as the decoder does. The format is the one the first
+    bytes name, as for the decoder, whatever the file's name. Raises IOError
+    naming the file for one that is neither, or whose header is cut short."""
     with open(path, "rb") as f:
         head = f.read(24)
-    if len(head) < 24 or head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
-        raise IOError(f"{path} is not a PNG")
-    width, height = int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
-    return height, width
+        if head[:8] == b"\x89PNG\r\n\x1a\n":
+            if len(head) < 24 or head[12:16] != b"IHDR":
+                raise IOError(f"{path} {_REASONS[3]}")
+            return int.from_bytes(head[20:24], "big"), int.from_bytes(head[16:20], "big")
+        if head[:2] != b"\xff\xd8":
+            raise IOError(f"{path} {_REASONS[2]}")
+        data = head + f.read()
+    pos = 2
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:  # up to a marker, then past its fill bytes
+            pos += 1
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos + 2 >= len(data) or data[pos] == 0xD9:  # the end, or EOI, before any frame header
+            raise IOError(f"{path} {_REASONS[5]}")
+        marker = data[pos]
+        pos += 1
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # RSTn, TEM: no length
+            continue
+        if marker in _JPEG_SOF:
+            if pos + 7 > len(data):
+                raise IOError(f"{path} {_REASONS[5]}")
+            return int.from_bytes(data[pos + 3:pos + 5], "big"), int.from_bytes(data[pos + 5:pos + 7], "big")
+        pos += int.from_bytes(data[pos:pos + 2], "big")
 
 
 def save_png_batch(paths: Sequence[str], frames: np.ndarray, n_threads: int = 0) -> None:

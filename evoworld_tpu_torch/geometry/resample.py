@@ -1,8 +1,8 @@
 """Spherical resampling (counterpart of `evoworld_tpu/geometry/resample.py`):
-equirectangular sampling, equirect -> perspective crops, panorama yaw rotation.
+equirectangular sampling, equirect -> perspective crops, panorama yaw
+rotation, and equirect <-> cubemap (bilinear, pixel centres).
 
-Images are channels-last (H, W, C) float tensors. The cubemap conversions of
-the JAX module are not ported yet (only the offline tools use them).
+Images are channels-last (H, W, C) float tensors.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from evoworld_tpu_torch.geometry.rays import pinhole_ray_grid
+from evoworld_tpu_torch.geometry.rays import equirect_ray_grid, pinhole_ray_grid
 
 
 def _gather_hw(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
@@ -103,3 +103,64 @@ def rotate_pano_yaw(pano: torch.Tensor, degrees: torch.Tensor | float) -> torch.
     src = torch.remainder(xs + degrees / 360.0 * width, width)
     src_i = torch.clamp(torch.floor(src).to(torch.int64), 0, width - 1)
     return pano[:, src_i, :]
+
+
+#: face index -> face, each looking down its axis in the RDF frame. The order
+#: and orientation invert each other (equirect -> cube -> equirect is the
+#: identity away from the seams); they are not the capture engines' layout
+#: (`data/engine.py`).
+CUBE_FACES = ("front", "right", "back", "left", "up", "down")
+
+
+def _face_dirs(face_size: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """Unit ray directions of all six faces' pixel centres: (6, S, S, 3)."""
+    s = (torch.arange(face_size, dtype=torch.float32, device=device) + 0.5) / face_size * 2.0 - 1.0
+    a = s[None, :].expand(face_size, face_size)  # varies along x
+    b = s[:, None].expand(face_size, face_size)  # varies along y
+    one = torch.ones_like(a)
+    d = torch.stack([
+        torch.stack([a, b, one], -1),     # front, +Z
+        torch.stack([one, b, -a], -1),    # right, +X
+        torch.stack([-a, b, -one], -1),   # back, -Z
+        torch.stack([-one, b, a], -1),    # left, -X
+        torch.stack([a, -one, -b], -1),   # up, -Y
+        torch.stack([a, one, b], -1),     # down, +Y
+    ])
+    return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
+def pano_to_cubemap(pano: torch.Tensor, face_size: int) -> torch.Tensor:
+    """(H, W, C) equirect image -> (6, S, S, C) cube faces in CUBE_FACES order."""
+    d = _face_dirs(face_size, pano.device)
+    lon = torch.atan2(d[..., 0], d[..., 2])
+    lat = torch.asin(torch.clamp(d[..., 1], -1.0, 1.0))
+    return bilinear_sample_pano(pano, lon, lat)
+
+
+def cubemap_to_pano(faces: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(6, S, S, C) cube faces in CUBE_FACES order -> (H, W, C) equirect image:
+    each ray reads the face of its dominant axis, bilinearly, clamped at the
+    face's edges."""
+    face_size = faces.shape[1]
+    d = equirect_ray_grid(height, width, device=faces.device)
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    is_z = (az >= ax) & (az >= ay)
+    is_x = ~is_z & (ax >= ay)
+    face = torch.where(is_z, torch.where(z > 0, 0, 2),
+                       torch.where(is_x, torch.where(x > 0, 1, 3), torch.where(y < 0, 4, 5)))
+    denom = torch.clamp(torch.where(is_z, az, torch.where(is_x, ax, ay)), min=1e-12)
+    # in-plane coordinates, inverting _face_dirs
+    u = torch.where(is_z, torch.where(z > 0, x, -x) / denom,
+                    torch.where(is_x, torch.where(x > 0, -z, z) / denom, x / denom))
+    v = torch.where(is_z | is_x, y / denom, torch.where(y < 0, -z, z) / denom)
+    fu = (u + 1.0) * 0.5 * face_size - 0.5
+    fv = (v + 1.0) * 0.5 * face_size - 0.5
+    u0, v0 = torch.floor(fu), torch.floor(fv)
+    du, dv = (fu - u0)[..., None], (fv - v0)[..., None]
+    u0i = torch.clamp(u0.to(torch.int64), 0, face_size - 1)
+    v0i = torch.clamp(v0.to(torch.int64), 0, face_size - 1)
+    u1i, v1i = torch.clamp(u0i + 1, max=face_size - 1), torch.clamp(v0i + 1, max=face_size - 1)
+    top = faces[face, v0i, u0i] * (1.0 - du) + faces[face, v0i, u1i] * du
+    bot = faces[face, v1i, u0i] * (1.0 - du) + faces[face, v1i, u1i] * du
+    return top * (1.0 - dv) + bot * dv

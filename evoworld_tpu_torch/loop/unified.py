@@ -55,7 +55,7 @@ class LoopConfig:
     trim_residency: bool = True
 
 
-class _StageClock:
+class StageClock:
     """Seconds per named stage into `timings` (if given), the device
     synchronised at both ends of each."""
 
@@ -127,7 +127,7 @@ class UnifiedLoop:
         if self.reconstructor is None:
             raise ValueError("no reconstructor injected")
         cfg = self.config
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         _, end_idx, _ = calculate_segment_indices(segment_id, cfg.num_target_view)
         n_total = all_frames.shape[0]
         window = n_total if not cfg.max_recon_frames else min(n_total, cfg.max_recon_frames)
@@ -188,7 +188,7 @@ class UnifiedLoop:
             both empty in streaming mode.
         """
         cfg = self.config
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         start_image = start_image.to(self.device, torch.float32)
         all_frames: Optional[torch.Tensor] = None
         frames_dropped = 0

@@ -236,6 +236,24 @@ def vggt_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
+_U2NET_BN = {"bn_scale": "bn_s1.weight", "bn_bias": "bn_s1.bias", "bn_mean": "bn_s1.running_mean",
+             "bn_var": "bn_s1.running_var"}
+
+
+def u2net_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax params of `evoworld_tpu.memory.u2net.U2Net` (`{"params": ...}` or
+    the inner dict) -> the port's U2Net state dict under upstream names, batch
+    norms' counters left out (fp32 CPU tensors)."""
+    sd = {}
+    for path, value in _flatten(tree.get("params", tree)).items():
+        if path[-1] in _U2NET_BN:
+            leaf = _U2NET_BN[path[-1]]
+        else:
+            leaf, value = _leaf(path[-1], value)
+        sd[".".join(path[:-1] + (leaf,))] = torch.tensor(np.ascontiguousarray(value, np.float32))
+    return sd
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill `module`'s parameters in place with role-aware random values.

@@ -130,3 +130,20 @@ def test_gif_summary_reads_the_block_structure(tmp_path):
     (tmp_path / "cut.gif").write_bytes(data[: len(data) // 2])
     with pytest.raises((ValueError, IndexError)):
         chip_smoke.gif_summary(str(tmp_path / "cut.gif"))
+
+
+def test_prep_phase_runs_at_tiny_size_on_the_cpu(tmp_path):
+    """Phase 14 on phase 11's files at the tiny presets: the crops, the
+    reproject CLI's selection, skip and render checks with a U^2-Net sky
+    mask (10 target views, so that 3 of the 13 crops are sources), the
+    mask's and the cubemaps' comparison (the CPU on both sides)."""
+    import torch
+
+    dev = torch.device("cpu")
+    chip_smoke.full_cli(dev, 2, 0, overrides=TINY, workdir=str(tmp_path))
+    prep = chip_smoke.full_prep(dev, str(tmp_path), 0, cube_face=24, mask_crops=1, overrides=TINY + (
+        "--loop.num_target_view=10", "--data.height=40", "--data.width=80"))
+    assert prep["pers_crops"] == 13 and prep["sources"] == 3 and prep["crop_sizes"] == [(16, 512)]
+    assert prep["renders"] == 10 and prep["render_shape"] == [64, 128, 3] and prep["vggt_builds"] == 1
+    assert prep["launches"] == prep["rerun_launches"] == [0, 0] and prep["rerun_wrote_nothing"]
+    assert prep["sky_mask_flipped"] == 0.0 and set(prep["cube_to_pano"]["ue"]) >= {"flipped", "panoramas"}

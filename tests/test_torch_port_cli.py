@@ -14,7 +14,7 @@
   memory samplings, exactly, and on an episode of `.jpg` frames.
 - `AsyncFrameWriter`'s repairs: the first error is the one raised, it is
   raised once (no self-chained traceback), float64 frames are scaled in
-  float32, and a writer never closed warns.
+  float32, and a writer never closed warns. The log follows `sys.stderr`.
 - Both CLIs on a tiny synthetic episode (tiny presets, fp32, 64x128, 5
   frames, 2 steps, 2 segments, `device="cpu"`) write exactly the PNGs of the
   port's own `Navigator.generate_segment` / `UnifiedLoop.run_episode` given
@@ -273,6 +273,23 @@ def test_unclosed_writer_warns():
     closed = common.AsyncFrameWriter()
     closed.close()
     assert not closed._finalizer.alive
+
+
+def test_cli_log_follows_the_current_stderr(monkeypatch):
+    """The CLIs' log lines go to whatever `sys.stderr` is when they are
+    logged, not to the stream of the first `parse_config`: under a test
+    runner's capture that stream is closed by the next test, and every line
+    logged to it after raised "I/O operation on closed file" inside logging."""
+    import io
+    import sys
+
+    common.parse_config([])
+    for _ in range(2):
+        stream = io.StringIO()
+        monkeypatch.setattr(sys, "stderr", stream)
+        common.logger.info("a line for this stream")
+        assert stream.getvalue().endswith("a line for this stream\n")
+        stream.close()
 
 
 def _pipeline():

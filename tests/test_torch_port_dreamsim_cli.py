@@ -3,7 +3,8 @@ two PNGs scored in both variants give the same JSON keys and weights tag
 and a score within 1e-4 (a cosine distance of 768- or 1792-d fp32
 embeddings), both CLIs loading every branch from one directory of
 synthesized upstream weights: DINO's naming without LayerScale (as DINO v1)
-and OpenAI's `visual.*` for both CLIP branches.
+and OpenAI's `visual.*` for both CLIP branches. JPEG images, sized by their
+headers, score as in the JAX CLI too.
 """
 
 import json
@@ -90,3 +91,23 @@ def test_calculate_dreamsim_matches_jax_cli(predictions, weights_dir, variant, c
     assert ours.keys() == theirs.keys() and ours["weights"] == theirs["weights"]
     assert 100 * 1e-4 < ours["dreamsim"] < 2.0  # far above the tolerance: the nets see the images
     np.testing.assert_allclose(ours["dreamsim"], theirs["dreamsim"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("pair", [("baseline_420.jpg", "baseline_420.png"), ("baseline_420.jpg", "grey.jpg")])
+def test_calculate_dreamsim_scores_jpegs_as_the_jax_cli(weights_dir, pair, capsys):
+    """JPEG images, which the JAX CLI opens with PIL: the committed 4:2:0
+    JPEG against PIL's decode of it stored as a PNG (the same pixels, a
+    score of about 0), and against another JPEG (a grey one of another
+    size), each within 1e-4 of the JAX CLI's score."""
+    data = os.path.join(os.path.dirname(__file__), "torch_port_data")
+    a, b = (os.path.join(data, name) for name in pair)
+    argv = [f"--data.root={a}:{b}", f"--runtime.metric_weights_dir={weights_dir}"]
+    with jax.default_matmul_precision("highest"):
+        jax_dreamsim.main(argv)
+    theirs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ours = calculate_dreamsim.main(argv, device="cpu")
+    np.testing.assert_allclose(ours["dreamsim"], theirs["dreamsim"], rtol=0, atol=1e-4)
+    if pair[1].endswith(".png"):
+        assert abs(ours["dreamsim"]) < 1e-4
+    else:
+        assert 100 * 1e-4 < ours["dreamsim"] < 2.0

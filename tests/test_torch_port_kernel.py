@@ -60,8 +60,10 @@ def _rel_errors(out, ref):
      # head dims without a kernel of their own, zero-padded to 64 and 128
      (2, 300, 333, 333, 2, 16, False), (1, 200, 177, 150, 2, 80, True),
      # VGGT's global attention at the loop's two rebuilds: 25 and 49 frames x 1041 tokens
-     # (51009 = 398 x 128 + 65: the last query and key tiles are ragged)
-     (1, 26025, 26025, 26025, 16, 64, False), (1, 51009, 51009, 51009, 16, 64, False)],
+     # (51009 = 398 x 128 + 65: the last query and key tiles are ragged), and
+     # at reproject's 73 source frames of a 97-frame episode (75993 = 593 x 128 + 89)
+     (1, 26025, 26025, 26025, 16, 64, False), (1, 51009, 51009, 51009, 16, 64, False),
+     (1, 75993, 75993, 75993, 16, 64, False)],
 )
 def test_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d, use_exp2):
     g = torch.Generator(device=cuda).manual_seed(0)
