@@ -140,8 +140,36 @@ reproject) adds:
      layouts into 1000x2000 panoramas, against the CPU by flipped share
      (CUBE_MAX_FLIPPED); it prints the seconds of the crops, VGGT, the mask,
      the alignment and render, and cube_to_pano, and the peak memory.
+The fp16 slice (every flash kernel templated over bf16 and fp16, the
+converter) adds:
+  2. the ptxas report of every fp16 instantiation beside its bf16 twin's:
+     each kernel entry must exist in both types, neither spilling nor
+     serializing its wgmma;
+  3, 3b. fp16 twins of the main path's rows (FP16_FWD_TWINS, FP16_BWD_TWINS:
+     UNet L0 with and without the LSE, VGGT at 51009 and 75993 tokens, the
+     VAE mid at B = 2, 5 and 8, the ragged rows; the training shape,
+     D = 128, D = 512 at B = 8, the ragged backward rows) on the same values
+     cast to fp16, under fp16's own limits (FP16_MAX_REL_ERR,
+     FP16_MEAN_REL_ERR), which the dropped-keys version and the bf16 twin's
+     errors must fail, the same repeat checks, timed beside their bound,
+     plain version and library call; every row names the element type the trace shows,
+     and on a card at FULL_POWER_W each fp16 row keeps within TWIN_MS_RATIO
+     of its bf16 twin;
+  15. the fp16 path on phase 11's and 14's files: phase 11's checkpoints as
+     fp32 safetensors, halved by `cli.convert_checkpoint halve` into an fp16
+     pipeline directory (every F32 tensor equal to its `.to(float16)` bit for
+     bit), `cli.convert_checkpoint validate` on it (exit 0) and on a copy with
+     one tensor's shape changed (exit 1, naming it), then at
+     `--runtime.compute_dtype=float16`: `cli.run_single_segment.main` from
+     the fp16 directory (5N + 18 launches, finite frames, the PNGs; the RMS
+     difference from phase 11's bf16 clip reported), `cli.train.main` for 2
+     steps from phase 11's checkpoints without validation
+     (`expected_train_launches` a step, finite losses and gradient norms,
+     level-0 norm1's gradient nonzero), and `cli.reproject.main` on a fresh
+     copy of phase 14's episode (24 launches, 24 finite renders that are not
+     one value); seconds, peak memory.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
-the card: the entry points refuse a dtype other than bf16 on CUDA.
+the card: the entry points refuse fp32 on CUDA (they take bf16 and fp16).
 It prints, in order before the last line, the run's wall seconds, the card's
 name and power limit, a JSON line of the kernels, and ends with the JSON line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
@@ -161,13 +189,19 @@ import tempfile
 import time
 import types
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak, fp16's too
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bandwidth
 # Kernel against plain version, error over the RMS of the plain output (about
 # sqrt(e / kv_len) for these inputs). bf16 rounding of P and of the output sits
 # near 0.03 max / 0.002 mean; leaving out one 32-key tile moves the output by
 # about 0.05 mean, which DROPPED_KEYS checks the limits catch.
 MAX_REL_ERR, MEAN_REL_ERR = 0.1, 0.01
+# The same limits for the fp16 rows, which round to 3 more mantissa bits:
+# fp16 reads 0.0022-0.0098 max / 0.00021-0.00023 mean where its bf16 twins
+# read 0.018-0.070 / 0.0017-0.0018 on the same values (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md). An fp16 kernel that rounded anything to bf16
+# would read bf16's mean, which each fp16 row checks its twin's errors fail.
+FP16_MAX_REL_ERR, FP16_MEAN_REL_ERR = 0.02, 0.0006
 DROPPED_KEYS = 32
 # Forward kernel's row log-sum-exp against the plain one (about 9.6 for 9216
 # keys): fp32 accumulation order moves it by ~1e-5; dropping DROPPED_KEYS of
@@ -214,6 +248,20 @@ BWD_MS_LINES = {"unet_l0_train": 19.5, "ragged_padded_kv": 0.95, "head_dim_128":
 # The same for the D = 512 forward at the VAE's three shapes.
 FWD_MS_LINES = {"vae_encoder_mid": 1.7, "vae_encoder_mid_train": 5.0, "vae_decoder_mid": 3.3}
 FULL_POWER_W = 700.0
+# The kernels' element types, by the name each row and report uses, and the
+# name of each in the kernels' demangled (profiler) and mangled (ptxas) names.
+ELEM_TYPES = {"bf16": "bfloat16", "fp16": "float16"}
+TRACE_TYPE_NAMES = {"bf16": "__nv_bfloat16", "fp16": "__half"}
+PTXAS_TYPE_NAMES = {"bf16": "13__nv_bfloat16", "fp16": "6__half"}
+# The phase-3 and phase-3b rows repeated in fp16 (labels with "_fp16"): the
+# main path's shapes. On a card at FULL_POWER_W each fp16 row must keep
+# within TWIN_MS_RATIO of its bf16 twin's ms in the same run (the same
+# kernels at the same tensor-core rate; a serialized wgmma or another
+# schedule would cost more).
+FP16_FWD_TWINS = ("unet_l0_spatial", "unet_l0_train_lse", "vae_encoder_mid", "vae_encoder_mid_train",
+                  "vae_decoder_mid", "ragged_padded_kv", "ragged_padded_kv_exp2", "vggt_global_49", "vggt_global_73")
+FP16_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padded_kv", "ragged_d128")
+TWIN_MS_RATIO = 1.10
 # JPEGs with PIL's decode of each stored beside it as a PNG
 # (tests/torch_port_data/make_jpeg_fixtures.py).
 JPEG_FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_data")
@@ -287,22 +335,28 @@ def errors(out, ref) -> dict:
                 max_rel_err=(err.max() / rms).item(), mean_rel_err=(err.mean() / rms).item())
 
 
-def within_limits(e: dict) -> bool:
-    return e["max_rel_err"] <= MAX_REL_ERR and e["mean_rel_err"] <= MEAN_REL_ERR
+def within_limits(e: dict, elem: str = "bf16") -> bool:
+    """Whether the errors `e` keep to the limits of element type `elem`."""
+    max_rel, mean_rel = (FP16_MAX_REL_ERR, FP16_MEAN_REL_ERR) if elem == "fp16" else (MAX_REL_ERR, MEAN_REL_ERR)
+    return e["max_rel_err"] <= max_rel and e["mean_rel_err"] <= mean_rel
 
 
 def check_flash_kernel(dev, power_limit_w: float) -> dict:
-    """Flash kernel against flash_attention_plain (fp32 on the same bf16 inputs).
+    """Flash kernel against flash_attention_plain (fp32 on the same bf16 inputs;
+    the FP16_FWD_TWINS rows again in fp16, on the same values cast to fp16).
 
     The padded case gives the kernel keys and values past `kv_len` that would
     swamp the output if the mask missed them (K = 10, V = 100). Each case also
     checks that the limits catch a wrong result: the plain version without
-    the last DROPPED_KEYS keys must fail them. The training row also writes
+    the last DROPPED_KEYS keys must fail them. An fp16 row is held to fp16's
+    limits, which its bf16 twin's errors must fail. The training row also writes
     the log-sum-exp, held against the plain one within LSE_ATOL. A profiler
     trace names the kernel that served each row, which must be FWD_KERNELS'
     for its head dim (padded to the kernel's); with the card at FULL_POWER_W
-    the D = 512 rows must keep to FWD_MS_LINES. Bound and rate count the
-    work at the true head dim.
+    the D = 512 rows must keep to FWD_MS_LINES and each fp16 row within
+    TWIN_MS_RATIO of its bf16 twin. The trace must also show the row's
+    element type in every kernel it names. Bound and rate count the work at
+    the true head dim.
     """
     import torch
     import torch.nn.functional as F
@@ -332,12 +386,13 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         # a head dim without a kernel (the tiny presets' 16), zero-padded to 64
         ("padded_d16", 2, 9216, 9216, 2, 16, 9216, False, False),
     ]
-    g = torch.Generator(device=dev).manual_seed(1234)
     shapes = []
-    for label, b, sq, skv, h, d, kv_len, use_exp2, with_lse in cases:
+    for i, (label, b, sq, skv, h, d, kv_len, use_exp2, with_lse), elem in twin_runs(cases, FP16_FWD_TWINS):
         scale = d ** -0.5
-        q = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
-        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16() for _ in range(2))
+        dtype = getattr(torch, ELEM_TYPES[elem])
+        g = torch.Generator(device=dev).manual_seed(1234 + i)  # a twin draws its bf16 row's values
+        q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).to(dtype) for _ in range(2))
         k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
 
         def run():
@@ -368,30 +423,37 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
                             dropped_keys_lse_err=(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[1]
                                                   - ref_lse).abs().max().item())
             del lse512
-        traced = kernel_ms_from_trace(run, sorted(set(FWD_KERNELS.values())))
+        traced, traced_types = kernel_ms_from_trace(run, sorted(set(FWD_KERNELS.values())))
         served = [n for n, t in traced.items() if t > 0]
         plain_ms = cuda_ms(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2), reps=1)
         qt, kt, vt = q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=None)
         bound_ms = max(ops_ms, bytes_ms)
         ms_line = FWD_MS_LINES.get(label)
-        row = dict(label=label, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2,
-                   with_lse=with_lse, kernel=served, kernel_ms=traced[FWD_KERNELS[d_kernel]], d_kernel=d_kernel, **err,
+        row = dict(label=label, dtype=elem, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2,
+                   with_lse=with_lse, kernel=served, kernel_types=traced_types,
+                   kernel_ms=traced[FWD_KERNELS[d_kernel]], d_kernel=d_kernel, **err,
                    lse_max_abs_err=lse_err, dropped_keys_rel_err=[cut["max_rel_err"], cut["mean_rel_err"]],
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                    tflops=flops / ms / 1e9, bound_share=bound_ms / ms, at_most_library=ms <= library_ms,
                    ms_line=ms_line, within_ms_line=ms <= (ms_line or math.inf), with_lse_run=wide_lse)
+        add_twin_ratio(row, shapes)
         del ref_lse
         log("kernel flash_attn_fwd " + json.dumps(row))
-        if served != [FWD_KERNELS[d_kernel]]:
-            raise AssertionError(f"{label} ran {served}, expected {FWD_KERNELS[d_kernel]}")
+        if served != [FWD_KERNELS[d_kernel]] or traced_types != [elem]:
+            raise AssertionError(f"{label} ran {served} in {traced_types}, expected {FWD_KERNELS[d_kernel]} in {elem}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
             raise AssertionError(f"forward kernel took {ms:.3f} ms at {label}, over its line of {ms_line} ms")
-        if not within_limits(err):
+        if power_limit_w >= FULL_POWER_W and (row["twin_ratio"] or 0) > TWIN_MS_RATIO:
+            raise AssertionError(f"{label} took {ms:.3f} ms, over {TWIN_MS_RATIO} x its bf16 twin's {row['twin_ms']:.3f}")
+        if not within_limits(err, elem):
             raise AssertionError(f"flash kernel disagrees with its plain version at {label}: {err}")
-        if within_limits(cut):
+        if within_limits(cut, elem):
             raise AssertionError(f"the limits do not catch {DROPPED_KEYS} dropped keys at {label}: {cut}")
+        twin = twin_of(row, shapes)
+        if twin and within_limits(twin, elem):
+            raise AssertionError(f"the fp16 limits do not catch its bf16 twin's rounding at {label}")
         if with_lse and not lse_err <= LSE_ATOL:
             raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {LSE_ATOL})")
         if wide_lse and not (wide_lse["lse_max_abs_err"] <= LSE_ATOL < wide_lse["dropped_keys_lse_err"]):
@@ -454,7 +516,8 @@ def ptxas_report(log_text: str) -> list[dict]:
 
 
 def check_flash_backward(dev, power_limit_w: float) -> dict:
-    """Forward-with-LSE and backward kernels against the plain chain on the same bf16 inputs.
+    """Forward-with-LSE and backward kernels against the plain chain on the same bf16 inputs
+    (the FP16_BWD_TWINS rows again in fp16, on the same values cast to fp16).
 
     The reference is flash_attention_backward_plain (fp32) fed with the plain
     forward's own output and log-sum-exp. The kernel's log-sum-exp must be
@@ -463,11 +526,13 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
     at the training shape, a D = 128 shape, the VAE's D = 512 shapes and three
     ragged rows (keys past `kv_len` set to K = 10, V = 100, whose dK and dV
     rows must be exactly zero); the plain backward without the last
-    DROPPED_KEYS keys must fail them. A second call must repeat dK and dV
+    DROPPED_KEYS keys must fail them (an fp16 row: fp16's limits, which each
+    gradient of its bf16 twin must fail). A second call must repeat dK and dV
     exactly and dQ within DQ_REPEAT_RTOL (exactly at D = 512: those kernels
     sum nothing across blocks), and the trace must hold every kernel of the
     row's design and no other backward kernel. With the card at FULL_POWER_W
-    the rows named in BWD_MS_LINES must also keep to their lines. Times: the whole
+    the rows named in BWD_MS_LINES must also keep to their lines, and each
+    fp16 row within TWIN_MS_RATIO of its bf16 twin. Times: the whole
     call with CUDA events (the zeroing of the dQ buffer included), each of
     its kernels apart from a profiler trace, the plain version, and as a
     yardstick only `scaled_dot_product_attention` forward + backward less
@@ -494,15 +559,16 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         ("vae_mid_d512_b2", 2, 9216, 9216, 1, 512, 9216),
         ("ragged_d512", 1, 5205, 5632, 1, 512, 5205),
     ]
-    g = torch.Generator(device=dev).manual_seed(4321)
     shapes = []
-    for label, b, sq, skv, h, d, kv_len in cases:
+    for i, (label, b, sq, skv, h, d, kv_len), elem in twin_runs(cases, FP16_BWD_TWINS):
         scale = d ** -0.5
-        q = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
-        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16() for _ in range(2))
+        dtype = getattr(torch, ELEM_TYPES[elem])
+        g = torch.Generator(device=dev).manual_seed(4321 + i)  # a twin draws its bf16 row's values
+        q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).to(dtype) for _ in range(2))
         k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
         out, lse = flash_attention_forward(q, k, v, scale, kv_len, with_lse=True)
-        do = torch.randn(out.shape, generator=g, device=dev).bfloat16()
+        do = torch.randn(out.shape, generator=g, device=dev).to(dtype)
         grads = flash_attention_backward(q, k, v, out, do, lse, scale, kv_len)
         again = flash_attention_backward(q, k, v, out, do, lse, scale, kv_len)
         torch.cuda.synchronize()
@@ -531,7 +597,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
 
         ms = cuda_ms(bwd, reps=None)
         design, names = BWD_DESIGNS[d]
-        traced = kernel_ms_from_trace(bwd, BWD_KERNELS)
+        traced, traced_types = kernel_ms_from_trace(bwd, BWD_KERNELS)
         split = {n: traced[n] for n in names}
         strays = [n for n, t in traced.items() if t > 0 and n not in names]
         plain_ms = cuda_ms(lambda: flash_attention_backward_plain(*f32, ref_lse, scale, kv_len), reps=1)
@@ -549,7 +615,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         flops = 10 * b * h * sq * kv_len * d
         nbytes = (4 * sq + 4 * kv_len) * b * h * d * 2 + 2 * b * h * sq * 4
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        row = dict(label=label, shape=[b, sq, h, d], skv=skv, kv_len=kv_len,
+        row = dict(label=label, dtype=elem, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, kernel_types=traced_types,
                    **{f"{n}_{key}": e[key] for n, e in errs.items() for key in e},
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()),
                    lse_max_abs_err=lse_err, dropped_keys_lse_err=cut_lse_err,
@@ -561,11 +627,15 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
                    tflops=flops / ms / 1e9, bound_share=max(ops_ms, bytes_ms) / ms,
                    ms_line=BWD_MS_LINES.get(label), within_ms_line=ms <= BWD_MS_LINES.get(label, math.inf),
                    at_most_library=ms <= library_ms)
+        add_twin_ratio(row, shapes)
         log("kernel flash_attn_bwd " + json.dumps(row))
-        if not all(within_limits(e) for e in errs.values()):
+        if not all(within_limits(e, elem) for e in errs.values()):
             raise AssertionError(f"backward kernel disagrees with its plain version at {label}: {errs}")
-        if all(within_limits(e) for e in cut_errs.values()):
+        if all(within_limits(e, elem) for e in cut_errs.values()):
             raise AssertionError(f"the limits do not catch {DROPPED_KEYS} dropped keys at {label}: {cut_errs}")
+        twin = twin_of(row, shapes)
+        if twin and any(within_limits({k: twin[f"{n}_{k}"] for k in ("max_rel_err", "mean_rel_err")}, elem) for n in errs):
+            raise AssertionError(f"the fp16 limits do not catch its bf16 twin's rounding in every gradient at {label}")
         if not lse_err <= LSE_ATOL or cut_lse_err <= LSE_ATOL:
             raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {LSE_ATOL}, "
                                  f"{DROPPED_KEYS} dropped keys give {cut_lse_err})")
@@ -573,18 +643,28 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
             raise AssertionError(f"dK/dV rows past kv_len are not zero at {label}")
         if not (repeat["dkdv_equal"] and repeat["dq_ok"]) or (d not in DQ_SUMMED_DIMS and not repeat["dq_equal"]):
             raise AssertionError(f"a second backward call differs from the first at {label}: {repeat}")
-        if not all(split.values()) or strays:
-            raise AssertionError(f"the trace at {label} lacks a kernel of {design} or holds another's: {traced}")
+        if not all(split.values()) or strays or traced_types != [elem]:
+            raise AssertionError(f"the trace at {label} lacks a kernel of {design} or holds another's, or another "
+                                 f"type than {elem}: {traced} in {traced_types}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
             raise AssertionError(f"backward kernel took {ms:.3f} ms at {label}, over its line of {row['ms_line']} ms")
+        if power_limit_w >= FULL_POWER_W and (row["twin_ratio"] or 0) > TWIN_MS_RATIO:
+            raise AssertionError(f"{label} took {ms:.3f} ms, over {TWIN_MS_RATIO} x its bf16 twin's {row['twin_ms']:.3f}")
         shapes.append(row)
         del q, k, v, out, lse, do, grads, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return {"shapes": shapes}
 
 
-def kernel_ms_from_trace(fn, names, reps: int = 3) -> dict:
-    """Mean device milliseconds per call of each named kernel in `fn`, from a profiler trace."""
+def trace_elem_type(key: str) -> str | None:
+    """The element type ("bf16", "fp16") of a kernel instantiation named in a
+    profiler trace, or None where the name carries neither."""
+    return next((t for t, name in TRACE_TYPE_NAMES.items() if name in key), None)
+
+
+def kernel_ms_from_trace(fn, names, reps: int = 3) -> tuple[dict, list]:
+    """Mean device milliseconds per call of each named kernel in `fn`, from a
+    profiler trace, and the element types of the instantiations that ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -595,13 +675,52 @@ def kernel_ms_from_trace(fn, names, reps: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
     totals = {n: 0.0 for n in names}
+    types = set()
     for ev in prof.key_averages():
         for n in names:
             if n in ev.key:
                 totals[n] += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+                types.add(trace_elem_type(ev.key))
     if not any(totals.values()):
         raise AssertionError(f"the profiler trace holds no device time for {names}")
-    return {n: t / 1e3 / reps for n, t in totals.items()}
+    return {n: t / 1e3 / reps for n, t in totals.items()}, sorted(types, key=str)
+
+
+def twin_runs(cases: list[tuple], twins: tuple) -> list[tuple]:
+    """(index of the case, the case, element type) for every case in bf16,
+    each case labelled in `twins` followed at once by its fp16 twin (label
+    "<twin>_fp16"), so that the card's clocks move little between the two."""
+    runs = []
+    for i, case in enumerate(cases):
+        runs.append((i, case, "bf16"))
+        if case[0] in twins:
+            runs.append((i, (case[0] + "_fp16", *case[1:]), "fp16"))
+    return runs
+
+
+def twin_of(row: dict, rows: list[dict]) -> dict | None:
+    """The bf16 row among `rows` whose fp16 twin `row` is (label "<twin>_fp16"), or None."""
+    return next((r for r in rows if r["dtype"] == "bf16" and r["label"] + "_fp16" == row["label"]), None)
+
+
+def add_twin_ratio(row: dict, rows: list[dict]) -> None:
+    """An fp16 row (label "<twin>_fp16") gets its bf16 twin's ms and the ratio
+    of the two (`twin_ms`, `twin_ratio`); bf16 rows get None."""
+    twin = twin_of(row, rows)
+    row["twin_ms"] = twin["ms"] if twin else None
+    row["twin_ratio"] = row["ms"] / twin["ms"] if twin else None
+
+
+def ptxas_twins(entries: list[dict]) -> list[dict]:
+    """Each kernel entry of a ptxas report by its name with the element type
+    left out: the registers of its bf16 and fp16 instantiations (None where
+    one is missing)."""
+    by_name: dict = {}
+    for row in entries:
+        elem = next((t for t, name in PTXAS_TYPE_NAMES.items() if name in row["entry"]), None)
+        base = row["entry"].replace(PTXAS_TYPE_NAMES[elem], "T") if elem else row["entry"]
+        by_name.setdefault(base, {t: None for t in PTXAS_TYPE_NAMES})[elem] = row.get("registers")
+    return [dict(entry=base, registers=regs) for base, regs in by_name.items()]
 
 
 def rel_rms(a, b) -> float:
@@ -929,7 +1048,7 @@ def clip_inputs(cfg, dev, seed: int):
 
 def pipeline_on(pipe, dev):
     """A copy of a (CPU-built, fp32) pipeline on `dev`: fp32 on the card is no
-    entry point's, which refuse any dtype but bf16 on CUDA."""
+    entry point's, which refuse any dtype but bf16 and fp16 on CUDA."""
     import copy
 
     from evoworld_tpu_torch.diffusion.pipeline import PanoDiffusionPipeline
@@ -2090,6 +2209,253 @@ def full_prep(dev, workdir: str, seed: int, overrides: tuple = (), cube_face: in
     return result
 
 
+def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -> dict:
+    """Phase 15, the fp16 path, on phase 11's and 14's files in `workdir`:
+    phase 11's pipeline checkpoints (`svd/`, bf16) written as fp32 safetensors
+    (`svd_fp32/`, the form upstream ships) and halved by
+    `cli.convert_checkpoint halve` into `svd_fp16/` (other files copied);
+    every F32 tensor must come out as its `.to(float16)` bit for bit and every
+    other tensor unchanged. `cli.convert_checkpoint validate` must exit 0 on
+    `svd_fp16/` and 1 on a copy whose UNet shards (written as headers alone)
+    change one tensor's shape, naming that tensor. Then, at
+    `--runtime.compute_dtype=float16` on `dev`: `cli.run_single_segment.main`
+    from `svd_fp16/` (5N + 18 flash launches, finite frames, the PNGs'
+    counts and sizes; the RMS difference from phase 11's bf16 clip is
+    reported, not checked), `cli.train.main` for 2 steps from `svd/` with no
+    validation (`expected_train_launches` a step, finite losses and gradient
+    norms, level-0 norm1's gradient nonzero), and `cli.reproject.main` on a
+    fresh copy of phase 14's `prep/ep_1` without its renders (the VGGT
+    launches, finite renders that are not one value). `overrides` (CLI
+    flags) cut the configuration down for a rehearsal off the card."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.cli import convert_checkpoint, reproject, run_single_segment
+    from evoworld_tpu_torch.cli import train as train_cli
+    from evoworld_tpu_torch.cli.common import load_frames
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.data.native_io import image_size
+    from evoworld_tpu_torch.models.weights import (
+        load_safetensors,
+        safetensors_shapes,
+        save_safetensors,
+        save_safetensors_header,
+    )
+    from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from evoworld_tpu_torch.runtime import PRESETS, VGGT_PRESETS
+
+    flags = (*overrides, "--runtime.compute_dtype=float16")
+    config = apply_overrides(EvoWorldConfig(), list(flags))
+    pc, loop_cfg = config.pipeline, config.loop
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def reset(peak=True):
+        flash_attention.launches = flash_attention_backward.launches = 0
+        if on_card and peak:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def launches():
+        return [flash_attention.launches, flash_attention_backward.launches]
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if on_card else None
+
+    # 1. phase 11's checkpoints as fp32, halved to fp16 by the converter
+    svd, svd32, svd16 = (os.path.join(workdir, d) for d in ("svd", "svd_fp32", "svd_fp16"))
+    halve_s, exact, tensors = 0.0, True, 0
+    t0 = time.perf_counter()
+    for sub in ("unet", "vae", "image_encoder"):
+        for d in (svd32, svd16):
+            os.makedirs(os.path.join(d, sub))
+        for name in sorted(os.listdir(os.path.join(svd, sub))):
+            src = os.path.join(svd, sub, name)
+            if not name.endswith(".safetensors"):  # the sub-model's config files
+                for d in (svd32, svd16):
+                    shutil.copy(src, os.path.join(d, sub))
+                continue
+            f32 = {k: v.float() if v.is_floating_point() else v for k, v in load_safetensors(src).items()}
+            save_safetensors(f32, os.path.join(svd32, sub, name))
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                convert_checkpoint.halve(os.path.join(svd32, sub, name), os.path.join(svd16, sub, name), "fp16")
+            halve_s += time.perf_counter() - t1
+            out = load_safetensors(os.path.join(svd16, sub, name))
+            for k, v in f32.items():
+                want = v.to(torch.float16) if v.dtype == torch.float32 else v
+                exact &= out[k].dtype == want.dtype and out[k].shape == want.shape and torch.equal(
+                    out[k].reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8))
+            exact &= set(out) == set(f32)
+            tensors += len(f32)
+            del f32, out
+    convert_s = time.perf_counter() - t0
+    fp16_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(svd16) for f in fs)
+    shutil.rmtree(svd32)  # only the halving reads it
+
+    # 2. validate: the fp16 directory, and a copy with one tensor's shape changed
+    def validate(path):  # (exit code, printed lines)
+        printed, code = io.StringIO(), None
+        with contextlib.redirect_stdout(printed):
+            try:
+                convert_checkpoint.main(["validate", path])
+            except SystemExit as done:
+                code = done.code
+        return code, printed.getvalue()
+
+    t0 = time.perf_counter()
+    valid_code, valid_out = validate(svd16)
+    validate_s = time.perf_counter() - t0
+    bad = os.path.join(workdir, "svd_fp16_bad")
+    os.makedirs(os.path.join(bad, "unet"))
+    for sub in ("vae", "image_encoder"):
+        os.symlink(os.path.join(svd16, sub), os.path.join(bad, sub))
+    changed = "conv_out.weight"
+    for name in sorted(os.listdir(os.path.join(svd16, "unet"))):
+        shapes = safetensors_shapes(os.path.join(svd16, "unet", name))
+        if changed in shapes:
+            dtype, shape = shapes[changed]
+            shapes[changed] = (dtype, (*shape[:-1], shape[-1] + 1))
+        save_safetensors_header(shapes, os.path.join(bad, "unet", name))
+    bad_code, bad_out = validate(bad)
+
+    # 3. the single-segment CLI from the fp16 directory
+    episode = os.path.join(workdir, "episode_000")
+    frames = []
+    navigator = run_single_segment.Navigator
+
+    class Keeping(navigator):
+        def generate_segment(self, *args, **kwargs):
+            frames.append(super().generate_segment(*args, **kwargs))
+            return frames[-1]
+
+    argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={svd16}", "--runtime.allow_random_weights=false",
+            f"--pipeline.num_steps={steps}", f"--runtime.seed={seed}", f"--runtime.save_dir={workdir}/out_fp16",
+            *flags]
+    reset()
+    run_single_segment.Navigator = Keeping
+    try:
+        t0 = time.perf_counter()
+        single = run_single_segment.main(argv, device=dev)[0]
+        sync()
+        single_s = time.perf_counter() - t0
+    finally:
+        run_single_segment.Navigator = navigator
+    single_launches, single_peak = launches(), peak()
+    clip = frames[0].float().cpu()
+
+    def pngs(path):
+        names = sorted(os.listdir(path))
+        return len(names), sorted({image_size(os.path.join(path, n))[::-1] for n in names})
+
+    got_pngs = {sub: pngs(os.path.join(single["out_dir"], sub)) for sub in ("predictions", "predictions_gt")}
+    want_pngs = {sub: (pc.num_frames, [(pc.width, pc.height)]) for sub in got_pngs}
+    bf16_dir = os.path.join(workdir, "out", os.path.basename(episode), "predictions")
+    read = lambda d: np.stack(load_frames([os.path.join(d, n) for n in sorted(os.listdir(d))]))  # noqa: E731
+    bf16_rms = float(np.sqrt(np.mean((read(os.path.join(single["out_dir"], "predictions")) - read(bf16_dir)) ** 2)))
+    del frames
+
+    # 4. two training steps from phase 11's checkpoints, no validation
+    out = os.path.join(workdir, "train_fp16")
+    train_argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={svd}", "--runtime.allow_random_weights=false",
+                  f"--runtime.save_dir={out}", f"--runtime.seed={seed}", "--train.total_steps=2",
+                  "--train.warmup_steps=1", "--trainer.log_steps=1", *flags]
+    probe = TrainProbe(dev, (flash_attention, flash_attention_backward))
+    reset()
+    probe.last = probe._counts()
+    with probe.installed():
+        t0 = time.perf_counter()
+        state = train_cli.main(train_argv, device=dev)
+        sync()
+        train_s = time.perf_counter() - t0
+    with open(os.path.join(out, "train_metrics.jsonl")) as f:
+        tracked = [json.loads(line) for line in f]
+    norm1 = state.unet.down_blocks[0].attentions[0].transformer_blocks[0].norm1.weight.grad
+    norm1_max = float(norm1.abs().max()) if norm1 is not None else 0.0
+    layers = PRESETS[config.runtime.model_preset][0].layers_per_block
+    expected_step = expected_train_launches(pc.num_frames, config.train.vae_encode_chunk, layers) \
+        if on_card else (0, 0)
+    del state
+    shutil.rmtree(os.path.join(out, "checkpoints"))  # the final save's, which nothing reads
+
+    # 5. reproject on a fresh copy of phase 14's episode (its renders left out)
+    src_ep = os.path.join(workdir, "prep", "ep_1")
+    ep = os.path.join(workdir, "prep_fp16", "ep_1")
+    os.makedirs(ep)
+    for name in os.listdir(src_ep):
+        if name != config.data.reprojection_name:
+            os.symlink(os.path.join(src_ep, name), os.path.join(ep, name))
+    renders = []
+    render = reproject.render_memory_panoramas
+
+    def keeping_render(*args, **kwargs):
+        renders.append(render(*args, **kwargs))
+        return renders[-1]
+
+    prep_argv = [f"--data.root={ep}", f"--runtime.vggt_checkpoint={svd}/model.pt",
+                 "--runtime.allow_random_weights=false", f"--runtime.skyseg_onnx={workdir}/skyseg.onnx", *flags]
+    reset()
+    reproject.render_memory_panoramas = keeping_render
+    try:
+        t0 = time.perf_counter()
+        records = reproject.main(prep_argv, device=dev)
+        sync()
+        reproject_s = time.perf_counter() - t0
+    finally:
+        reproject.render_memory_panoramas = render
+    prep_launches, prep_peak = launches(), peak()
+    rendered = read(os.path.join(ep, config.data.reprojection_name))
+    sources = len(os.listdir(os.path.join(ep, "panorama"))) - loop_cfg.num_target_view
+    expected_prep = vggt_launches(sources, (loop_cfg.pers_height, loop_cfg.pers_width),
+                                  VGGT_PRESETS["tiny" if config.runtime.vggt_tiny else "full"], FLASH_MIN_SEQ) \
+        if on_card else 0
+    stages = records[0]["stage_seconds"] if records else {}
+
+    result = dict(
+        convert=dict(tensors=tensors, exact=exact, seconds=convert_s, halve_s=halve_s, fp16_bytes=fp16_bytes,
+                     validate_code=valid_code, validate_s=validate_s, validate_out=valid_out.splitlines(),
+                     changed=changed, bad_code=bad_code, bad_out=bad_out.splitlines()),
+        single=dict(seconds=single_s, load_s=single["load_s"], generate_s=single["generate_s"],
+                    launches=single_launches, expected=[5 * steps + 18 if on_card else 0, 0],
+                    finite=bool(torch.isfinite(clip).all()), shape=list(clip.shape), pngs=got_pngs,
+                    rms_from_bf16_clip=bf16_rms, peak_memory_bytes=single_peak),
+        train=dict(seconds=train_s, steps=probe.steps, losses=[r["train_loss"] for r in tracked],
+                   grad_norms=[r["grad_norm"] for r in tracked], sec_per_step=[r["sec_per_step"] for r in tracked],
+                   expected_step_launches=list(expected_step), norm1_grad_abs_max=norm1_max, saves=probe.saves),
+        reproject=dict(seconds=reproject_s, vggt_s=stages.get("reconstruct"), launches=prep_launches,
+                       expected=[expected_prep, 0], renders=len(rendered), render_shape=list(rendered.shape[1:]),
+                       render_finite=bool(all(torch.isfinite(r).all() for r in renders)) and bool(renders),
+                       render_std=float(rendered.std()), peak_memory_bytes=prep_peak))
+    log("fp16 " + json.dumps(result))
+    conv = result["convert"]
+    if not exact or conv["validate_code"] != 0 or conv["bad_code"] != 1 or changed not in bad_out \
+            or "unet: OK" in bad_out:
+        raise AssertionError(f"the converter's halve or validate: {conv}")
+    s = result["single"]
+    if s["launches"] != s["expected"] or not s["finite"] or got_pngs != want_pngs:
+        raise AssertionError(f"the fp16 clip launched {s['launches']} (expected {s['expected']}), finite "
+                             f"{s['finite']}, wrote {got_pngs} (expected {want_pngs})")
+    t = result["train"]
+    if [r["step"] for r in tracked] != [1, 2] or any(
+            (r["fwd_launches"], r["bwd_launches"]) != tuple(expected_step) for r in probe.steps):
+        raise AssertionError(f"fp16 training logged {tracked} and launched {probe.steps}, expected "
+                             f"{list(expected_step)} a step")
+    if not all(math.isfinite(v) for v in t["losses"] + t["grad_norms"]) or not norm1_max > 0:
+        raise AssertionError(f"fp16 training: losses {t['losses']}, gradient norms {t['grad_norms']}, "
+                             f"level-0 norm1 gradient {norm1_max}")
+    r = result["reproject"]
+    if r["launches"] != r["expected"] or r["renders"] != loop_cfg.num_target_view or not r["render_finite"] \
+            or not r["render_std"] > 0:
+        raise AssertionError(f"fp16 reproject: {r}, expected {r['expected']} launches and "
+                             f"{loop_cfg.num_target_view} renders")
+    return result
+
+
 def full_clips(dev, steps: int, seed: int) -> list[dict]:
     """Two full-width clips (cold, warm); checks launch counts and outputs."""
     import torch
@@ -2163,12 +2529,19 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:  # one compiler per source, started together
         list(pool.map(_build.load, (SOURCE, BWD_SOURCE, native_io.SOURCE)))
-    log(f"nvcc build of {SOURCE} and {BWD_SOURCE}, g++ build of {native_io.SOURCE}: {time.perf_counter() - t0:.3f} s")
+    build_s = time.perf_counter() - t0
+    log(f"nvcc build of {SOURCE} and {BWD_SOURCE}, g++ build of {native_io.SOURCE}: {build_s:.3f} s")
     for source in (SOURCE, BWD_SOURCE):
-        for row in ptxas_report(_build.build_log(source)):
+        entries = ptxas_report(_build.build_log(source))
+        for row in entries:
             log(f"ptxas {source} " + json.dumps(row))
             if row.get("spill_stores") or row.get("spill_loads") or "wgmma_serialized" in row:
                 raise AssertionError(f"{source}: a kernel entry spills or serializes its wgmma: {row}")
+        # every kernel entry in both element types, from the one templated source
+        for twin in ptxas_twins(entries):
+            log(f"ptxas twins {source} " + json.dumps(twin))
+            if set(twin["registers"]) != set(PTXAS_TYPE_NAMES) or None in twin["registers"].values():
+                raise AssertionError(f"{source}: a kernel entry lacks its bf16 or fp16 instantiation: {twin}")
 
     check_jpeg_fixtures()
 
@@ -2195,6 +2568,9 @@ def main() -> int:
         t0 = time.perf_counter()
         prep_run = full_prep(dev, workdir, SEED)
         log(f"prep phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        fp16_run = full_fp16(dev, STEPS, SEED, workdir)
+        log(f"fp16 phase wall seconds {time.perf_counter() - t0:.3f}")
     torch.cuda.empty_cache()
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
@@ -2207,6 +2583,11 @@ def main() -> int:
     d128_row = next(r for r in flash_bwd["shapes"] if r["label"] == "head_dim_128")
     fwd_total, bwd_total = train_run["summary"]["launches_total"]
     cli_train = [sum(r["launches"][i] for r in train_cli_run["runs"]) for i in (0, 1)]
+    fp16_train = [sum(r[k] for r in fp16_run["train"]["steps"]) for k in ("fwd_launches", "bwd_launches")]
+    twin_keys = ("label", "shape", "ms", "twin_ms", "twin_ratio", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "max_abs_err", "kernel_types")
+    fwd16 = next(r for r in flash["shapes"] if r["label"] == "unet_l0_spatial_fp16")
+    bwd16 = next(r for r in flash_bwd["shapes"] if r["label"] == "unet_l0_train_fp16")
     kernels = [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2219,7 +2600,9 @@ def main() -> int:
                              "cli_single_segment": cli_run["single"]["launches"][0],
                              "cli_unified": cli_run["unified"]["launches"][0],
                              "cli_train": cli_train[0], "eval": eval_run["launches"][0],
-                             "reproject": prep_run["launches"][0]},
+                             "reproject": prep_run["launches"][0],
+                             "fp16_single_segment": fp16_run["single"]["launches"][0],
+                             "fp16_train": fp16_train[0], "fp16_reproject": fp16_run["reproject"]["launches"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in flash["shapes"]),
         "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"],
@@ -2228,6 +2611,8 @@ def main() -> int:
         "library_ms": fwd_row["library_ms"],
         "timed_at": fwd_row["shape"],
         "designs": {str(d): n for d, n in FWD_KERNELS.items()},
+        "dtypes": list(ELEM_TYPES),
+        "fp16": {k: fwd16[k] for k in twin_keys},
         "wide": {k: wide_row[k] for k in ("kernel", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                            "max_abs_err")},
         "shapes": flash["shapes"],
@@ -2245,11 +2630,15 @@ def main() -> int:
                              "cli_single_segment": cli_run["single"]["launches"][1],
                              "cli_unified": cli_run["unified"]["launches"][1],
                              "cli_train": cli_train[1], "eval": eval_run["launches"][1],
-                             "reproject": prep_run["launches"][1]},
+                             "reproject": prep_run["launches"][1],
+                             "fp16_single_segment": fp16_run["single"]["launches"][1],
+                             "fp16_train": fp16_train[1], "fp16_reproject": fp16_run["reproject"]["launches"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"]),
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],
         "designs": {str(d): design for d, (design, _) in BWD_DESIGNS.items()},
+        "dtypes": list(ELEM_TYPES),
+        "fp16": {k: bwd16[k] for k in twin_keys},
         "d128": {k: d128_row[k] for k in ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "max_abs_err", "repeat")},
         "d512": {k: d512_row[k] for k in ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,9 +1,12 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, dK, dV of exact
-// non-causal O = softmax(Q K^T * scale) V over (B, S, H, D) bf16 tensors read
-// through their strides, with keys at or past `kv_len` masked, from the
-// forward's output O and per-row log-sum-exp L (flash_attn_fwd.cu, fp32
-// (B, H, Sq)) and the output's gradient dO. dQ, dK, dV are written bf16
-// through their strides (the wrapper makes them contiguous).
+// non-causal O = softmax(Q K^T * scale) V over (B, S, H, D) bf16 or fp16
+// tensors read through their strides, with keys at or past `kv_len` masked,
+// from the forward's output O and per-row log-sum-exp L (flash_attn_fwd.cu,
+// fp32 (B, H, Sq)) and the output's gradient dO. dQ, dK, dV are written in
+// the inputs' type through their strides (the wrapper makes them
+// contiguous). Every kernel is a template over the element type T, as in
+// flash_attn_fwd.cu: one design for both types, P and dS rounded to T as
+// wgmma operands.
 //
 // Replaces the two backward Pallas TPU kernels of K1
 // (evoworld_tpu/ops/attention.py::_builtin_flash, JAX's shipped flash
@@ -13,10 +16,10 @@
 // carry dK/dV (or dQ) in VMEM scratch, recomputing S and dP in each. Blocks on
 // this card run in no order, so each sweep is a loop inside one block.
 //
-// Bound: 10*B*H*Sq*kv_len*D flops of bf16 tensor-core work (five products of
-// 2*Sq*kv_len*D each: S, dP, dV, dK, dQ) against about (4*Sq + 4*Skv)*B*H*D*2
-// bytes; at the training shape's 9216 tokens the operations bound it by three
-// orders of magnitude. Beside the tensor cores, one exp2 per score runs on the
+// Bound: 10*B*H*Sq*kv_len*D flops of bf16 / fp16 tensor-core work (five
+// products of 2*Sq*kv_len*D each: S, dP, dV, dK, dQ) against about
+// (4*Sq + 4*Skv)*B*H*D*2 bytes; at the training shape's 9216 tokens the
+// operations bound it by three orders of magnitude. Beside the tensor cores, one exp2 per score runs on the
 // special-function units (16 a clock per SM), and at D = 64 a product with
 // both operands in shared memory reads as many bytes as shared memory
 // delivers in the tensor cores' time.
@@ -48,7 +51,7 @@
 //                     operand's, so
 //                       dV += P^T dO,  dK += dS^T Q    (A from registers, dO
 //                                                       and Q read MN-major)
-//                     and writes dS^T as bf16 into a 128-key x 64-query
+//                     and writes dS^T as T into a 128-key x 64-query
 //                     shared tile in the 128-byte swizzle (two buffers, with
 //                     mbarriers between the consumers). The consumers take
 //                     turns at a tile's
@@ -64,7 +67,7 @@
 //                     blocks; keys at or past `kv_len` get P = 0 (masked in
 //                     the block's last key tile only) and their rows are
 //                     written as zeros.
-//   flash_bwd_store_dq  dQ = bf16(scale * buffer).
+//   flash_bwd_store_dq  dQ = T(scale * buffer).
 // At D = 128 the same block, grid and schedule hold twice the columns, and
 // registers are what runs short: a consumer's dK and dV for 64 keys x 128
 // columns take 128 fp32 registers a thread, beside 64 of S^T and dP^T and 32
@@ -76,7 +79,7 @@
 //     registers between their uses;
 //   - dV += P^T dO and dK += dS^T Q are wgmma m64n128k16 with P and dS from
 //     registers, dO and Q MN-major over both boxes (the descriptor's leading
-//     offset is the box distance); P and dS become bf16 column pair by
+//     offset is the box distance); P and dS become T column pair by
 //     column pair as dS is formed;
 //   - each consumer computes its own 64 columns of every tile's dQ over all
 //     128 keys (B = K's box cw), one tile late as at D = 64 but only once
@@ -86,7 +89,7 @@
 //     buffer with one bulk reduction; both consumers read each dS^T buffer;
 //   - the query ring has 3 stages (227 KB of shared memory in all).
 // The order of the fp32 sums into dQ changes from run to run, so dQ may
-// differ in its last bf16 bit between two calls; dK and dV are repeatable.
+// differ in its last bit between two calls; dK and dV are repeatable.
 //
 // D = 512 (the VAE's mid-block attention, one head of 512; no path of the
 // port or of the JAX package forms this gradient, the VAE being frozen). A
@@ -137,19 +140,20 @@ namespace {
 
 using namespace flash;
 
+template <typename T>
 struct BwdParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout;
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* o;
+  const T* dout;
   const float* lse;  // (B, H, Sq), natural log
   float* delta;      // (B, H, sq_pad)
   float* lse2;       // (B, H, sq_pad): lse * log2(e)
   float* dq_acc;     // (B, H, sq_pad, D) fp32 sums of dQ / scale; null at D = 512
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  T* dq;
+  T* dk;
+  T* dv;
   int sq, sq_pad, skv, kv_len, heads;
   float scale;       // softmax scale
   float scale_log2;  // scale * log2(e)
@@ -175,8 +179,8 @@ constexpr int kDeltaTPR = D / 8 < 32 ? D / 8 : 32;
 // summed with shuffles inside their group of lanes (a group never spans two
 // warps). With `lse2` it also writes lse * log2(e); rows in [sq, sq_pad) get
 // delta = 0 and lse2 = kPadLse.
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_rows) {
+template <int D, typename T>
+__global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams<T> p, int64_t n_rows) {
   constexpr int TPR = kDeltaTPR<D>;
   constexpr int RPB = 128 / TPR;
   const int64_t row = (int64_t)blockIdx.x * RPB + threadIdx.x / TPR;  // (b, s, h), h fastest
@@ -192,11 +196,11 @@ __global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_ro
       const uint4 ov = *reinterpret_cast<const uint4*>(p.o + b * p.o_sb + s * p.o_ss + h * p.o_sh + chunk * 8);
       const uint4 dv =
           *reinterpret_cast<const uint4*>(p.dout + b * p.do_sb + s * p.do_ss + h * p.do_sh + chunk * 8);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+      const uint32_t* d2 = reinterpret_cast<const uint32_t*>(&dv);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(d2[i]);
+        const float2 x = unpack2<T>(o2[i]), y = unpack2<T>(d2[i]);
         acc += x.x * y.x + x.y * y.y;
       }
     }
@@ -211,11 +215,11 @@ __global__ void __launch_bounds__(128) flash_bwd_delta(BwdParams p, int64_t n_ro
 }
 
 // flash_bwd_delta over every row of the padded scratch.
-template <int D>
-cudaError_t launch_delta(const BwdParams& p, int batch, cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch_delta(const BwdParams<T>& p, int batch, cudaStream_t stream) {
   const int64_t pad_rows = (int64_t)batch * p.sq_pad * p.heads;
   constexpr int rows = 128 / kDeltaTPR<D>;  // rows a block
-  flash_bwd_delta<D><<<(unsigned)((pad_rows + rows - 1) / rows), 128, 0, stream>>>(p, pad_rows);
+  flash_bwd_delta<D, T><<<(unsigned)((pad_rows + rows - 1) / rows), 128, 0, stream>>>(p, pad_rows);
   return cudaGetLastError();
 }
 
@@ -227,8 +231,9 @@ constexpr int kQ = 64;              // queries per tile
 constexpr int kFusedThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;   // arrivals that free a ring buffer or fill a dS^T buffer
 constexpr int kDsBufs = 2;          // dS^T buffers
-constexpr uint32_t kDsBytes = kKeys * 128;  // one 128-key x 64-query bf16 dS^T tile
-constexpr uint32_t kBoxBytes = kQ * 128;    // one 64-row x 64-column bf16 box (a query tile's, or a consumer's keys)
+// Tiles of 2-byte elements (bf16 or fp16):
+constexpr uint32_t kDsBytes = kKeys * 128;  // one 128-key x 64-query dS^T tile
+constexpr uint32_t kBoxBytes = kQ * 128;    // one 64-row x 64-column box (a query tile's, or a consumer's keys)
 constexpr uint32_t kRowBytes = kQ * 4;      // one tile's L or delta
 constexpr uint32_t kDqBytes = kQ * 64 * 4;  // one consumer's 64 x 64 fp32 part of a tile's dQ
 
@@ -253,12 +258,13 @@ struct Fused {
                                   2 * kStages * kRowBytes + (1 + 2 * kDsBufs + 2 * kStages) * 8;
 };
 
+template <typename T>
 struct FusedArgs {
   const float* lse2;   // (B, H, sq_pad)
   const float* delta;  // (B, H, sq_pad)
   float* dq_acc;       // (B, H, sq_pad / 64, 64 * D) in staging order, zeroed by the caller
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  T* dk;
+  T* dv;
   int64_t dk_sb, dk_ss, dk_sh;
   int64_t dv_sb, dv_ss, dv_sh;
   int sq_pad, skv, kv_len, heads;
@@ -283,18 +289,19 @@ __device__ __forceinline__ int staging_offset(int q, int j) {
   return (((q / 16) * 8 + j) * 2 + (q % 16) / 8) * 64 + (q % 8) * 8;
 }
 
-// A 64 x 64 fp32 accumulator as bf16 A fragments: two adjacent 8-column blocks
+// A 64 x 64 fp32 accumulator as A fragments of T: two adjacent 8-column blocks
 // make one 16-deep k-step.
-__device__ __forceinline__ void to_bf16(const float (&x)[32], uint32_t (&a)[4][4]) {
+template <typename T>
+__device__ __forceinline__ void to_frags(const float (&x)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack2<T>(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
   }
 }
 
 // The A fragments (16 rows of this warp, four 16-column k-steps) of a 64-row x
-// 64-column bf16 tile in the 128-byte swizzle: the 16-byte chunk c of row r
+// 64-column tile of 2-byte elements in the 128-byte swizzle: the 16-byte chunk c of row r
 // sits at chunk c ^ (r % 8). `rows` points at the warp's row g.
 __device__ __forceinline__ void load_a_sw128(uint32_t (&f)[4][4], const unsigned char* rows, int g, int t4) {
 #pragma unroll
@@ -310,20 +317,21 @@ __device__ __forceinline__ void load_a_sw128(uint32_t (&f)[4][4], const unsigned
 // acc (64 keys x 64 queries) = A (this consumer's 64 keys x 128 columns, `a`)
 // B^T (64 queries x 128 columns, `b`), both K-major in two 64-column boxes
 // (`a_box`, `b_box` descriptor units apart): S^T or dP^T at D = 128.
+template <typename T>
 __device__ __forceinline__ void scores_d128(float (&acc)[32], uint64_t a, uint32_t a_box, uint64_t b,
                                             uint32_t b_box) {
-  wgmma_ss_n64_first<0, 0>(acc, a, b);
+  wgmma_ss_n64_first<T, 0, 0>(acc, a, b);
 #pragma unroll
   for (int kk = 1; kk < 8; ++kk) {
-    wgmma_ss_n64<0, 0>(acc, a + (kk / 4) * a_box + (kk % 4) * 2, b + (kk / 4) * b_box + (kk % 4) * 2, 1);
+    wgmma_ss_n64<T, 0, 0>(acc, a + (kk / 4) * a_box + (kk % 4) * 2, b + (kk / 4) * b_box + (kk % 4) * 2, 1);
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFusedThreads, 1)
     flash_bwd_fused(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                    const FusedArgs a) {
+                    const FusedArgs<T> a) {
   using C = Fused<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ks = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -341,8 +349,8 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
   uint64_t* empty = full + C::kStages;     // [kStages]
 
   const int k0 = blockIdx.x * kKeys, h = blockIdx.y, b = blockIdx.z;
-  __nv_bfloat16* dkb = a.dk + b * a.dk_sb + h * a.dk_sh;
-  __nv_bfloat16* dvb = a.dv + b * a.dv_sb + h * a.dv_sh;
+  T* dkb = a.dk + b * a.dk_sb + h * a.dk_sh;
+  T* dvb = a.dv + b * a.dv_sb + h * a.dv_sh;
 
   if (k0 >= a.kv_len) {  // every key of the tile is masked: zero rows
     const int rows = min(kKeys, a.skv - k0);
@@ -464,14 +472,14 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
-          wgmma_ss_n64<1, 1>(dq, ds_desc + at * kDsStep + kk * 128, k_dq_desc + kk * 128, kk > 0);
+          wgmma_ss_n64<T, 1, 1>(dq, ds_desc + at * kDsStep + kk * 128, k_dq_desc + kk * 128, kk > 0);
         }
       } else {  // the first k-step only writes dq, which stays dead from the last drain until here
         wgmma_fence();
-        wgmma_ss_n64_first<1, 1>(dq, ds_desc + at * kDsStep, k_dq_desc);
+        wgmma_ss_n64_first<T, 1, 1>(dq, ds_desc + at * kDsStep, k_dq_desc);
 #pragma unroll
         for (int kk = 1; kk < 8; ++kk) {
-          wgmma_ss_n64<1, 1>(dq, ds_desc + at * kDsStep + kk * 128, k_dq_desc + kk * 128, 1);
+          wgmma_ss_n64<T, 1, 1>(dq, ds_desc + at * kDsStep + kk * 128, k_dq_desc + kk * 128, 1);
         }
       }
       wgmma_commit();
@@ -519,19 +527,19 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          wgmma_rs_n64_acc<0>(s, kf[kk], q_tile + kk * 2, kk > 0);
+          wgmma_rs_n64_acc<T, 0>(s, kf[kk], q_tile + kk * 2, kk > 0);
         }
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          wgmma_rs_n64_acc<0>(dp, vf[kk], do_tile + kk * 2, kk > 0);
+          wgmma_rs_n64_acc<T, 0>(dp, vf[kk], do_tile + kk * 2, kk > 0);
         }
         wgmma_commit();
       } else {
         wgmma_fence();
-        scores_d128(s, k_own, C::kKVBox / 16, q_tile, kBoxBytes / 16);
+        scores_d128<T>(s, k_own, C::kKVBox / 16, q_tile, kBoxBytes / 16);
         wgmma_commit();
-        scores_d128(dp, v_own, C::kKVBox / 16, do_tile, kBoxBytes / 16);
+        scores_d128<T>(dp, v_own, C::kKVBox / 16, do_tile, kBoxBytes / 16);
         wgmma_commit();
       }
 
@@ -552,7 +560,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           if (key0 + 8 >= a.kv_len) s[4 * j + 2] = s[4 * j + 3] = 0.f;
         }
       }
-      if constexpr (D == 64) to_bf16(s, pa);
+      if constexpr (D == 64) to_frags<T>(s, pa);
 
       wgmma_wait<0>();  // dP^T done
       fence_regs(dp);
@@ -564,16 +572,16 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d2.x);
         dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d2.y);
         if constexpr (D == 128) {
-          // P and dS to bf16 column pair by column pair, so that each pair's
+          // P and dS to T column pair by column pair, so that each pair's
           // fp32 registers die at once: dK and dV's 128 leave no room for all
-          // of P, dS and their bf16 copies together.
-          pa[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j + 0], s[4 * j + 1]);
-          pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-          dsa[j / 2][2 * (j % 2)] = pack_bf16(dp[4 * j + 0], dp[4 * j + 1]);
-          dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+          // of P, dS and their packed copies together.
+          pa[j / 2][2 * (j % 2)] = pack2<T>(s[4 * j + 0], s[4 * j + 1]);
+          pa[j / 2][2 * (j % 2) + 1] = pack2<T>(s[4 * j + 2], s[4 * j + 3]);
+          dsa[j / 2][2 * (j % 2)] = pack2<T>(dp[4 * j + 0], dp[4 * j + 1]);
+          dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(dp[4 * j + 2], dp[4 * j + 3]);
         }
       }
-      if constexpr (D == 64) to_bf16(dp, dsa);
+      if constexpr (D == 64) to_frags<T>(dp, dsa);
       // dS^T into shared memory for the dQ product, once tile t - kDsBufs's product has read the buffer.
       mbar_wait(ds_empty + buf, ((t / kDsBufs) & 1) ^ 1);
 #pragma unroll
@@ -595,17 +603,17 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         if constexpr (D == 64) {
-          wgmma_rs_n64(dv, pa[kk], do_tile + kk * 128);
+          wgmma_rs_n64<T>(dv, pa[kk], do_tile + kk * 128);
         } else {
-          wgmma_rs_n128(dv, pa[kk], do_tile + kk * 128);
+          wgmma_rs_n128<T>(dv, pa[kk], do_tile + kk * 128);
         }
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         if constexpr (D == 64) {
-          wgmma_rs_n64(dk, dsa[kk], q_tile + kk * 128);
+          wgmma_rs_n64<T>(dk, dsa[kk], q_tile + kk * 128);
         } else {
-          wgmma_rs_n128(dk, dsa[kk], q_tile + kk * 128);
+          wgmma_rs_n128<T>(dk, dsa[kk], q_tile + kk * 128);
         }
       }
       wgmma_commit();
@@ -634,13 +642,14 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int row = key0 + 8 * r;
       if (row < a.skv) {
-        __nv_bfloat16* dkr = dkb + (int64_t)row * a.dk_ss;
-        __nv_bfloat16* dvr = dvb + (int64_t)row * a.dv_ss;
+        T* dkr = dkb + (int64_t)row * a.dk_ss;
+        T* dvr = dvb + (int64_t)row * a.dv_ss;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
+          // dK's scale is applied in fp32, before the rounding to T, as the plain version does
           *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * t4) =
-              pack_bf16(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
-          *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * t4) = pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+              pack2<T>(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+          *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * t4) = pack2<T>(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
         }
       }
     }
@@ -648,11 +657,11 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
   }
 }
 
-// dQ[b, s, h, :] = bf16(scale * dq_acc[b, h, s, :]), with dq_acc's tiles in
+// dQ[b, s, h, :] = T(scale * dq_acc[b, h, s, :]), with dq_acc's tiles in
 // staging order, their 64-column slices 4096 floats apart: D / 8 threads a
 // row, 8 columns each.
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_store_dq(BwdParams p, int64_t n_rows) {
+template <int D, typename T>
+__global__ void __launch_bounds__(128) flash_bwd_store_dq(BwdParams<T> p, int64_t n_rows) {
   constexpr int TPR = D / 8, RPB = 128 / TPR;
   const int64_t row = (int64_t)blockIdx.x * RPB + threadIdx.x / TPR;  // (b, s, h), h fastest
   if (row >= n_rows) return;
@@ -664,29 +673,29 @@ __global__ void __launch_bounds__(128) flash_bwd_store_dq(BwdParams p, int64_t n
   const float4* src = reinterpret_cast<const float4*>(tile + staging_offset(s % kQ, c % 8));
   const float4 x = src[0], y = src[1];
   uint4 out;
-  out.x = pack_bf16(x.x * p.scale, x.y * p.scale);
-  out.y = pack_bf16(x.z * p.scale, x.w * p.scale);
-  out.z = pack_bf16(y.x * p.scale, y.y * p.scale);
-  out.w = pack_bf16(y.z * p.scale, y.w * p.scale);
+  out.x = pack2<T>(x.x * p.scale, x.y * p.scale);
+  out.y = pack2<T>(x.z * p.scale, x.w * p.scale);
+  out.z = pack2<T>(y.x * p.scale, y.y * p.scale);
+  out.w = pack2<T>(y.z * p.scale, y.w * p.scale);
   *reinterpret_cast<uint4*>(p.dq + b * p.dq_sb + s * p.dq_ss + h * p.dq_sh + c * 8) = out;
 }
 
-// delta and L, the fused pass, then dQ to bf16. Returns a cudaError_t, or
+// delta and L, the fused pass, then dQ to T. Returns a cudaError_t, or
 // kEncodeError + the CUresult when a tensor map cannot be encoded.
-template <int D>
-int run_fused(const BwdParams& p, int batch, cudaStream_t stream) {
+template <int D, typename T>
+int run_fused(const BwdParams<T>& p, int batch, cudaStream_t stream) {
   using C = Fused<D>;
   CUtensorMap tq, tk, tv, tdo;
-  CUresult r = make_map(&tq, p.q, D, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, kQ);
-  if (r == CUDA_SUCCESS) r = make_map(&tdo, p.dout, D, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, kQ);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, p.k, D, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, kKeys);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, p.v, D, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, kKeys);
+  CUresult r = make_map<T>(&tq, p.q, D, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, kQ);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&tdo, p.dout, D, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, kQ);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&tk, p.k, D, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, kKeys);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&tv, p.v, D, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, kKeys);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
 
-  cudaError_t err = launch_delta<D>(p, batch, stream);
+  cudaError_t err = launch_delta<D, T>(p, batch, stream);
   if (err != cudaSuccess) return (int)err;
 
-  FusedArgs a;
+  FusedArgs<T> a;
   a.lse2 = p.lse2;
   a.delta = p.delta;
   a.dq_acc = p.dq_acc;
@@ -700,16 +709,16 @@ int run_fused(const BwdParams& p, int batch, cudaStream_t stream) {
   a.heads = p.heads;
   a.scale = p.scale;
   a.scale_log2 = p.scale_log2;
-  err = cudaFuncSetAttribute(flash_bwd_fused<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  err = cudaFuncSetAttribute(flash_bwd_fused<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_fused<D><<<dim3((p.skv + kKeys - 1) / kKeys, p.heads, batch), kFusedThreads, C::kSmem, stream>>>(
+  flash_bwd_fused<D, T><<<dim3((p.skv + kKeys - 1) / kKeys, p.heads, batch), kFusedThreads, C::kSmem, stream>>>(
       tq, tk, tv, tdo, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const int64_t n_rows = (int64_t)batch * p.sq * p.heads;
   constexpr int store_rows = 128 / (D / 8);  // rows a block of flash_bwd_store_dq
-  flash_bwd_store_dq<D><<<(unsigned)((n_rows + store_rows - 1) / store_rows), 128, 0, stream>>>(p, n_rows);
+  flash_bwd_store_dq<D, T><<<(unsigned)((n_rows + store_rows - 1) / store_rows), 128, 0, stream>>>(p, n_rows);
   return (int)cudaGetLastError();
 }
 
@@ -728,7 +737,7 @@ constexpr int kThreads = 384;         // producer warpgroup + two consumer warpg
 // Registers of a producer / consumer thread, as flash_bwd_fused<128>: a
 // consumer holds 128 fp32 of its gradient beside 32 of scores.
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr uint32_t kResBox = kRows * 128;                 // one 64-row x 64-column bf16 box
+constexpr uint32_t kResBox = kRows * 128;                 // one 64-row x 64-column box
 constexpr uint32_t kResBytes = 2 * kHalfBoxes * kResBox;  // one resident 64 x 512 tile
 constexpr int kXsFloats = 64 * 64;  // the dV sweep's partials of one consumer: 64 x 64 of S^T
 // Named barriers of the exchange (0 is __syncthreads): both consumers'
@@ -789,10 +798,11 @@ __device__ __forceinline__ Smem smem_layout(unsigned char* raw) {
   return m;
 }
 
+template <typename T>
 struct WideArgs {
   const float* lse2;   // (B, H, sq_pad): L * log2(e), kPadLse on padded rows
   const float* delta;  // (B, H, sq_pad), 0 on padded rows
-  __nv_bfloat16* out;  // dV, dK or dQ
+  T* out;              // dV, dK or dQ
   int64_t out_sb, out_ss, out_sh;
   int sq, sq_pad, skv, kv_len, heads;
   float out_scale;   // 1 for dV, the softmax scale for dK and dQ
@@ -800,7 +810,8 @@ struct WideArgs {
 };
 
 // Rows row0 .. row0 + rows - 1 of a 512-wide gradient as zeros (keys at or past kv_len).
-__device__ __forceinline__ void zero_rows(__nv_bfloat16* base, int64_t ss, int row0, int rows) {
+template <typename T>
+__device__ __forceinline__ void zero_rows(T* base, int64_t ss, int row0, int rows) {
   for (int i = threadIdx.x; i < rows * (kD / 8); i += kThreads) {
     const int r = i / (kD / 8), c = i % (kD / 8);
     *reinterpret_cast<uint4*>(base + (int64_t)(row0 + r) * ss + c * 8) = make_uint4(0, 0, 0, 0);
@@ -862,31 +873,33 @@ __device__ __forceinline__ void add_partials(float (&v)[N], const float4* src) {
   }
 }
 
-// A consumer's 64 x 256 fp32 gradient as bf16 times `mult`: this thread's
+// A consumer's 64 x 256 fp32 gradient times `mult` as T: this thread's
 // rows row0 and row0 + 8 where under `limit`, at `base` (its first column).
-__device__ __forceinline__ void store_rows(const float (&acc)[128], __nv_bfloat16* base, int64_t ss, int row0,
+template <typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[128], T* base, int64_t ss, int row0,
                                            int limit, float mult, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row < limit) {
-      __nv_bfloat16* dst = base + (int64_t)row * ss + 2 * t4;
+      T* dst = base + (int64_t)row * ss + 2 * t4;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(acc[4 * j + 2 * r] * mult, acc[4 * j + 2 * r + 1] * mult);
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack2<T>(acc[4 * j + 2 * r] * mult, acc[4 * j + 2 * r + 1] * mult);
       }
     }
   }
 }
 
 // dV: one block per 64 keys (K resident), Q and dO in tiles of 64 queries.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_wide_dv(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tdo, const WideArgs a) {
+                      const __grid_constant__ CUtensorMap tdo, const WideArgs<T> a) {
   using S = Sweep<64>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  __nv_bfloat16* outb = a.out + b * a.out_sb + h * a.out_sh;
+  T* outb = a.out + b * a.out_sb + h * a.out_sh;
   if (k0 >= a.kv_len) {  // every key of the tile is masked: zero rows
     zero_rows(outb, a.out_ss, k0, min(kRows, a.skv - k0));
     return;
@@ -944,7 +957,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < 4 * kHalfBoxes; ++kk) {
         const uint32_t off = ((kk / 4) * kResBox + (kk % 4) * 32) / 16;  // both operands in 64-row boxes
-        wgmma_ss_n64<0, 0>(s, kd + off, qd + off, kk > 0);
+        wgmma_ss_n64<T, 0, 0>(s, kd + off, qd + off, kk > 0);
       }
     };
     auto exchange = [&](int t) {
@@ -979,7 +992,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // dV (64 keys x this half's 256 columns) += P^T (registers) dO.
     auto dv_product = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n256(dv, p[kk], do_desc + kk * 16 * 128 / 16);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n256<T>(dv, p[kk], do_desc + kk * 16 * 128 / 16);
     };
 
     // Tile 0: S^T alone.
@@ -995,7 +1008,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     release(q_empty);
     exchange(0);
     probs();
-    to_bf16(s, p);
+    to_frags<T>(s, p);
 
     for (int t = 1; t < n_tiles; ++t) {
       // Tile t's S^T and tile t - 1's dV product go to the tensor cores together.
@@ -1017,7 +1030,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();  // the dV product done: p and the dO group are free
       fence_regs(dv);
       release(do_empty);
-      to_bf16(s, p);
+      to_frags<T>(s, p);
     }
     mbar_wait(do_full, (n_tiles - 1) & 1);
     fence_regs(dv);
@@ -1037,13 +1050,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 // two-stage ring, so tile t + 1's arrives while tile t is worked on; x1 has
 // one stage, and once both consumers' dP products have read tile t's x1 its
 // groups carry the consumers' partial scores of the exchange.
-template <bool kKeys>
+template <typename T, bool kKeys>
 __device__ __forceinline__ void ds_sweep(const CUtensorMap* r0, const CUtensorMap* r1, const CUtensorMap* x0,
-                                         const CUtensorMap* x1, const WideArgs& a) {
+                                         const CUtensorMap* x1, const WideArgs<T>& a) {
   using S = Sweep<32>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int row0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  __nv_bfloat16* outb = a.out + b * a.out_sb + h * a.out_sh;
+  T* outb = a.out + b * a.out_sb + h * a.out_sh;
   if (kKeys && row0 >= a.kv_len) {  // every key of the tile is masked: zero rows
     zero_rows(outb, a.out_ss, row0, min(kRows, a.skv - row0));
     return;
@@ -1107,7 +1120,7 @@ __device__ __forceinline__ void ds_sweep(const CUtensorMap* r0, const CUtensorMa
       asm volatile("" : "+l"(rd), "+l"(xd));  // descriptors formed anew for each tile, as in dv's scores
 #pragma unroll
       for (int kk = 0; kk < 4 * kHalfBoxes; ++kk) {
-        wgmma_ss_n32(d, rd + ((kk / 4) * kResBox + (kk % 4) * 32) / 16, xd + ((kk / 4) * S::kBox + (kk % 4) * 32) / 16,
+        wgmma_ss_n32<T>(d, rd + ((kk / 4) * kResBox + (kk % 4) * 32) / 16, xd + ((kk / 4) * S::kBox + (kk % 4) * 32) / 16,
                      kk > 0);
       }
     };
@@ -1152,7 +1165,7 @@ __device__ __forceinline__ void ds_sweep(const CUtensorMap* r0, const CUtensorMa
       release(m.empty + 5);
 
       // P = exp2(S * scale * log2(e) - L * log2(e)) and dS = P (dP - delta),
-      // as bf16 A fragments: two 8-column blocks make one 16-deep k-step.
+      // as A fragments of T: two 8-column blocks make one 16-deep k-step.
       // A padded query has a huge L and gets P = 0; keys at or past kv_len
       // are masked in the last key tile (dK: the block's rows, dQ: columns).
       const bool last = !kKeys && t == n_tiles - 1;
@@ -1168,8 +1181,8 @@ __device__ __forceinline__ void ds_sweep(const CUtensorMap* r0, const CUtensorMa
           const float d = kKeys ? ((e & 1) ? dc[j].y : dc[j].x) : dr[e >> 1];
           pv[e] *= dp[4 * j + e] - d;
         }
-        dsa[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
-        dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
+        dsa[j / 2][2 * (j % 2)] = pack2<T>(pv[0], pv[1]);
+        dsa[j / 2][2 * (j % 2) + 1] = pack2<T>(pv[2], pv[3]);
       }
 
       // The gradient (64 rows x this half's 256 columns) += dS x0, x0 read
@@ -1179,7 +1192,7 @@ __device__ __forceinline__ void ds_sweep(const CUtensorMap* r0, const CUtensorMa
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) wgmma_rs_n256(acc, dsa[kk], x0_mn + st * kStageStep + kk * 16 * 128 / 16);
+      for (int kk = 0; kk < 2; ++kk) wgmma_rs_n256<T>(acc, dsa[kk], x0_mn + st * kStageStep + kk * 16 * 128 / 16);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1189,22 +1202,25 @@ __device__ __forceinline__ void ds_sweep(const CUtensorMap* r0, const CUtensorMa
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_wide_dk(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                      const WideArgs a) {
-  ds_sweep<true>(&tk, &tv, &tq, &tdo, a);
+                      const WideArgs<T> a) {
+  ds_sweep<T, true>(&tk, &tv, &tq, &tdo, a);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_wide_dq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                      const WideArgs a) {
-  ds_sweep<false>(&tq, &tdo, &tk, &tv, a);
+                      const WideArgs<T> a) {
+  ds_sweep<T, false>(&tq, &tdo, &tk, &tv, a);
 }
 
 // Points `a` at one gradient.
-void set_out(WideArgs& a, __nv_bfloat16* out, int64_t sb, int64_t ss, int64_t sh, float scale) {
+template <typename T>
+void set_out(WideArgs<T>& a, T* out, int64_t sb, int64_t ss, int64_t sh, float scale) {
   a.out = out;
   a.out_sb = sb;
   a.out_ss = ss;
@@ -1214,23 +1230,24 @@ void set_out(WideArgs& a, __nv_bfloat16* out, int64_t sb, int64_t ss, int64_t sh
 
 // delta and L, then the dV, dK and dQ sweeps. Returns a cudaError_t, or
 // kEncodeError + the CUresult when a tensor map cannot be encoded.
-int run(const BwdParams& p, int batch, cudaStream_t stream) {
+template <typename T>
+int run(const BwdParams<T>& p, int batch, cudaStream_t stream) {
   // 64-row boxes for the resident tiles and the dV sweep's query tiles,
   // 32-row boxes for the dK and dQ sweeps' streamed tiles.
   CUtensorMap q64, do64, k64, v64, q32, do32, k32, v32;
-  CUresult r = make_map(&q64, p.q, kD, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, 64);
-  if (r == CUDA_SUCCESS) r = make_map(&q32, p.q, kD, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, 32);
-  if (r == CUDA_SUCCESS) r = make_map(&do64, p.dout, kD, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, 64);
-  if (r == CUDA_SUCCESS) r = make_map(&do32, p.dout, kD, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, 32);
-  if (r == CUDA_SUCCESS) r = make_map(&k64, p.k, kD, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, 64);
-  if (r == CUDA_SUCCESS) r = make_map(&k32, p.k, kD, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, 32);
-  if (r == CUDA_SUCCESS) r = make_map(&v64, p.v, kD, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, 64);
-  if (r == CUDA_SUCCESS) r = make_map(&v32, p.v, kD, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, 32);
+  CUresult r = make_map<T>(&q64, p.q, kD, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&q32, p.q, kD, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, 32);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&do64, p.dout, kD, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&do32, p.dout, kD, p.sq, p.heads, batch, p.do_ss, p.do_sh, p.do_sb, 32);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&k64, p.k, kD, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&k32, p.k, kD, p.kv_len, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, 32);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&v64, p.v, kD, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, 64);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&v32, p.v, kD, p.kv_len, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, 32);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
 
-  cudaError_t err = launch_delta<kD>(p, batch, stream);
+  cudaError_t err = launch_delta<kD, T>(p, batch, stream);
   if (err != cudaSuccess) return (int)err;
-  WideArgs a;
+  WideArgs<T> a;
   a.lse2 = p.lse2;
   a.delta = p.delta;
   a.sq = p.sq;
@@ -1242,53 +1259,46 @@ int run(const BwdParams& p, int batch, cudaStream_t stream) {
   const dim3 keys((p.skv + kRows - 1) / kRows, p.heads, batch), queries(p.sq_pad / kRows, p.heads, batch);
 
   set_out(a, p.dv, p.dv_sb, p.dv_ss, p.dv_sh, 1.f);
-  err = cudaFuncSetAttribute(flash_bwd_wide_dv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<64>::kSmem);
+  err = cudaFuncSetAttribute(flash_bwd_wide_dv<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<64>::kSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_wide_dv<<<keys, kThreads, Sweep<64>::kSmem, stream>>>(k64, q64, do64, a);
+  flash_bwd_wide_dv<T><<<keys, kThreads, Sweep<64>::kSmem, stream>>>(k64, q64, do64, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   set_out(a, p.dk, p.dk_sb, p.dk_ss, p.dk_sh, p.scale);
-  err = cudaFuncSetAttribute(flash_bwd_wide_dk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<32>::kSmem);
+  err = cudaFuncSetAttribute(flash_bwd_wide_dk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<32>::kSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_wide_dk<<<keys, kThreads, Sweep<32>::kSmem, stream>>>(k64, v64, q32, do32, a);
+  flash_bwd_wide_dk<T><<<keys, kThreads, Sweep<32>::kSmem, stream>>>(k64, v64, q32, do32, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   set_out(a, p.dq, p.dq_sb, p.dq_ss, p.dq_sh, p.scale);
-  err = cudaFuncSetAttribute(flash_bwd_wide_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<32>::kSmem);
+  err = cudaFuncSetAttribute(flash_bwd_wide_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sweep<32>::kSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_wide_dq<<<queries, kThreads, Sweep<32>::kSmem, stream>>>(q64, do64, k32, v32, a);
+  flash_bwd_wide_dq<T><<<queries, kThreads, Sweep<32>::kSmem, stream>>>(q64, do64, k32, v32, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wide
 
-}  // namespace
-
-// C entry point, every kernel on `stream`. Strides are in elements; the last
-// (D) stride must be 1 and every other stride a multiple of 8, with 16-byte
-// aligned base pointers (the Python wrapper checks this). `sq_pad` is Sq
-// rounded up to 64, the row pitch of the fp32 scratch `delta` and `lse2` (B,
-// H, sq_pad); at D = 64 and 128 `dq_acc` (B, H, sq_pad * D), zeroed by the
-// caller, takes the sums of dQ; D = 512 sums nothing across blocks and reads
-// no `dq_acc`. Returns the first failing launch's cudaError_t, kEncodeError +
-// the CUresult when a tensor map cannot be encoded, or 0.
-extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                              const float* lse, float* delta, float* lse2, float* dq_acc, void* dq, void* dk,
-                              void* dv, int batch, int sq, int sq_pad, int skv, int heads, int head_dim, int kv_len,
-                              float scale, const long long* strides, void* stream) {
-  BwdParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<const __nv_bfloat16*>(o);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
+// The backward for element type T: every kernel on `stream` (see the entry
+// point below).
+template <typename T>
+int run_typed(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+              float* delta, float* lse2, float* dq_acc, void* dq, void* dk, void* dv, int batch, int sq, int sq_pad,
+              int skv, int heads, int head_dim, int kv_len, float scale, const long long* strides,
+              cudaStream_t stream) {
+  BwdParams<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<const T*>(o);
+  p.dout = static_cast<const T*>(dout);
   p.lse = lse;
   p.delta = delta;
   p.lse2 = lse2;
   p.dq_acc = dq_acc;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dq = static_cast<T*>(dq);
+  p.dk = static_cast<T*>(dk);
+  p.dv = static_cast<T*>(dv);
   p.sq = sq;
   p.sq_pad = sq_pad;
   p.skv = skv;
@@ -1301,14 +1311,41 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
                       &p.v_sh,  &p.o_sb,  &p.o_ss,  &p.o_sh,  &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb,
                       &p.dq_ss, &p.dq_sh, &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
   for (int i = 0; i < 24; ++i) *dst[i] = strides[i];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lse2 == nullptr || sq_pad % kQ != 0 || sq_pad < sq) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 64:
     case 128:
       if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
-      return head_dim == 64 ? run_fused<64>(p, batch, s) : run_fused<128>(p, batch, s);
-    case 512: return wide::run(p, batch, s);
+      return head_dim == 64 ? run_fused<64, T>(p, batch, stream) : run_fused<128, T>(p, batch, stream);
+    case 512: return wide::run<T>(p, batch, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// C entry point, every kernel on `stream`. Strides are in elements; the last
+// (D) stride must be 1 and every other stride a multiple of 8, with 16-byte
+// aligned base pointers (the Python wrapper checks this). `dtype` is the
+// element type of q, k, v, o, dout and the gradients (ElemCode: 0 bf16, 1
+// fp16). `sq_pad` is Sq rounded up to 64, the row pitch of the fp32 scratch
+// `delta` and `lse2` (B, H, sq_pad); at D = 64 and 128 `dq_acc` (B, H, sq_pad
+// * D), zeroed by the caller, takes the sums of dQ; D = 512 sums nothing
+// across blocks and reads no `dq_acc`. Returns the first failing launch's
+// cudaError_t, cudaErrorInvalidValue for a head dim or element type without a
+// kernel, kEncodeError + the CUresult when a tensor map cannot be encoded, or 0.
+extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                              const float* lse, float* delta, float* lse2, float* dq_acc, void* dq, void* dk,
+                              void* dv, int batch, int sq, int sq_pad, int skv, int heads, int head_dim, int kv_len,
+                              int dtype, float scale, const long long* strides, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse2 == nullptr || sq_pad % kQ != 0 || sq_pad < sq) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case kElemBf16:
+      return run_typed<__nv_bfloat16>(q, k, v, o, dout, lse, delta, lse2, dq_acc, dq, dk, dv, batch, sq, sq_pad, skv,
+                                      heads, head_dim, kv_len, scale, strides, s);
+    case kElemF16:
+      return run_typed<__half>(q, k, v, o, dout, lse, delta, lse2, dq_acc, dq, dk, dv, batch, sq, sq_pad, skv, heads,
+                               head_dim, kv_len, scale, strides, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a): exact non-causal
-// softmax(Q K^T * scale) V over (B, S, H, D) bf16 tensors read through their
-// strides, written to a (B, Sq, H, D) bf16 output.
+// softmax(Q K^T * scale) V over (B, S, H, D) bf16 or fp16 tensors read
+// through their strides, written to a (B, Sq, H, D) output of the same type.
+// Every kernel is a template over the element type T (flash_attn_common.cuh):
+// the two types are both 2 bytes, so tiles, swizzle, descriptors and the
+// schedule are one design; only the wgmma operand type (.bf16 or .f16), the
+// tensor maps' data type and the rounding of P and O to T differ.
 //
 // Replaces two TPU kernels that compute this same function:
 //   K1  evoworld_tpu/ops/attention.py::_builtin_flash (JAX's shipped Pallas TPU
@@ -13,7 +17,8 @@
 // sequential grid axis. Blocks on this card run in no order, so here the KV
 // sweep is a loop inside one block and nothing is carried between blocks.
 //
-// Bound: 4*B*H*Sq*Skv*D flops of bf16 tensor-core work (the two products)
+// Bound: 4*B*H*Sq*Skv*D flops of bf16 / fp16 tensor-core work (the same
+// dense rate on this card) (the two products)
 // against (2*Sq + 2*Skv)*B*H*D*2 bytes moved (Q, K, V read once, O written
 // once). At the main path's 9216 tokens the operations bound it: Sq/2 = 4,608
 // flops per byte, against the card's ~295. At D = 64 the softmax's exp2 (16
@@ -32,7 +37,7 @@
 //     keys past it and a ragged query tile past Sq.
 //   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
 //     O += P V is wgmma with P in registers (the S accumulator's layout is the
-//     A operand's, so P is the accumulator converted to bf16) and V read
+//     A operand's, so P is the accumulator converted to T) and V read
 //     through the descriptor's transpose bit. fp32 accumulation throughout.
 //   - Each consumer overlaps its own work: tile t's Q K^T and tile t-1's P V
 //     are issued together, and the softmax of tile t runs on the CUDA cores
@@ -102,8 +107,9 @@ struct Fwd {
   static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + (1 + 4 * kStages) * 8;
 };
 
+template <typename T>
 struct FwdArgs {
-  __nv_bfloat16* o;
+  T* o;
   float* lse;  // (B, H, Sq) or null
   int64_t o_sb, o_ss, o_sh;
   int sq, kv_len, heads;
@@ -112,25 +118,25 @@ struct FwdArgs {
 
 // S (64 x 128) = Q (64 x D) K^T for one key tile. Each 16-column step is 32
 // bytes further into a 128-byte swizzled row; D = 128 spans two boxes.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void qk_tile(float (&s)[64], uint64_t q_desc, uint64_t k_desc) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_ss_n128(s, q_desc + ((kk / 4) * Fwd<D>::kBoxQ + (kk % 4) * 32) / 16,
+    wgmma_ss_n128<T>(s, q_desc + ((kk / 4) * Fwd<D>::kBoxQ + (kk % 4) * 32) / 16,
                   k_desc + ((kk / 4) * Fwd<D>::kBoxKV + (kk % 4) * 32) / 16, kk > 0);
   }
 }
 
 // O (64 x D) += P (64 x 128, registers) V (128 x D); each 16-key step is 16
 // rows of 128 bytes further.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void pv_tile(float (&o)[D / 2], const uint32_t (&p)[kBN / 16][4], uint64_t v_desc) {
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
     if constexpr (D == 64) {
-      wgmma_rs_n64(o, p[kk], v_desc + kk * 16 * 128 / 16);
+      wgmma_rs_n64<T>(o, p[kk], v_desc + kk * 16 * 128 / 16);
     } else {
-      wgmma_rs_n128(o, p[kk], v_desc + kk * 16 * 128 / 16);
+      wgmma_rs_n128<T>(o, p[kk], v_desc + kk * 16 * 128 / 16);
     }
   }
 }
@@ -181,21 +187,21 @@ __device__ __forceinline__ void softmax_tile(float (&s)[F], float (&m)[2], float
   l[1] = l[1] * alpha[1] + sum[1];
 }
 
-// Probabilities as bf16 A fragments: two adjacent 8-column accumulator blocks
+// Probabilities as A fragments of T: two adjacent 8-column accumulator blocks
 // make one 16-key k-step.
-template <int F>
-__device__ __forceinline__ void to_bf16(const float (&s)[F], uint32_t (&p)[F / 8][4]) {
+template <typename T, int F>
+__device__ __forceinline__ void to_frags(const float (&s)[F], uint32_t (&p)[F / 8][4]) {
 #pragma unroll
   for (int kk = 0; kk < F / 8; ++kk) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    for (int i = 0; i < 4; ++i) p[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
+                    const __grid_constant__ CUtensorMap tv, const FwdArgs<T> a) {
   using C = Fwd<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -270,14 +276,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(k_full, 0);
     fence_regs(s);
     wgmma_fence();
-    qk_tile<D>(s, q_desc, k_desc);
+    qk_tile<D, T>(s, q_desc, k_desc);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(k_empty);
     if (n_tiles == 1) mask_tile(s, a.kv_len, t4);
     softmax_tile(s, m, l, alpha, a.scale_log2);
-    to_bf16(s, p);
+    to_frags<T>(s, p);
 
     for (int t = 1; t < n_tiles; ++t) {
       const int st = t % C::kStages, prev = (t - 1) % C::kStages;
@@ -287,9 +293,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(s);
       fence_regs(o);
       wgmma_fence();
-      qk_tile<D>(s, q_desc, k_desc + st * kStageStep);
+      qk_tile<D, T>(s, q_desc, k_desc + st * kStageStep);
       wgmma_commit();
-      pv_tile<D>(o, p, v_desc + prev * kStageStep);
+      pv_tile<D, T>(o, p, v_desc + prev * kStageStep);
       wgmma_commit();
       wgmma_wait<1>();  // Q K^T done; P V may still run
       fence_regs(s);
@@ -306,29 +312,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         o[4 * j + 2] *= alpha[1];
         o[4 * j + 3] *= alpha[1];
       }
-      to_bf16(s, p);
+      to_frags<T>(s, p);
     }
     const int last = (n_tiles - 1) % C::kStages;
     mbar_wait(v_full + last, ((n_tiles - 1) / C::kStages) & 1);
     fence_regs(o);
     wgmma_fence();
-    pv_tile<D>(o, p, v_desc + last * kStageStep);
+    pv_tile<D, T>(o, p, v_desc + last * kStageStep);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
 
-    __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh;
+    T* ob = a.o + b * a.o_sb + h * a.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float sum = quad_sum(l[r]);
       const float inv = 1.f / fmaxf(sum, 1e-30f);
       const int row = q0 + cw * 64 + warp * 16 + g + 8 * r;
       if (row < a.sq) {
-        __nv_bfloat16* orow = ob + (int64_t)row * a.o_ss;
+        T* orow = ob + (int64_t)row * a.o_ss;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
-              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+              pack2<T>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
         }
         if (a.lse != nullptr && t4 == 0) {
           a.lse[((int64_t)b * a.heads + h) * a.sq + row] = (m[r] + log2f(sum)) * kLn2;
@@ -338,13 +344,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
-int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const FwdArgs& a, int batch,
+template <int D, typename T>
+int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const FwdArgs<T>& a, int batch,
                  cudaStream_t stream) {
   const size_t smem = Fwd<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_wgmma<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_wgmma<D><<<dim3((a.sq + kBM - 1) / kBM, a.heads, batch), kThreads, smem, stream>>>(tq, tk, tv, a);
+  flash_fwd_wgmma<D, T><<<dim3((a.sq + kBM - 1) / kBM, a.heads, batch), kThreads, smem, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
@@ -369,17 +376,19 @@ constexpr size_t kWSmem = 1024 + kWBoxes * kWBox + kWSlots * kWBox + 2 * kWM * k
 // written; consumer c's partial read by the other consumer.
 constexpr int kBarScores = 1, kBarRead = 2;
 
+template <typename T>
 struct WideArgs {
-  __nv_bfloat16* o;
+  T* o;
   float* lse;  // (B, H, Sq) or null
   int64_t o_sb, o_ss, o_sh;
   int sq, kv_len, heads;
   float scale_log2;  // scale * log2(e)
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, const WideArgs a) {
+                   const __grid_constant__ CUtensorMap tv, const WideArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* ring = qs + kWBoxes * kWBox;
@@ -467,7 +476,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < 4 * kWHalfBoxes; ++kk) {
         const uint32_t off = ((kk / 4) * kWBox + (kk % 4) * 32) / 16;
-        wgmma_ss_n64<0, 0>(s, qd + off, kd + off, kk > 0);
+        wgmma_ss_n64<T, 0, 0>(s, qd + off, kd + off, kk > 0);
       }
     };
     // Both halves meet in shared memory; each consumer adds the other's to
@@ -491,7 +500,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // O (64 x 256) += P (64 x 64, registers) V (64 keys x this half's 256 columns).
     auto pv = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < kWN / 16; ++kk) wgmma_rs_n256(o, p[kk], v_desc + kk * 16 * 128 / 16);
+      for (int kk = 0; kk < kWN / 16; ++kk) wgmma_rs_n256<T>(o, p[kk], v_desc + kk * 16 * 128 / 16);
     };
 
     // Tile 0: Q K^T alone.
@@ -507,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     exchange(0);
     if (n_tiles == 1) mask_tile(s, a.kv_len, t4);
     softmax_tile(s, m, l, alpha, a.scale_log2);
-    to_bf16(s, p);
+    to_frags<T>(s, p);
 
     for (int t = 1; t < n_tiles; ++t) {
       // Tile t's Q K^T and tile t-1's P V go to the tensor cores together.
@@ -536,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         o[4 * j + 2] *= alpha[1];
         o[4 * j + 3] *= alpha[1];
       }
-      to_bf16(s, p);
+      to_frags<T>(s, p);
     }
     mbar_wait(v_full, (n_tiles - 1) & 1);
     fence_regs(o);
@@ -546,18 +555,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     fence_regs(o);
 
-    __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh + c * kWHalfBoxes * 64;
+    T* ob = a.o + b * a.o_sb + h * a.o_sh + c * kWHalfBoxes * 64;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float sum = quad_sum(l[r]);
       const float inv = 1.f / fmaxf(sum, 1e-30f);
       const int row = q0 + warp * 16 + g + 8 * r;
       if (row < a.sq) {
-        __nv_bfloat16* orow = ob + (int64_t)row * a.o_ss;
+        T* orow = ob + (int64_t)row * a.o_ss;
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
-              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+              pack2<T>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
         }
         if (a.lse != nullptr && c == 0 && t4 == 0) {
           a.lse[((int64_t)b * a.heads + h) * a.sq + row] = (m[r] + log2f(sum)) * kLn2;
@@ -567,56 +576,73 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-int launch_wide(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const WideArgs& a, int heads,
+template <typename T>
+int launch_wide(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const WideArgs<T>& a, int heads,
                 int batch, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmem);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_wide<<<dim3((a.sq + kWM - 1) / kWM, heads, batch), kThreads, kWSmem, stream>>>(tq, tk, tv, a);
+  flash_fwd_wide<T><<<dim3((a.sq + kWM - 1) / kWM, heads, batch), kThreads, kWSmem, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
+}
+
+// Both kernels for element type T: the tensor maps, the arguments, the
+// launch at head dim 64 / 128 (flash_fwd_wgmma) or 512 (flash_fwd_wide).
+// Returns the launch's cudaError_t, cudaErrorInvalidValue for a head dim
+// without a kernel, or kEncodeError + the CUresult when a tensor map cannot
+// be encoded.
+template <typename T>
+int run(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq, int heads, int head_dim,
+        int kv_len, float scale, const long long* st, cudaStream_t s) {
+  const bool wide = head_dim == 512;
+  if (!wide && head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
+  const int box_q = wide ? kWM : kBM, box_kv = wide ? kWN : kBN;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map<T>(&tq, q, head_dim, sq, heads, batch, st[1], st[2], st[0], box_q);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&tk, k, head_dim, kv_len, heads, batch, st[4], st[5], st[3], box_kv);
+  if (r == CUDA_SUCCESS) r = make_map<T>(&tv, v, head_dim, kv_len, heads, batch, st[7], st[8], st[6], box_kv);
+  if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
+  if (wide) {
+    WideArgs<T> a;
+    a.o = static_cast<T*>(o);
+    a.lse = lse;
+    a.o_sb = st[9]; a.o_ss = st[10]; a.o_sh = st[11];
+    a.sq = sq;
+    a.kv_len = kv_len;
+    a.heads = heads;
+    a.scale_log2 = scale * kLog2e;
+    return launch_wide<T>(tq, tk, tv, a, heads, batch, s);
+  }
+  FwdArgs<T> a;
+  a.o = static_cast<T*>(o);
+  a.lse = lse;
+  a.o_sb = st[9]; a.o_ss = st[10]; a.o_sh = st[11];
+  a.sq = sq;
+  a.kv_len = kv_len;
+  a.heads = heads;
+  a.scale_log2 = scale * kLog2e;
+  return head_dim == 64 ? launch_wgmma<64, T>(tq, tk, tv, a, batch, s) : launch_wgmma<128, T>(tq, tk, tv, a, batch, s);
 }
 
 }  // namespace
 
 // C entry point. Strides are in elements; the last (D) stride must be 1 and
 // every other stride a multiple of 8, with 16-byte aligned base pointers (the
-// Python wrapper checks this). `use_exp2` selects nothing: both modes are
-// the same function, computed in the exp2 domain. Returns the launch's cudaError_t,
-// or kEncodeError + the CUresult when a tensor map cannot be encoded.
+// Python wrapper checks this). `dtype` is the element type of q, k, v and o
+// (ElemCode: 0 bf16, 1 fp16). `use_exp2` selects nothing: both modes are the
+// same function, computed in the exp2 domain. Returns the launch's
+// cudaError_t, cudaErrorInvalidValue for a head dim or element type without a
+// kernel, or kEncodeError + the CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
-                              int heads, int head_dim, int kv_len, float scale, int use_exp2, long long q_sb,
-                              long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                              long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-                              long long o_sh, void* stream) {
+                              int heads, int head_dim, int kv_len, float scale, int use_exp2, int dtype,
+                              long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+                              long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+                              long long o_ss, long long o_sh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64 || head_dim == 128) {
-    CUtensorMap tq, tk, tv;
-    CUresult r = make_map(&tq, q, head_dim, sq, heads, batch, q_ss, q_sh, q_sb, kBM);
-    if (r == CUDA_SUCCESS) r = make_map(&tk, k, head_dim, kv_len, heads, batch, k_ss, k_sh, k_sb, kBN);
-    if (r == CUDA_SUCCESS) r = make_map(&tv, v, head_dim, kv_len, heads, batch, v_ss, v_sh, v_sb, kBN);
-    if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
-    FwdArgs a;
-    a.o = static_cast<__nv_bfloat16*>(o);
-    a.lse = lse;
-    a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
-    a.sq = sq;
-    a.kv_len = kv_len;
-    a.heads = heads;
-    a.scale_log2 = scale * kLog2e;
-    return head_dim == 64 ? launch_wgmma<64>(tq, tk, tv, a, batch, s) : launch_wgmma<128>(tq, tk, tv, a, batch, s);
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  switch (dtype) {
+    case kElemBf16: return run<__nv_bfloat16>(q, k, v, o, lse, batch, sq, heads, head_dim, kv_len, scale, st, s);
+    case kElemF16: return run<__half>(q, k, v, o, lse, batch, sq, heads, head_dim, kv_len, scale, st, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (head_dim != 512) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  CUresult r = make_map(&tq, q, head_dim, sq, heads, batch, q_ss, q_sh, q_sb, kWM);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, k, head_dim, kv_len, heads, batch, k_ss, k_sh, k_sb, kWN);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, v, head_dim, kv_len, heads, batch, v_ss, v_sh, v_sb, kWN);
-  if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
-  WideArgs a;
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.lse = lse;
-  a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
-  a.sq = sq;
-  a.kv_len = kv_len;
-  a.heads = heads;
-  a.scale_log2 = scale * kLog2e;
-  return launch_wide(tq, tk, tv, a, heads, batch, s);
 }

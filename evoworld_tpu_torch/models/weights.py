@@ -30,8 +30,8 @@ other vectors normal with std 0.02.
 format with the standard library and torch alone (the `safetensors` package
 is not a dependency): an 8-byte little-endian header length, a JSON header
 of `{name: {"dtype", "shape", "data_offsets"}}` and the raw little-endian
-data. `load_safetensors_dir` merges every `*.safetensors` of a directory
-(sharded checkpoints), `expand_conv_in_weight` is the UNet's 8 -> 18 input
+data; `safetensors_shapes` reads a file's header alone. `load_safetensors_dir`
+merges every `*.safetensors` of a directory (sharded checkpoints), `expand_conv_in_weight` is the UNet's 8 -> 18 input
 channel surgery, and `load_checkpoint_` / `load_vggt_checkpoint` fill the
 port's modules from upstream-named state dicts.
 """
@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import os
 import re
 import struct
@@ -289,6 +290,23 @@ _ST_DTYPES = {
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 
+def _read_header(f) -> tuple[int, dict]:
+    """(bytes before the data section, {name: {"dtype", "shape", "data_offsets"}})
+    of an open .safetensors file, its `__metadata__` left out."""
+    (header_len,) = struct.unpack("<Q", f.read(8))
+    header = json.loads(f.read(header_len))
+    header.pop("__metadata__", None)
+    return 8 + header_len, header
+
+
+def safetensors_shapes(path: str) -> dict[str, tuple[str, tuple[int, ...]]]:
+    """{name: (safetensors dtype name, shape)} of a .safetensors file, from its
+    header alone: no tensor's bytes are read."""
+    with open(path, "rb") as f:
+        header = _read_header(f)[1]
+    return {name: (info["dtype"], tuple(info["shape"])) for name, info in header.items()}
+
+
 def load_safetensors(path: str) -> dict[str, torch.Tensor]:
     """A .safetensors file -> {name: CPU tensor} (counterpart of
     `evoworld_tpu/models/weights.py::load_safetensors`, which returns numpy).
@@ -298,14 +316,11 @@ def load_safetensors(path: str) -> dict[str, torch.Tensor]:
     bf16. A tensor whose offset is not a multiple of its element size is copied.
     """
     with open(path, "rb") as f:
-        (header_len,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(header_len))
-        data = bytearray(os.path.getsize(path) - 8 - header_len)
+        start, header = _read_header(f)
+        data = bytearray(os.path.getsize(path) - start)
         f.readinto(data)
     out = {}
     for name, info in header.items():
-        if name == "__metadata__":
-            continue
         dtype = _ST_DTYPES[info["dtype"]]
         start, end = info["data_offsets"]
         size = torch.empty((), dtype=dtype).element_size()
@@ -329,26 +344,48 @@ def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> None:
         header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
         parts.append(t)
         offset += nbytes
-    blob = json.dumps(header, separators=(",", ":")).encode()
-    blob += b" " * (-len(blob) % 8)
     with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(blob)))
-        f.write(blob)
+        _write_header(f, header)
         for t in parts:
             if t.numel():
                 f.write(t.reshape(-1).view(torch.uint8).numpy().data)
 
 
-def load_safetensors_dir(path: str) -> dict[str, torch.Tensor] | None:
+def save_safetensors_header(shapes: Mapping[str, tuple[str, tuple[int, ...]]], path: str) -> None:
+    """Write a .safetensors file of `shapes` ({name: (dtype name, shape)}, as
+    `safetensors_shapes` reads them) whose data section is a hole: the header,
+    then the file truncated to its full length. Enough for a check that reads
+    headers alone, at full width with no weight bytes on disk."""
+    header, offset = {}, 0
+    for name, (dtype, shape) in shapes.items():
+        nbytes = _ST_DTYPES[dtype].itemsize * math.prod(shape)
+        header[name] = {"dtype": dtype, "shape": list(shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    with open(path, "wb") as f:
+        f.truncate(_write_header(f, header) + offset)
+
+
+def _write_header(f, header: dict) -> int:
+    """Write a safetensors header (its length, then its JSON padded with spaces
+    to 8 bytes) to an open file; returns the bytes written."""
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    f.write(struct.pack("<Q", len(blob)))
+    f.write(blob)
+    return 8 + len(blob)
+
+
+def load_safetensors_dir(path: str, reader=load_safetensors) -> dict | None:
     """Every `*.safetensors` of a directory merged into one state dict (sharded
     checkpoints), or None where the directory holds none (counterpart of
-    `evoworld_tpu/runtime.py::_load_safetensors_dir`)."""
+    `evoworld_tpu/runtime.py::_load_safetensors_dir`). With
+    `reader=safetensors_shapes` the headers alone are merged."""
     files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if not files:
         return None
-    state: dict[str, torch.Tensor] = {}
+    state: dict = {}
     for f in files:
-        state.update(load_safetensors(f))
+        state.update(reader(f))
     return state
 
 

@@ -17,7 +17,11 @@ backward `csrc/flash_attn_bwd.cu`; tensors on the CPU take
 `flash_attention_plain` and `flash_attention_backward_plain`. On a CUDA tensor
 each wrapper launches its kernel or raises; it never falls back.
 
-Both directions are bound by bf16 tensor-core operations at the paths' 9216
+The kernels take bf16 or fp16 (q, k, v, o, dO and the gradients all of one
+of the two; the log-sum-exp and the scratch fp32): each kernel is one
+source templated over the element type, and the wrapper passes the type's
+code (`_ELEM_CODES`). Both directions are bound by tensor-core operations
+(the same dense rate in bf16 and fp16 on an H100) at the paths' 9216
 tokens, with one exp2 per score beside them. Which head dim takes which kernel:
   - forward, D = 64 and 128: `flash_fwd_wgmma` (wgmma, a TMA ring of K and V
     tiles, a producer warpgroup and two consumers); D = 512: `flash_fwd_wide`
@@ -33,8 +37,8 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     and add the tile's part of dQ into a zeroed fp32 buffer with
     asynchronous bulk reductions (at D = 128 each consumer its 64 columns),
     between `flash_bwd_delta` (rowsum(dO * O) and the log-sum-exp in the
-    exp2 domain) and `flash_bwd_store_dq` (scale, to bf16). The order of
-    those fp32 sums is not fixed, so dQ may differ in its last bf16 bit
+    exp2 domain) and `flash_bwd_store_dq` (scale, to the input type). The
+    order of those fp32 sums is not fixed, so dQ may differ in its last bit
     between two calls; dK and dV are repeatable;
   - backward, D = 512 (no path runs it): after `flash_bwd_delta`, three
     wgmma sweeps with `flash_fwd_wide`'s block, `flash_bwd_wide_dv` (K
@@ -70,6 +74,9 @@ _ENCODE_ERROR = 10000  # the C entry points return this + the CUresult when a TM
 _BWD_QUERY_TILE = 64  # the backward's fp32 scratch (delta, L in the exp2 domain) is padded to whole query tiles
 _FUSED_BWD_DIMS = (64, 128)  # head dims of the fused pass, which sums dQ in an fp32 buffer (512: the wide sweeps)
 _PLAIN_BLOCK_K = 512  # keys per step of the plain versions
+# The kernels' element types and the C entry points' code for each (ElemCode
+# in csrc/flash_attn_common.cuh).
+_ELEM_CODES = {torch.bfloat16: 0, torch.float16: 1}
 
 
 def _plain_forward(q, k, v, scale, kv_len, use_exp2):
@@ -131,9 +138,10 @@ def flash_attention_backward_plain(
     Recomputes P = exp(Q K^T * scale - lse) one block of keys at a time from
     the forward's row log-sum-exp `lse` (B, H, Sq); delta = rowsum(dO * O);
     dS = P * (dO V^T - delta). P and dS are cast to q's dtype before their
-    products, as the kernel rounds them to bf16 operands. Rows of dK and dV at
-    or past `kv_len` are zero. Returns three tensors in q's dtype, shaped like
-    q, k and v.
+    products, as the kernel rounds them to its bf16 or fp16 operands; dK's
+    scale is applied in fp32 before the final cast, as in the kernel. Rows of
+    dK and dV at or past `kv_len` are zero. Returns three tensors in q's
+    dtype, shaped like q, k and v.
     """
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -158,11 +166,13 @@ def flash_attention_backward_plain(
     return tuple(t.to(q.dtype).transpose(1, 2) for t in (dq, dk, dv))
 
 
-def _check_layout(name: str, t: torch.Tensor, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+def _check_layout(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    if t.device != q.device:
+        raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if t.dtype not in _ELEM_CODES:
+        raise ValueError(f"{name} must be bfloat16 or float16, got {t.dtype}")
+    if t.dtype != q.dtype:
+        raise ValueError(f"{name} is {t.dtype} and q {q.dtype}: the kernels take one element type for all inputs")
     if t.dim() != 4:
         raise ValueError(f"{name} must be (B, S, H, D), got {tuple(t.shape)}")
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
@@ -174,12 +184,13 @@ def _check_layout(name: str, t: torch.Tensor, device: torch.device) -> None:
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, grads: dict | None = None) -> None:
     """Raise on anything the CUDA kernels do not take.
 
-    `grads` holds the backward's extra inputs (`o`, `do`: like q; `lse`:
-    fp32 contiguous (B, H, Sq)).
+    Every input is bfloat16, or every input float16: a mix of the two, or
+    another dtype, is refused by name. `grads` holds the backward's extra
+    inputs (`o`, `do`: like q; `lse`: fp32 contiguous (B, H, Sq)).
     """
     extra = {n: t for n, t in (grads or {}).items() if n != "lse"}
     for name, t in (("q", q), ("k", k), ("v", v), *extra.items()):
-        _check_layout(name, t, q.device)
+        _check_layout(name, t, q)
     b, sq, h, d = q.shape
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
@@ -215,7 +226,7 @@ def _fwd_fn():
         fn.argtypes = (
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_longlong] * 12
             + [ctypes.c_void_p]
         )
@@ -228,7 +239,7 @@ def _bwd_fn():
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 12
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -258,7 +269,7 @@ def flash_attention_forward(q, k, v, scale, kv_len, use_exp2=False, with_lse=Fal
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, sq, h, d, kv_len, scale, int(use_exp2),
+            b, sq, h, d, kv_len, scale, int(use_exp2), _ELEM_CODES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -282,12 +293,12 @@ def flash_attention_backward(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dQ, dK, dV from the forward's inputs, output `o`, row log-sum-exp `lse` and `do`.
 
-    CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16;
-    the fused wgmma pass at D = 64 and 128, the three wide sweeps at D =
+    CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16
+    or fp16, all inputs of one type; the fused wgmma pass at D = 64 and 128, the three wide sweeps at D =
     512); one launch counts every kernel of a call. Each call allocates fp32
     delta and L scratch padded to whole 64-query tiles; at D = 64 and 128
     also a zeroed fp32 buffer shaped like q (padded the same way) that the
-    fused pass sums dQ into, so that dQ may differ in its last bf16 bit
+    fused pass sums dQ into, so that dQ may differ in its last bit
     between two calls. CPU tensors go to `flash_attention_backward_plain`.
     Returns contiguous tensors shaped like q, k and v. A head dim without a
     kernel of its own is zero-padded to `kernel_head_dim` and the gradients
@@ -320,7 +331,7 @@ def flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), lse2.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, sq_pad, k.shape[1], h, d, kv_len, scale, strides,
+            b, sq, sq_pad, k.shape[1], h, d, kv_len, _ELEM_CODES[q.dtype], scale, strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err >= _ENCODE_ERROR:
@@ -358,7 +369,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Exact attention over (B, S, H, D) tensors; keys at or past `kv_len` masked.
 
-    CUDA tensors go to the Hopper kernel (bf16, D up to 512, padded to 64,
+    CUDA tensors go to the Hopper kernel (bf16 or fp16, q, k and v of one
+    type; D up to 512, padded to 64,
     128 or 512, strided layouts allowed as long as D is contiguous); CPU
     tensors to `flash_attention_plain`. Under grad with an input that requires it, the
     call goes through `FlashAttentionFunction`.

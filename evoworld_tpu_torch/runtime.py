@@ -13,11 +13,11 @@ names. `build_trainer(checkpoint_dir=...)` reads the same directory as
 `build_pipeline`. The repository ships no checkpoint (WEIGHTS.md); the tests
 write small random ones.
 
-On CUDA every entry point takes bfloat16 only: the Hopper flash-attention
-kernels are bf16 kernels, and the attention dispatch never falls back to
-plain attention on the card. Another compute dtype raises ValueError there
-before any weight is drawn (fp16 and fp32 kernels are queued, ROADMAP.md §2
-and §3.1); the CPU takes any dtype.
+On CUDA every entry point takes bfloat16 or float16: the Hopper
+flash-attention kernels exist in those two types, and the attention
+dispatch never falls back to plain attention on the card. float32 raises
+ValueError there before any weight is drawn (its kernels are queued,
+ROADMAP.md §2.1 and §3.1); the CPU takes any dtype.
 """
 
 from __future__ import annotations
@@ -74,13 +74,17 @@ VGGT_PRESETS = {
 }
 
 
+#: Compute dtypes the card's flash-attention kernels take.
+CUDA_COMPUTE_DTYPES = (torch.bfloat16, torch.float16)
+
+
 def check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) -> None:
     """Refuse a compute dtype the card's kernels do not take (before any work)."""
-    if torch.device(device).type == "cuda" and compute_dtype != torch.bfloat16:
+    if torch.device(device).type == "cuda" and compute_dtype not in CUDA_COMPUTE_DTYPES:
         raise ValueError(
             f"compute_dtype {compute_dtype} on CUDA: the port's Hopper flash-attention kernels take "
-            "bfloat16 only (ROADMAP.md §3.1; fp16 and fp32 kernels are queued in §2); use "
-            "torch.bfloat16 on the card, or device='cpu'"
+            "bfloat16 or float16 (the float32 kernels, TF32 wgmma or a split-precision design, are queued "
+            "in ROADMAP.md §2.1; §3.1); use torch.bfloat16 or torch.float16 on the card, or device='cpu'"
         )
 
 
@@ -111,7 +115,8 @@ def build_pipeline(
     random weights; with `allow_random_weights` False, no usable checkpoint
     raises FileNotFoundError. Runs on CUDA unless `device="cpu"` is passed;
     raises RuntimeError when CUDA is asked for and absent, ValueError for a
-    compute dtype other than bfloat16 on CUDA (before any file is read).
+    compute dtype other than bfloat16 or float16 on CUDA (before any file is
+    read).
     """
     check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
@@ -164,8 +169,8 @@ def build_trainer(
     to the compute dtype first), `compute_dtype` frozen ones; its blocks are
     checkpointed (remat). The VAE and CLIP are frozen. Runs on CUDA unless
     `device="cpu"` is passed; raises RuntimeError when CUDA is asked for and
-    absent, ValueError for a compute dtype other than bfloat16 on CUDA
-    (before any file is read).
+    absent, ValueError for a compute dtype other than bfloat16 or float16 on
+    CUDA (before any file is read).
     """
     check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
@@ -215,7 +220,7 @@ def build_reconstructor(
     every other leaf is cast to `compute_dtype`. The depth head runs in
     chunks of 8 frames. Runs on CUDA unless `device="cpu"` is passed; raises
     RuntimeError when CUDA is asked for and absent, ValueError for a compute
-    dtype other than bfloat16 on CUDA.
+    dtype other than bfloat16 or float16 on CUDA.
     """
     check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)

@@ -1,6 +1,8 @@
 """`chip_smoke.py`'s own logic off the card: its reading of nvcc's ptxas
-report, on a log shaped like nvcc's, its CLI, training-CLI and evaluation
-phases at tiny size, and its GIF block parser.
+report, on a log shaped like nvcc's, with each kernel's bf16 and fp16
+instantiations paired, the fp16 rows' pairing with their bf16 twins, its
+CLI, training-CLI, evaluation, data-preparation and fp16 phases at tiny
+size, and its GIF block parser.
 
 ptxas prints its warning that it serialized an entry's wgmma before the
 entries' own lines, naming the function; the report must attach it to that
@@ -48,6 +50,67 @@ def test_ptxas_report_catches_a_serialization_for_want_of_registers():
     first, second = chip_smoke.ptxas_report(log)
     assert "insufficient register resources" in first["wgmma_serialized"]
     assert "wgmma_serialized" not in second
+
+
+# Entries as nvcc mangles the templated kernels: one per element type.
+TWINS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi64E6__halfEEvv' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi64E13__nv_bfloat16EEvv' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_wideI13__nv_bfloat16EEvv' for 'sm_90a'
+ptxas info    : Used 168 registers, used 16 barriers
+"""
+
+
+def test_ptxas_twins_pair_each_kernel_across_element_types():
+    """Phase 2 pairs each entry's bf16 and fp16 instantiations; a kernel
+    built in one type only shows None for the other, which fails the run."""
+    twins = {t["entry"]: t["registers"] for t in chip_smoke.ptxas_twins(chip_smoke.ptxas_report(TWINS_LOG))}
+    assert twins == {"_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi64ETEEvv": {"bf16": 168, "fp16": 168},
+                     "_ZN12_GLOBAL__N_114flash_fwd_wideITEEvv": {"bf16": 168, "fp16": None}}
+
+
+def test_fp16_rows_meet_their_bf16_twins():
+    """Each fp16 row of phases 3 and 3b reads its bf16 twin's ms and the
+    ratio the run holds to TWIN_MS_RATIO; every twin label names a row of
+    its phase, and the element types map onto torch's and the trace's."""
+    import torch
+
+    rows = [dict(label="unet_l0_spatial", dtype="bf16", ms=10.0), dict(label="vae_encoder_mid", dtype="bf16", ms=1.0)]
+    fp16 = dict(label="unet_l0_spatial_fp16", dtype="fp16", ms=10.5)
+    chip_smoke.add_twin_ratio(fp16, rows)
+    assert fp16["twin_ms"] == 10.0 and abs(fp16["twin_ratio"] - 1.05) < 1e-12
+    chip_smoke.add_twin_ratio(rows[1], rows)
+    assert rows[1]["twin_ms"] is None and rows[1]["twin_ratio"] is None
+    assert {getattr(torch, name) for name in chip_smoke.ELEM_TYPES.values()} == {torch.bfloat16, torch.float16}
+    key = "void (anonymous namespace)::flash_fwd_wgmma<64, __half>(CUtensorMap_st, (anonymous namespace)::FwdArgs<__half>)"
+    assert chip_smoke.trace_elem_type(key) == "fp16"
+    assert chip_smoke.trace_elem_type(key.replace("__half", "__nv_bfloat16")) == "bf16"
+    assert chip_smoke.trace_elem_type("void at::native::elementwise_kernel<128, 2>") is None
+    source = Path(chip_smoke.__file__).read_text()
+    assert all(f'("{name}",' in source for name in chip_smoke.FP16_FWD_TWINS + chip_smoke.FP16_BWD_TWINS)
+    cases = [("a", 1), ("b", 2), ("c", 3)]
+    assert chip_smoke.twin_runs(cases, ("a", "c")) == [(0, ("a", 1), "bf16"), (0, ("a_fp16", 1), "fp16"),
+                                                       (1, ("b", 2), "bf16"), (2, ("c", 3), "bf16"),
+                                                       (2, ("c_fp16", 3), "fp16")]
+
+
+@pytest.mark.parametrize("elem, errs, passes", [
+    ("fp16", (0.0098, 0.00023), True),   # the worst fp16 reading (the L0 training dK)
+    ("fp16", (0.018, 0.0017), False),    # the best bf16 twin's reading: a bf16 rounding in an fp16 kernel
+    ("fp16", (1.1, 0.05), False),        # 32 dropped keys
+    ("bf16", (0.070, 0.0018), True),     # the worst bf16 reading
+    ("bf16", (1.1, 0.05), False),
+])
+def test_fp16_rows_have_limits_of_their_own(elem, errs, passes):
+    """fp16 rows are held to FP16_MAX_REL_ERR / FP16_MEAN_REL_ERR, which pass
+    fp16's readings and fail bf16's, so that an fp16 kernel that lost
+    precision to bf16's fails; bf16 rows keep their limits."""
+    e = dict(max_rel_err=errs[0], mean_rel_err=errs[1])
+    assert chip_smoke.within_limits(e, elem) is passes
+    rows = [dict(label="a", dtype="bf16"), dict(label="a_fp16", dtype="fp16"), dict(label="b", dtype="bf16")]
+    assert chip_smoke.twin_of(rows[1], rows) is rows[0] and chip_smoke.twin_of(rows[2], rows) is None
 
 
 def test_every_kernel_the_smoke_run_names_is_a_global_function():
@@ -132,18 +195,51 @@ def test_gif_summary_reads_the_block_structure(tmp_path):
         chip_smoke.gif_summary(str(tmp_path / "cut.gif"))
 
 
-def test_prep_phase_runs_at_tiny_size_on_the_cpu(tmp_path):
+PREP = TINY + ("--loop.num_target_view=10", "--data.height=40", "--data.width=80")
+
+
+@pytest.fixture(scope="module")
+def prepped(tmp_path_factory):
+    """Phases 11 and 14 at the tiny presets on the CPU, in one workdir: (its
+    path, phase 14's result)."""
+    import torch
+
+    dev, workdir = torch.device("cpu"), str(tmp_path_factory.mktemp("prep"))
+    chip_smoke.full_cli(dev, 2, 0, overrides=TINY, workdir=workdir)
+    return workdir, chip_smoke.full_prep(dev, workdir, 0, cube_face=24, mask_crops=1, overrides=PREP)
+
+
+def test_prep_phase_runs_at_tiny_size_on_the_cpu(prepped):
     """Phase 14 on phase 11's files at the tiny presets: the crops, the
     reproject CLI's selection, skip and render checks with a U^2-Net sky
     mask (10 target views, so that 3 of the 13 crops are sources), the
     mask's and the cubemaps' comparison (the CPU on both sides)."""
-    import torch
-
-    dev = torch.device("cpu")
-    chip_smoke.full_cli(dev, 2, 0, overrides=TINY, workdir=str(tmp_path))
-    prep = chip_smoke.full_prep(dev, str(tmp_path), 0, cube_face=24, mask_crops=1, overrides=TINY + (
-        "--loop.num_target_view=10", "--data.height=40", "--data.width=80"))
+    prep = prepped[1]
     assert prep["pers_crops"] == 13 and prep["sources"] == 3 and prep["crop_sizes"] == [(16, 512)]
     assert prep["renders"] == 10 and prep["render_shape"] == [64, 128, 3] and prep["vggt_builds"] == 1
     assert prep["launches"] == prep["rerun_launches"] == [0, 0] and prep["rerun_wrote_nothing"]
     assert prep["sky_mask_flipped"] == 0.0 and set(prep["cube_to_pano"]["ue"]) >= {"flipped", "panoramas"}
+
+
+def test_fp16_phase_runs_at_tiny_size_on_the_cpu(prepped, monkeypatch):
+    """Phase 15 on phases 11's and 14's files at the tiny presets, in fp16 on
+    the CPU (where the kernels' plain versions run, so no launch is
+    counted): the checkpoints halved and validated (the tiny configurations
+    standing in for the full-width ones `validate` checks against), the
+    single-segment clip, two training steps and reproject, each at
+    `--runtime.compute_dtype=float16`."""
+    import torch
+
+    from evoworld_tpu_torch import runtime
+
+    monkeypatch.setitem(runtime.PRESETS, "full", runtime.PRESETS["tiny"])
+    result = chip_smoke.full_fp16(torch.device("cpu"), 2, 0, prepped[0], overrides=PREP)
+    conv = result["convert"]
+    assert conv["exact"] and conv["validate_code"] == 0 and conv["bad_code"] == 1
+    assert conv["validate_out"] == ["unet: OK", "vae: OK", "image_encoder: OK"]
+    assert any("conv_out.weight" in line for line in conv["bad_out"])
+    assert result["single"]["finite"] and result["single"]["launches"] == [0, 0]
+    assert result["single"]["pngs"]["predictions"] == (5, [(128, 64)])
+    assert 0 < result["single"]["rms_from_bf16_clip"] < 1
+    assert len(result["train"]["losses"]) == 2 and result["train"]["norm1_grad_abs_max"] > 0
+    assert result["reproject"]["renders"] == 10 and result["reproject"]["render_shape"] == [64, 128, 3]

@@ -142,13 +142,19 @@ def test_padded_head_dim_backward_equals_the_unpadded_plain_route(d):
 @pytest.mark.parametrize("build", ["build_pipeline", "build_trainer", "build_reconstructor"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 def test_build_refuses_non_bf16_on_cuda_before_anything(monkeypatch, build, dtype):
-    """The Hopper kernels take bf16 only: a CUDA build in another dtype raises
+    """The Hopper kernels take bf16 and fp16: a CUDA build in fp32 raises
     ValueError before the device is resolved (so with no card: not the
-    missing-CUDA RuntimeError) and before any weight is drawn."""
+    missing-CUDA RuntimeError) and before any weight is drawn; fp16 and bf16
+    pass the check and meet the missing card, still before any weight."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for drawing in ("init_random_", "make_random_pipeline", "random_model"):
         monkeypatch.setattr(runtime, drawing, lambda *a, **kw: pytest.fail("weights drawn"))
-    with pytest.raises(ValueError, match="bfloat16"):
-        getattr(runtime, build)(compute_dtype=dtype, device="cuda")
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="float32"):
+            getattr(runtime, build)(compute_dtype=dtype, device="cuda")
+    else:
+        runtime.check_compute_dtype("cuda", dtype)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            getattr(runtime, build)(compute_dtype=dtype, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):  # bf16 passes the check and meets the missing card
         getattr(runtime, build)(compute_dtype=torch.bfloat16, device="cuda")

@@ -1,7 +1,8 @@
 """The port's Hopper flash-attention kernels (forward and backward) on the card.
 
 Held against `flash_attention_plain` and `flash_attention_backward_plain`
-(fp32 on the same bf16 inputs, at the true head dim where the wrapper pads it) with the limits `chip_smoke.py` uses: the error over the RMS of the plain output at
+(fp32 on the same bf16 or fp16 inputs: every test runs in both of the
+kernels' element types, at the true head dim where the wrapper pads it) with the limits `chip_smoke.py` uses: the error over the RMS of the plain output at
 most 0.1 (max) and 0.01 (mean). Keys and values past `kv_len` are set so
 large (K = 10, V = 100) that a missed mask would swamp the output. Every test
 carries the `cuda` marker and skips without a card. The file imports no JAX,
@@ -22,6 +23,7 @@ from evoworld_tpu_torch.ops.flash_attention import (
 )
 
 MAX_REL_ERR, MEAN_REL_ERR = 0.1, 0.01
+DTYPES = [pytest.param(torch.bfloat16, id="bf16"), pytest.param(torch.float16, id="fp16")]
 
 
 @pytest.fixture
@@ -65,9 +67,10 @@ def _rel_errors(out, ref):
      (1, 26025, 26025, 26025, 16, 64, False), (1, 51009, 51009, 51009, 16, 64, False),
      (1, 75993, 75993, 75993, 16, 64, False)],
 )
-def test_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d, use_exp2):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_matches_plain_on_card(cuda, dtype, b, sq, skv, kv_len, h, d, use_exp2):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda).bfloat16() for s in (sq, skv, skv))
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype) for s in (sq, skv, skv))
     k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
     out = flash_attention(q, k, v, kv_len=kv_len, use_exp2=use_exp2)
     torch.cuda.synchronize()
@@ -78,27 +81,36 @@ def test_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d, use_exp2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 512])
-def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda, d):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda, dtype, d):
     g = torch.Generator(device=cuda).manual_seed(1)
-    qkv = torch.randn((1, 500, 3, 4, d), generator=g, device=cuda).bfloat16()
+    qkv = torch.randn((1, 500, 3, 4, d), generator=g, device=cuda).to(dtype)
     q, k, v = qkv.unbind(2)  # strided views of one packed tensor
     ref = flash_attention_plain(q.float(), k.float(), v.float())
     max_rel, mean_rel = _rel_errors(flash_attention(q, k, v), ref)
     assert max_rel <= MAX_REL_ERR and mean_rel <= MEAN_REL_ERR
-    with pytest.raises(ValueError):
-        flash_attention(q.float(), k.float(), v.float())  # fp32: the kernel takes bf16 only
-    wide = torch.zeros((1, 64, 1, 520), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        flash_attention(q.float(), k.float(), v.float())  # fp32: the kernels take bf16 or fp16
+    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="one element type"):
+        flash_attention(q, k.to(other), v)  # a mix of the two types is refused by name
+    with pytest.raises(ValueError, match="one element type"):
+        flash_attention_backward(q, k, v, q, q.to(other), torch.zeros((1, 4, 500), device=cuda), kv_len=500)
+    assert flash_attention.launches == before
+    wide = torch.zeros((1, 64, 1, 520), device=cuda).to(dtype)
     with pytest.raises(ValueError):
         flash_attention(wide, wide, wide)  # head dim 520: no kernel holds it
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 512])
-def test_forward_twice_is_bit_identical_on_card(cuda, d):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_twice_is_bit_identical_on_card(cuda, dtype, d):
     """The forward sums in a fixed order (no atomics, no reductions across
     blocks), so a second call on the same inputs repeats the output bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    q, k, v = (torch.randn((2, 1041, 2, d), generator=g, device=cuda).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn((2, 1041, 2, d), generator=g, device=cuda).to(dtype) for _ in range(3))
     first = flash_attention(q, k, v, kv_len=1000)
     second = flash_attention(q, k, v, kv_len=1000)
     torch.cuda.synchronize()
@@ -135,7 +147,8 @@ def test_forward_twice_is_bit_identical_on_card(cuda, d):
      (1, 97, 97, 65, 1, 512),       # Sq one past three 32-query tiles, kv_len one past two 32-key tiles
      (1, 150, 150, 150, 1, 200)],   # head dim 200, zero-padded to the D = 512 sweeps
 )
-def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, skv, kv_len, h, d):
     """dQ, dK, dV on strided views (q a head-major transpose, k and v halves of
     one packed tensor), with keys past `kv_len` that must get zero rows.
 
@@ -145,11 +158,11 @@ def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
     each rounded to bf16, 2^-8 of the value at most, on both sides).
     """
     g = torch.Generator(device=cuda).manual_seed(2)
-    q = torch.randn((b, h, sq, d), generator=g, device=cuda).bfloat16().transpose(1, 2)
-    k, v = torch.randn((b, skv, 2, h, d), generator=g, device=cuda).bfloat16().unbind(2)
+    q = torch.randn((b, h, sq, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    k, v = torch.randn((b, skv, 2, h, d), generator=g, device=cuda).to(dtype).unbind(2)
     k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
     out, lse = flash_attention_forward(q, k, v, d ** -0.5, kv_len, with_lse=True)
-    do = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    do = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
     before = flash_attention_backward.launches
     got = flash_attention_backward(q, k, v, out, do, lse, kv_len=kv_len)
     torch.cuda.synchronize()
@@ -163,19 +176,20 @@ def test_backward_kernel_matches_plain_on_card(cuda, b, sq, skv, kv_len, h, d):
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
 
 
-def _backward_inputs(cuda, seed, b, sq, skv, kv_len, h, d=64):
+def _backward_inputs(cuda, dtype, seed, b, sq, skv, kv_len, h, d=64):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
-    k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).bfloat16() for _ in range(2))
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).to(dtype) for _ in range(2))
     k[:, kv_len:], v[:, kv_len:] = 10.0, 100.0
     out, lse = flash_attention_forward(q, k, v, d ** -0.5, kv_len, with_lse=True)
-    do = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    do = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
     return q, k, v, out, do, lse
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 512])
-def test_fused_backward_twice_repeats_on_card(cuda, d):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_backward_twice_repeats_on_card(cuda, dtype, d):
     """Two calls on the same inputs: dK and dV are equal bit for bit. The
     fused pass (D = 64, 128) sums dQ across key tiles with global fp32
     reductions in no fixed order, which can move a sum across a bf16
@@ -183,7 +197,7 @@ def test_fused_backward_twice_repeats_on_card(cuda, d):
     dQ's RMS for sums that nearly cancel; a dQ buffer that was not zeroed
     would double dQ in the second call. The D = 512 sweeps sum nothing
     across blocks, so there dQ repeats bit for bit too."""
-    q, k, v, out, do, lse = _backward_inputs(cuda, 6, 2, 1000, 1100, 1041, 4, d)
+    q, k, v, out, do, lse = _backward_inputs(cuda, dtype, 6, 2, 1000, 1100, 1041, 4, d)
     first = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     second = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     torch.cuda.synchronize()
@@ -205,50 +219,58 @@ _PAIR = ("flash_bwd_dkdv", "flash_bwd_dq")  # the mma.sync pair the D = 512 swee
     (128, ("flash_bwd_fused", "flash_bwd_delta", "flash_bwd_store_dq"), _WIDE + _PAIR),
     (512, _WIDE + ("flash_bwd_delta",), ("flash_bwd_fused", "flash_bwd_store_dq") + _PAIR),
 ])
-def test_backward_trace_names_its_design_on_card(cuda, d, design, others):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_trace_names_its_design_on_card(cuda, dtype, d, design, others):
     """A profiler trace of one backward call holds its head dim's kernels and
     none of the other designs': the fused pass at D = 64 and 128, the three
-    wgmma sweeps at D = 512, never the mma.sync pair they replaced."""
+    wgmma sweeps at D = 512, never the mma.sync pair they replaced. Every
+    flash kernel in it is the instantiation of the inputs' element type."""
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v, out, do, lse = _backward_inputs(cuda, 7, 1, 300, 300, 300, 2, d)
+    q, k, v, out, do, lse = _backward_inputs(cuda, dtype, 7, 1, 300, 300, 300, 2, d)
     flash_attention_backward(q, k, v, out, do, lse)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         flash_attention_backward(q, k, v, out, do, lse)
         torch.cuda.synchronize()
-    names = " ".join(ev.key for ev in prof.key_averages())
+    keys = [ev.key for ev in prof.key_averages()]
+    names = " ".join(keys)
     assert all(n in names for n in design), names
     assert not any(n in names for n in others), names
+    want, other = ("__half", "__nv_bfloat16") if dtype == torch.float16 else ("__nv_bfloat16", "__half")
+    flash = [key for key in keys if "flash_bwd_" in key]
+    assert flash and all(want in key and other not in key for key in flash), flash
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_exp2,d", [(False, 64), (True, 64), (False, 128), (False, 512), (True, 512)])
-def test_forward_kernel_log_sum_exp_on_card(cuda, use_exp2, d):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_kernel_log_sum_exp_on_card(cuda, dtype, use_exp2, d):
     """The row log-sum-exp of both forward kernels (flash_fwd_wide's at D = 512,
     whose 200 queries end inside a 64-row block) against torch's, within 1e-3."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v = (torch.randn((2, s, 2, d), generator=g, device=cuda).bfloat16() for s in (200, 300, 300))
+    q, k, v = (torch.randn((2, s, 2, d), generator=g, device=cuda).to(dtype) for s in (200, 300, 300))
     _, lse = flash_attention_forward(q, k, v, 0.125, 250, use_exp2, with_lse=True)
     want = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, :250].float()) * 0.125, dim=-1)
     assert lse.shape == (2, 2, 200) and (lse - want).abs().max().item() < 1e-3
 
 
 @pytest.mark.cuda
-def test_autograd_function_uses_the_backward_kernel_and_d512_raises(cuda):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_autograd_function_uses_the_backward_kernel_and_d512_raises(cuda, dtype):
     """A gradient through `flash_attention` launches the backward kernel once
     at D = 64 and at D = 512; what raises is a head dim past every kernel's
     (520), before any launch."""
     g = torch.Generator(device=cuda).manual_seed(4)
     for d in (64, 512):
-        q, k, v = (torch.randn((1, 300, 2, d), generator=g, device=cuda).bfloat16().requires_grad_()
+        q, k, v = (torch.randn((1, 300, 2, d), generator=g, device=cuda).to(dtype).requires_grad_()
                    for _ in range(3))
         before = flash_attention_backward.launches
         out = flash_attention(q, k, v)
         out.float().pow(2).sum().backward()
         assert flash_attention_backward.launches == before + 1
         assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
-    big = torch.randn((1, 64, 1, 520), device=cuda).bfloat16().requires_grad_()
+    big = torch.randn((1, 64, 1, 520), device=cuda).to(dtype).requires_grad_()
     before = flash_attention_backward.launches
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(big, big, big)
