@@ -168,8 +168,29 @@ converter) adds:
      level-0 norm1's gradient nonzero), and `cli.reproject.main` on a fresh
      copy of phase 14's episode (24 launches, 24 finite renders that are not
      one value); seconds, peak memory.
+The fp32 slice (csrc/flash_attn_fp32.cu, split-TF32 mma.sync) adds:
+  2. its source built beside the others (every entry of FP32_ENTRIES in
+     ptxas's report, no spill);
+  3, 3b. the FP32_FWD_TWINS and FP32_BWD_TWINS rows again in fp32 on the same
+     draws (labels with "_fp32"), against the plain version in fp32 with TF32
+     off, under fp32's own limits (FP32_MAX_REL_ERR, FP32_MEAN_REL_ERR; the
+     LSE within FP32_LSE_ATOL), which the dropped-keys version and the fp16
+     twin's errors (every gradient's) must fail; dQ, dK and dV repeated bit
+     for bit; the trace naming the fp32 kernels and no other; timed beside
+     the bound at the TF32 rate, three times it (a design of three TF32
+     products a product), the plain version and the library call;
+  16. the fp32 path on the files of phases 11, 14 and 15 under torch's default
+     TF32 flags (printed): at `--runtime.compute_dtype=float32`
+     `cli.run_single_segment.main` from phase 15's `svd_fp32/` (5N + 18
+     launches at N = STEPS), `cli.train.main` for 2 steps from phase 11's
+     checkpoints (25 frames or, where they run the card
+     out of memory, the next of FP32_TRAIN_FRAMES, each count given up
+     reported as the cut; `expected_train_launches` a step) and
+     `cli.reproject.main` on a fresh copy of phase 14's episode (24
+     launches); seconds, peak memory. The kernels line gets an entry for the
+     fp32 forward and one for the fp32 backward, their launches phase 16's.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
-the card: the entry points refuse fp32 on CUDA (they take bf16 and fp16).
+the card, so that both sides hold the same weights.
 It prints, in order before the last line, the run's wall seconds, the card's
 name and power limit, a JSON line of the kernels, and ends with the JSON line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
@@ -190,6 +211,7 @@ import time
 import types
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak, fp16's too
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core peak: the fp32 rows' bound
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bandwidth
 # Kernel against plain version, error over the RMS of the plain output (about
 # sqrt(e / kv_len) for these inputs). bf16 rounding of P and of the output sits
@@ -202,14 +224,33 @@ MAX_REL_ERR, MEAN_REL_ERR = 0.1, 0.01
 # HBM3, 700.00 W; PERF.md). An fp16 kernel that rounded anything to bf16
 # would read bf16's mean, which each fp16 row checks its twin's errors fail.
 FP16_MAX_REL_ERR, FP16_MEAN_REL_ERR = 0.02, 0.0006
+# The same for the fp32 rows (csrc/flash_attn_fp32.cu, each product a
+# split-TF32 mma.sync, against the plain version in fp32 with TF32 off).
+# Each fp32 row checks that its fp16 twin's errors fail them, so that an fp32
+# kernel that lost precision to a single TF32 pass (fp16's 10 mantissa bits)
+# fails.
+# Readings: 1.6e-5-9.3e-5 max and 8.8e-7-1.65e-6 mean over every fp32 row
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), part of it the plain version's
+# own fp32 rounding; the max limit sits at twice the worst reading, and fp16
+# twins (2.2e-3-9.8e-3 / 2.1e-4-2.3e-4) fail both limits ten times over.
+FP32_MAX_REL_ERR, FP32_MEAN_REL_ERR = 2e-4, 1e-5
 DROPPED_KEYS = 32
 # Forward kernel's row log-sum-exp against the plain one (about 9.6 for 9216
 # keys): fp32 accumulation order moves it by ~1e-5; dropping DROPPED_KEYS of
 # kv_len keys moves it by about -log(1 - 32 / kv_len), 3.5e-3 or more here.
 LSE_ATOL = 1e-3
+# The fp32 kernels' log-sum-exp: fp32 sums and exp2 on both sides (readings
+# up to 3.8e-6; a torch logsumexp of fp32 scores at a scale of 0.125 and D =
+# 512, 1.3e-5).
+FP32_LSE_ATOL = 1e-4
 STEPS = 4  # denoise steps per full-width clip (production: 25), cut for the time limit
 SEED = 0
 TRAIN_STEPS = 3  # full-width training steps, the first cold
+# Phase 16's training frames, tried in turn while the card runs out of
+# memory: 25, then 22, the most that fit an H100's 79.2 GiB in fp32 (25, 24
+# and 23 ran out of memory, 22 peaked at 74.3 GiB; NVIDIA H100 80GB HBM3,
+# PERF.md), then PERF.md §2's cut of 14.
+FP32_TRAIN_FRAMES = (None, 22, 14)
 # Kernel route against the plain route through a whole level-0 block, and
 # the card against the CPU for a tiny fp32 step: relative RMS error limits
 # (||a - b|| / ||b|| per tensor). The two bf16 routes round P, dS and the
@@ -230,9 +271,16 @@ BWD_DESIGNS = {
 }
 # The D = 512 mma.sync pair that the sweeps replaced: a trace must not hold it.
 RETIRED_BWD_KERNELS = ("flash_bwd_dkdv", "flash_bwd_dq")
+# The fp32 kernels (csrc/flash_attn_fp32.cu), one design at every head dim,
+# and the entries phase 2 must find in ptxas's report of that source.
+FP32_FWD_KERNEL = "flash_fp32_fwd"
+FP32_BWD_DESIGN = ("split-TF32 mma.sync: delta, a dK/dV sweep over query tiles, a dQ sweep over key tiles",
+                   ("flash_fp32_bwd_delta", "flash_fp32_bwd_dkdv", "flash_fp32_bwd_dq"))
+FP32_ENTRIES = tuple((name, d) for name in (FP32_FWD_KERNEL, *FP32_BWD_DESIGN[1]) for d in (64, 128, 512))
 # Every kernel a backward call may launch, or once did: a row's trace must
 # hold its design's kernels and none of the others.
-BWD_KERNELS = tuple(sorted({n for _, names in BWD_DESIGNS.values() for n in names} | set(RETIRED_BWD_KERNELS)))
+BWD_KERNELS = tuple(sorted({n for _, names in BWD_DESIGNS.values() for n in names} | set(RETIRED_BWD_KERNELS)
+                           | set(FP32_BWD_DESIGN[1])))
 # Two calls of a design that adds dQ's fp32 terms across blocks (the fused
 # pass, whose dQ then goes through flash_bwd_store_dq) add them in another
 # order, which can move a sum across a bf16 rounding boundary: one bf16 step
@@ -250,8 +298,10 @@ FWD_MS_LINES = {"vae_encoder_mid": 1.7, "vae_encoder_mid_train": 5.0, "vae_decod
 FULL_POWER_W = 700.0
 # The kernels' element types, by the name each row and report uses, and the
 # name of each in the kernels' demangled (profiler) and mangled (ptxas) names.
-ELEM_TYPES = {"bf16": "bfloat16", "fp16": "float16"}
-TRACE_TYPE_NAMES = {"bf16": "__nv_bfloat16", "fp16": "__half"}
+# fp32's kernels are not templated over the type: their names carry the
+# family's prefix instead, and ptxas's twin check leaves them out.
+ELEM_TYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
+TRACE_TYPE_NAMES = {"bf16": "__nv_bfloat16", "fp16": "__half", "fp32": "flash_fp32_"}
 PTXAS_TYPE_NAMES = {"bf16": "13__nv_bfloat16", "fp16": "6__half"}
 # The phase-3 and phase-3b rows repeated in fp16 (labels with "_fp16"): the
 # main path's shapes. On a card at FULL_POWER_W each fp16 row must keep
@@ -260,8 +310,15 @@ PTXAS_TYPE_NAMES = {"bf16": "13__nv_bfloat16", "fp16": "6__half"}
 # schedule would cost more).
 FP16_FWD_TWINS = ("unet_l0_spatial", "unet_l0_train_lse", "vae_encoder_mid", "vae_encoder_mid_train",
                   "vae_decoder_mid", "ragged_padded_kv", "ragged_padded_kv_exp2", "vggt_global_49", "vggt_global_73")
-FP16_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padded_kv", "ragged_d128")
+FP16_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padded_kv", "ragged_d128", "ragged_d512")
 TWIN_MS_RATIO = 1.10
+# The rows repeated in fp32 (labels with "_fp32", right after the fp16 twin
+# on the same values): the main path's shapes, under fp32's own limits, which
+# their fp16 twin's errors must fail. Their bound is the TF32 rate's; a
+# design of three TF32 products a product cannot beat three times it.
+FP32_FWD_TWINS = ("unet_l0_spatial", "unet_l0_train_lse", "vae_encoder_mid", "vae_encoder_mid_train",
+                  "vae_decoder_mid", "ragged_padded_kv", "ragged_padded_kv_exp2", "vggt_global_73")
+FP32_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padded_kv", "ragged_d128", "ragged_d512")
 # JPEGs with PIL's decode of each stored beside it as a PNG
 # (tests/torch_port_data/make_jpeg_fixtures.py).
 JPEG_FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_data")
@@ -337,22 +394,42 @@ def errors(out, ref) -> dict:
 
 def within_limits(e: dict, elem: str = "bf16") -> bool:
     """Whether the errors `e` keep to the limits of element type `elem`."""
-    max_rel, mean_rel = (FP16_MAX_REL_ERR, FP16_MEAN_REL_ERR) if elem == "fp16" else (MAX_REL_ERR, MEAN_REL_ERR)
+    max_rel, mean_rel = {"fp16": (FP16_MAX_REL_ERR, FP16_MEAN_REL_ERR),
+                         "fp32": (FP32_MAX_REL_ERR, FP32_MEAN_REL_ERR)}.get(elem, (MAX_REL_ERR, MEAN_REL_ERR))
     return e["max_rel_err"] <= max_rel and e["mean_rel_err"] <= mean_rel
+
+
+def lse_limit(elem: str) -> float:
+    """The log-sum-exp's limit for element type `elem`."""
+    return FP32_LSE_ATOL if elem == "fp32" else LSE_ATOL
+
+
+def row_bound(flops: float, nbytes: float, elem: str) -> dict:
+    """A row's bound: flops over the tensor cores' dense rate for its type
+    (TF32's for fp32), bytes over HBM's; fp32 rows also get three times the
+    operations' time, what a design of three TF32 products a product needs."""
+    ops_ms = flops / (PEAK_TF32_FLOPS if elem == "fp32" else PEAK_BF16_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                split_bound_ms=3 * ops_ms if elem == "fp32" else None)
 
 
 def check_flash_kernel(dev, power_limit_w: float) -> dict:
     """Flash kernel against flash_attention_plain (fp32 on the same bf16 inputs;
-    the FP16_FWD_TWINS rows again in fp16, on the same values cast to fp16).
+    the FP16_FWD_TWINS rows again in fp16, on the same values cast to fp16,
+    and the FP32_FWD_TWINS rows in fp32 on the same draws, through
+    `flash_fp32_fwd`).
 
     The padded case gives the kernel keys and values past `kv_len` that would
     swamp the output if the mask missed them (K = 10, V = 100). Each case also
     checks that the limits catch a wrong result: the plain version without
     the last DROPPED_KEYS keys must fail them. An fp16 row is held to fp16's
-    limits, which its bf16 twin's errors must fail. The training row also writes
+    limits, which its bf16 twin's errors must fail; an fp32 row to fp32's,
+    which its fp16 twin's errors must fail. The training row also writes
     the log-sum-exp, held against the plain one within LSE_ATOL. A profiler
     trace names the kernel that served each row, which must be FWD_KERNELS'
-    for its head dim (padded to the kernel's); with the card at FULL_POWER_W
+    for its head dim (padded to the kernel's), or FP32_FWD_KERNEL in fp32;
+    with the card at FULL_POWER_W
     the D = 512 rows must keep to FWD_MS_LINES and each fp16 row within
     TWIN_MS_RATIO of its bf16 twin. The trace must also show the row's
     element type in every kernel it names. Bound and rate count the work at
@@ -387,7 +464,8 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         ("padded_d16", 2, 9216, 9216, 2, 16, 9216, False, False),
     ]
     shapes = []
-    for i, (label, b, sq, skv, h, d, kv_len, use_exp2, with_lse), elem in twin_runs(cases, FP16_FWD_TWINS):
+    for i, (label, b, sq, skv, h, d, kv_len, use_exp2, with_lse), elem in twin_runs(cases, FP16_FWD_TWINS,
+                                                                                   FP32_FWD_TWINS):
         scale = d ** -0.5
         dtype = getattr(torch, ELEM_TYPES[elem])
         g = torch.Generator(device=dev).manual_seed(1234 + i)  # a twin draws its bf16 row's values
@@ -408,9 +486,10 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         del ref
         # the function's work at its true head dim (a padded row does d_kernel / d times as much)
         flops = 4 * b * h * sq * kv_len * d
-        nbytes = (2 * sq + 2 * kv_len) * b * h * d * 2 + (b * h * sq * 4 if with_lse else 0)
+        nbytes = (2 * sq + 2 * kv_len) * b * h * d * q.element_size() + (b * h * sq * 4 if with_lse else 0)
         d_kernel = kernel_head_dim(d)
-        ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        served_by = FP32_FWD_KERNEL if elem == "fp32" else FWD_KERNELS[d_kernel]
+        bound = row_bound(flops, nbytes, elem)
         ms = cuda_ms(run, reps=None)
         wide_lse = None
         if d_kernel == 512 and not with_lse:  # the same call asking for the LSE the D = 512 backward reads
@@ -423,29 +502,27 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
                             dropped_keys_lse_err=(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[1]
                                                   - ref_lse).abs().max().item())
             del lse512
-        traced, traced_types = kernel_ms_from_trace(run, sorted(set(FWD_KERNELS.values())))
+        traced, traced_types = kernel_ms_from_trace(run, sorted({*FWD_KERNELS.values(), FP32_FWD_KERNEL}))
         served = [n for n, t in traced.items() if t > 0]
         plain_ms = cuda_ms(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2), reps=1)
         qt, kt, vt = q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=None)
-        bound_ms = max(ops_ms, bytes_ms)
         ms_line = FWD_MS_LINES.get(label)
         row = dict(label=label, dtype=elem, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2,
                    with_lse=with_lse, kernel=served, kernel_types=traced_types,
-                   kernel_ms=traced[FWD_KERNELS[d_kernel]], d_kernel=d_kernel, **err,
+                   kernel_ms=traced[served_by], d_kernel=d_kernel, **err,
                    lse_max_abs_err=lse_err, dropped_keys_rel_err=[cut["max_rel_err"], cut["mean_rel_err"]],
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   tflops=flops / ms / 1e9, bound_share=bound_ms / ms, at_most_library=ms <= library_ms,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
+                   tflops=flops / ms / 1e9, bound_share=bound["bound_ms"] / ms, at_most_library=ms <= library_ms,
                    ms_line=ms_line, within_ms_line=ms <= (ms_line or math.inf), with_lse_run=wide_lse)
         add_twin_ratio(row, shapes)
         del ref_lse
         log("kernel flash_attn_fwd " + json.dumps(row))
-        if served != [FWD_KERNELS[d_kernel]] or traced_types != [elem]:
-            raise AssertionError(f"{label} ran {served} in {traced_types}, expected {FWD_KERNELS[d_kernel]} in {elem}")
+        if served != [served_by] or traced_types != [elem]:
+            raise AssertionError(f"{label} ran {served} in {traced_types}, expected {served_by} in {elem}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
             raise AssertionError(f"forward kernel took {ms:.3f} ms at {label}, over its line of {ms_line} ms")
-        if power_limit_w >= FULL_POWER_W and (row["twin_ratio"] or 0) > TWIN_MS_RATIO:
+        if power_limit_w >= FULL_POWER_W and elem == "fp16" and row["twin_ratio"] > TWIN_MS_RATIO:
             raise AssertionError(f"{label} took {ms:.3f} ms, over {TWIN_MS_RATIO} x its bf16 twin's {row['twin_ms']:.3f}")
         if not within_limits(err, elem):
             raise AssertionError(f"flash kernel disagrees with its plain version at {label}: {err}")
@@ -453,11 +530,11 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
             raise AssertionError(f"the limits do not catch {DROPPED_KEYS} dropped keys at {label}: {cut}")
         twin = twin_of(row, shapes)
         if twin and within_limits(twin, elem):
-            raise AssertionError(f"the fp16 limits do not catch its bf16 twin's rounding at {label}")
-        if with_lse and not lse_err <= LSE_ATOL:
-            raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {LSE_ATOL})")
-        if wide_lse and not (wide_lse["lse_max_abs_err"] <= LSE_ATOL < wide_lse["dropped_keys_lse_err"]):
-            raise AssertionError(f"the wide kernel's log-sum-exp at {label}: {wide_lse} (limit {LSE_ATOL})")
+            raise AssertionError(f"the {elem} limits do not catch its {twin['dtype']} twin's rounding at {label}")
+        if with_lse and not lse_err <= lse_limit(elem):
+            raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {lse_limit(elem)})")
+        if wide_lse and not (wide_lse["lse_max_abs_err"] <= lse_limit(elem) < wide_lse["dropped_keys_lse_err"]):
+            raise AssertionError(f"the wide kernel's log-sum-exp at {label}: {wide_lse} (limit {lse_limit(elem)})")
         shapes.append(row)
         del q, k, v, qf, kf, vf, out, lse
         torch.cuda.empty_cache()
@@ -517,7 +594,9 @@ def ptxas_report(log_text: str) -> list[dict]:
 
 def check_flash_backward(dev, power_limit_w: float) -> dict:
     """Forward-with-LSE and backward kernels against the plain chain on the same bf16 inputs
-    (the FP16_BWD_TWINS rows again in fp16, on the same values cast to fp16).
+    (the FP16_BWD_TWINS rows again in fp16, on the same values cast to fp16,
+    and the FP32_BWD_TWINS rows in fp32 on the same draws, through the fp32
+    kernels of FP32_BWD_DESIGN).
 
     The reference is flash_attention_backward_plain (fp32) fed with the plain
     forward's own output and log-sum-exp. The kernel's log-sum-exp must be
@@ -527,10 +606,11 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
     ragged rows (keys past `kv_len` set to K = 10, V = 100, whose dK and dV
     rows must be exactly zero); the plain backward without the last
     DROPPED_KEYS keys must fail them (an fp16 row: fp16's limits, which each
-    gradient of its bf16 twin must fail). A second call must repeat dK and dV
-    exactly and dQ within DQ_REPEAT_RTOL (exactly at D = 512: those kernels
-    sum nothing across blocks), and the trace must hold every kernel of the
-    row's design and no other backward kernel. With the card at FULL_POWER_W
+    gradient of its bf16 twin must fail; an fp32 row: fp32's, which each
+    gradient of its fp16 twin must fail). A second call must repeat dK and dV
+    exactly and dQ within DQ_REPEAT_RTOL (exactly at D = 512 and in fp32:
+    those kernels sum nothing across blocks), and the trace must hold every
+    kernel of the row's design and no other backward kernel. With the card at FULL_POWER_W
     the rows named in BWD_MS_LINES must also keep to their lines, and each
     fp16 row within TWIN_MS_RATIO of its bf16 twin. Times: the whole
     call with CUDA events (the zeroing of the dQ buffer included), each of
@@ -560,7 +640,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         ("ragged_d512", 1, 5205, 5632, 1, 512, 5205),
     ]
     shapes = []
-    for i, (label, b, sq, skv, h, d, kv_len), elem in twin_runs(cases, FP16_BWD_TWINS):
+    for i, (label, b, sq, skv, h, d, kv_len), elem in twin_runs(cases, FP16_BWD_TWINS, FP32_BWD_TWINS):
         scale = d ** -0.5
         dtype = getattr(torch, ELEM_TYPES[elem])
         g = torch.Generator(device=dev).manual_seed(4321 + i)  # a twin draws its bf16 row's values
@@ -596,7 +676,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
             flash_attention_backward(q, k, v, out, do, lse, scale, kv_len)
 
         ms = cuda_ms(bwd, reps=None)
-        design, names = BWD_DESIGNS[d]
+        design, names = FP32_BWD_DESIGN if elem == "fp32" else BWD_DESIGNS[d]
         traced, traced_types = kernel_ms_from_trace(bwd, BWD_KERNELS)
         split = {n: traced[n] for n in names}
         strays = [n for n, t in traced.items() if t > 0 and n not in names]
@@ -613,8 +693,8 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
             sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=None)
         library_ms = cuda_ms(sdpa_fwd_bwd, reps=None) - sdpa_fwd_ms
         flops = 10 * b * h * sq * kv_len * d
-        nbytes = (4 * sq + 4 * kv_len) * b * h * d * 2 + 2 * b * h * sq * 4
-        ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        nbytes = (4 * sq + 4 * kv_len) * b * h * d * q.element_size() + 2 * b * h * sq * 4
+        bound = row_bound(flops, nbytes, elem)
         row = dict(label=label, dtype=elem, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, kernel_types=traced_types,
                    **{f"{n}_{key}": e[key] for n, e in errs.items() for key in e},
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()),
@@ -622,9 +702,8 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
                    dropped_keys_rel_err={n: [e["max_rel_err"], e["mean_rel_err"]] for n, e in cut_errs.items()},
                    masked_rows_zero=masked_zero, repeat=repeat, design=design, ms=ms, other_kernels=strays,
                    kernel_ms={n.removeprefix("flash_bwd_"): t for n, t in split.items()}, plain_ms=plain_ms,
-                   library_ms=library_ms, library_fwd_ms=sdpa_fwd_ms,
-                   bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   tflops=flops / ms / 1e9, bound_share=max(ops_ms, bytes_ms) / ms,
+                   library_ms=library_ms, library_fwd_ms=sdpa_fwd_ms, **bound,
+                   tflops=flops / ms / 1e9, bound_share=bound["bound_ms"] / ms,
                    ms_line=BWD_MS_LINES.get(label), within_ms_line=ms <= BWD_MS_LINES.get(label, math.inf),
                    at_most_library=ms <= library_ms)
         add_twin_ratio(row, shapes)
@@ -635,20 +714,22 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
             raise AssertionError(f"the limits do not catch {DROPPED_KEYS} dropped keys at {label}: {cut_errs}")
         twin = twin_of(row, shapes)
         if twin and any(within_limits({k: twin[f"{n}_{k}"] for k in ("max_rel_err", "mean_rel_err")}, elem) for n in errs):
-            raise AssertionError(f"the fp16 limits do not catch its bf16 twin's rounding in every gradient at {label}")
-        if not lse_err <= LSE_ATOL or cut_lse_err <= LSE_ATOL:
-            raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {LSE_ATOL}, "
+            raise AssertionError(f"the {elem} limits do not catch its {twin['dtype']} twin's rounding in every "
+                                 f"gradient at {label}")
+        if not lse_err <= lse_limit(elem) or cut_lse_err <= lse_limit(elem):
+            raise AssertionError(f"forward kernel's log-sum-exp off by {lse_err} at {label} (limit {lse_limit(elem)}, "
                                  f"{DROPPED_KEYS} dropped keys give {cut_lse_err})")
         if not masked_zero:
             raise AssertionError(f"dK/dV rows past kv_len are not zero at {label}")
-        if not (repeat["dkdv_equal"] and repeat["dq_ok"]) or (d not in DQ_SUMMED_DIMS and not repeat["dq_equal"]):
+        dq_summed = d in DQ_SUMMED_DIMS and elem != "fp32"
+        if not (repeat["dkdv_equal"] and repeat["dq_ok"]) or (not dq_summed and not repeat["dq_equal"]):
             raise AssertionError(f"a second backward call differs from the first at {label}: {repeat}")
         if not all(split.values()) or strays or traced_types != [elem]:
             raise AssertionError(f"the trace at {label} lacks a kernel of {design} or holds another's, or another "
                                  f"type than {elem}: {traced} in {traced_types}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
             raise AssertionError(f"backward kernel took {ms:.3f} ms at {label}, over its line of {row['ms_line']} ms")
-        if power_limit_w >= FULL_POWER_W and (row["twin_ratio"] or 0) > TWIN_MS_RATIO:
+        if power_limit_w >= FULL_POWER_W and elem == "fp16" and row["twin_ratio"] > TWIN_MS_RATIO:
             raise AssertionError(f"{label} took {ms:.3f} ms, over {TWIN_MS_RATIO} x its bf16 twin's {row['twin_ms']:.3f}")
         shapes.append(row)
         del q, k, v, out, lse, do, grads, qt, kt, vt, dot
@@ -663,8 +744,11 @@ def trace_elem_type(key: str) -> str | None:
 
 
 def kernel_ms_from_trace(fn, names, reps: int = 3) -> tuple[dict, list]:
-    """Mean device milliseconds per call of each named kernel in `fn`, from a
-    profiler trace, and the element types of the instantiations that ran."""
+    """Mean device milliseconds per launch of each named kernel in `fn` (each
+    is launched once a call), from a profiler trace, and the element types of
+    the instantiations that ran. The mean is over the launches the trace
+    recorded: on the card it has been seen to drop the records of some calls
+    of a kernel that runs for hundreds of milliseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,38 +758,54 @@ def kernel_ms_from_trace(fn, names, reps: int = 3) -> tuple[dict, list]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    totals = {n: 0.0 for n in names}
+    totals, counts = {n: 0.0 for n in names}, {n: 0 for n in names}
     types = set()
     for ev in prof.key_averages():
         for n in names:
             if n in ev.key:
                 totals[n] += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+                counts[n] += ev.count
                 types.add(trace_elem_type(ev.key))
     if not any(totals.values()):
         raise AssertionError(f"the profiler trace holds no device time for {names}")
-    return {n: t / 1e3 / reps for n, t in totals.items()}, sorted(types, key=str)
+    return {n: t / 1e3 / max(counts[n], 1) for n, t in totals.items()}, sorted(types, key=str)
 
 
-def twin_runs(cases: list[tuple], twins: tuple) -> list[tuple]:
+def twin_runs(cases: list[tuple], twins: tuple, fp32_twins: tuple = ()) -> list[tuple]:
     """(index of the case, the case, element type) for every case in bf16,
     each case labelled in `twins` followed at once by its fp16 twin (label
-    "<twin>_fp16"), so that the card's clocks move little between the two."""
+    "<twin>_fp16"), so that the card's clocks move little between the two,
+    and each labelled in `fp32_twins` then by its fp32 twin ("<twin>_fp32")."""
     runs = []
     for i, case in enumerate(cases):
         runs.append((i, case, "bf16"))
         if case[0] in twins:
             runs.append((i, (case[0] + "_fp16", *case[1:]), "fp16"))
+        if case[0] in fp32_twins:
+            runs.append((i, (case[0] + "_fp32", *case[1:]), "fp32"))
     return runs
 
 
+# A twin row's partner: fp16 rows meet their bf16 row, fp32 rows their fp16 row.
+TWIN_PARTNER = {"fp16": "bf16", "fp32": "fp16"}
+
+
 def twin_of(row: dict, rows: list[dict]) -> dict | None:
-    """The bf16 row among `rows` whose fp16 twin `row` is (label "<twin>_fp16"), or None."""
-    return next((r for r in rows if r["dtype"] == "bf16" and r["label"] + "_fp16" == row["label"]), None)
+    """The row among `rows` that a twin `row` (label "<twin>_fp16" or
+    "<twin>_fp32") is held against: an fp16 row's bf16 row, an fp32 row's
+    fp16 twin; None for a bf16 row or a twin without its partner."""
+    partner = TWIN_PARTNER.get(row.get("dtype"))
+    if partner is None or not row["label"].endswith("_" + row["dtype"]):
+        return None
+    base = row["label"].removesuffix("_" + row["dtype"])
+    want = base if partner == "bf16" else f"{base}_{partner}"
+    return next((r for r in rows if r["dtype"] == partner and r["label"] == want), None)
 
 
 def add_twin_ratio(row: dict, rows: list[dict]) -> None:
-    """An fp16 row (label "<twin>_fp16") gets its bf16 twin's ms and the ratio
-    of the two (`twin_ms`, `twin_ratio`); bf16 rows get None."""
+    """A twin row (label "<twin>_fp16" or "<twin>_fp32") gets its partner's
+    (`twin_of`) ms and the ratio of the two (`twin_ms`, `twin_ratio`); bf16
+    rows get None."""
     twin = twin_of(row, rows)
     row["twin_ms"] = twin["ms"] if twin else None
     row["twin_ratio"] = row["ms"] / twin["ms"] if twin else None
@@ -721,6 +821,41 @@ def ptxas_twins(entries: list[dict]) -> list[dict]:
         base = row["entry"].replace(PTXAS_TYPE_NAMES[elem], "T") if elem else row["entry"]
         by_name.setdefault(base, {t: None for t in PTXAS_TYPE_NAMES})[elem] = row.get("registers")
     return [dict(entry=base, registers=regs) for base, regs in by_name.items()]
+
+
+def fp32_entries(entries: list[dict]) -> list[dict]:
+    """Each kernel entry of FP32_ENTRIES (kernel, head dim) with the registers
+    ptxas reports for it, None where the report lacks the entry."""
+    rows = []
+    for name, d in FP32_ENTRIES:
+        row = next((r for r in entries if f"{len(name)}{name}ILi{d}E" in r["entry"]), {})
+        rows.append(dict(kernel=name, d=d, registers=row.get("registers")))
+    return rows
+
+
+def check_ptxas(source: str, entries: list[dict], fp32: bool = False) -> None:
+    """Phase 2's checks of one source's ptxas report, each line logged first:
+    no entry spills or serializes its wgmma; every entry of the bf16/fp16
+    sources in both types (`ptxas_twins`); the fp32 source, whose kernels are
+    not templated over the type and so have no twin, every entry of
+    FP32_ENTRIES (`fp32_entries`)."""
+    for row in entries:
+        log(f"ptxas {source} " + json.dumps(row))
+        if row.get("spill_stores") or row.get("spill_loads") or "wgmma_serialized" in row:
+            raise AssertionError(f"{source}: a kernel entry spills or serializes its wgmma: {row}")
+    if fp32:
+        found = fp32_entries(entries)
+        for row in found:
+            log(f"ptxas fp32 entry {source} " + json.dumps(row))
+        missing = [(r["kernel"], r["d"]) for r in found if r["registers"] is None]
+        if missing:
+            raise AssertionError(f"{source}: no ptxas entry for {missing}")
+        return
+    # every kernel entry in both element types, from the one templated source
+    for twin in ptxas_twins(entries):
+        log(f"ptxas twins {source} " + json.dumps(twin))
+        if set(twin["registers"]) != set(PTXAS_TYPE_NAMES) or None in twin["registers"].values():
+            raise AssertionError(f"{source}: a kernel entry lacks its bf16 or fp16 instantiation: {twin}")
 
 
 def rel_rms(a, b) -> float:
@@ -870,8 +1005,8 @@ def check_small_train_step_against_cpu(dev, seed: int) -> dict:
 
     cfg = TrainConfig(total_steps=10, warmup_steps=0, learning_rate=1e-4, adam_eps=1e-4)
     f, h, w = 3, 64, 128
-    # fp32 on the card is no entry point's (they refuse it on CUDA): the same
-    # seeded CPU build twice, one copy moved to the card
+    # the same seeded CPU build twice, one copy moved to the card, so that both
+    # sides hold the same weights (a build on the card draws them there)
     models = {"cpu": build_trainer("tiny", seed=seed, compute_dtype=torch.float32, device="cpu"),
               dev: tuple(m.to(dev) for m in build_trainer("tiny", seed=seed, compute_dtype=torch.float32, device="cpu"))}
     init = {k: v.detach().cpu().clone() for k, v in models["cpu"][0].state_dict().items()}
@@ -1047,8 +1182,8 @@ def clip_inputs(cfg, dev, seed: int):
 
 
 def pipeline_on(pipe, dev):
-    """A copy of a (CPU-built, fp32) pipeline on `dev`: fp32 on the card is no
-    entry point's, which refuse any dtype but bf16 and fp16 on CUDA."""
+    """A copy of a (CPU-built, fp32) pipeline on `dev`, so that the card and
+    the CPU run the same weights (a build on the card draws them there)."""
     import copy
 
     from evoworld_tpu_torch.diffusion.pipeline import PanoDiffusionPipeline
@@ -1731,6 +1866,9 @@ def full_train_cli(dev, steps: int, seed: int, workdir: str, overrides: tuple = 
         raise AssertionError(f"the resume did not start at step 2 with the checkpoint's EMA: resumed from "
                              f"{probe.resumed}, runs {runs}, EMA carried {ema_carried}")
     result["clip"] = (frames.numpy(), gt)
+    # Nothing after this phase reads its checkpoints (22 GB). The card's machine counts every
+    # byte a run writes to its disk; blocks freed here can take the later phases' writes.
+    shutil.rmtree(os.path.join(out, "checkpoints"))
     return result
 
 
@@ -2212,60 +2350,27 @@ def full_prep(dev, workdir: str, seed: int, overrides: tuple = (), cube_face: in
 def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -> dict:
     """Phase 15, the fp16 path, on phase 11's and 14's files in `workdir`:
     phase 11's pipeline checkpoints (`svd/`, bf16) written as fp32 safetensors
-    (`svd_fp32/`, the form upstream ships) and halved by
+    (`svd_fp32/`, the form upstream ships, kept for phase 16) and halved by
     `cli.convert_checkpoint halve` into `svd_fp16/` (other files copied);
     every F32 tensor must come out as its `.to(float16)` bit for bit and every
     other tensor unchanged. `cli.convert_checkpoint validate` must exit 0 on
     `svd_fp16/` and 1 on a copy whose UNet shards (written as headers alone)
-    change one tensor's shape, naming that tensor. Then, at
-    `--runtime.compute_dtype=float16` on `dev`: `cli.run_single_segment.main`
-    from `svd_fp16/` (5N + 18 flash launches, finite frames, the PNGs'
-    counts and sizes; the RMS difference from phase 11's bf16 clip is
-    reported, not checked), `cli.train.main` for 2 steps from `svd/` with no
-    validation (`expected_train_launches` a step, finite losses and gradient
-    norms, level-0 norm1's gradient nonzero), and `cli.reproject.main` on a
-    fresh copy of phase 14's `prep/ep_1` without its renders (the VGGT
-    launches, finite renders that are not one value). `overrides` (CLI
+    change one tensor's shape, naming that tensor. Then `cli_paths` at
+    `--runtime.compute_dtype=float16` from `svd_fp16/`. `overrides` (CLI
     flags) cut the configuration down for a rehearsal off the card."""
     import contextlib
     import io
     import shutil
 
-    import numpy as np
     import torch
 
-    from evoworld_tpu_torch.cli import convert_checkpoint, reproject, run_single_segment
-    from evoworld_tpu_torch.cli import train as train_cli
-    from evoworld_tpu_torch.cli.common import load_frames
-    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
-    from evoworld_tpu_torch.data.native_io import image_size
+    from evoworld_tpu_torch.cli import convert_checkpoint
     from evoworld_tpu_torch.models.weights import (
         load_safetensors,
         safetensors_shapes,
         save_safetensors,
         save_safetensors_header,
     )
-    from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
-    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
-    from evoworld_tpu_torch.runtime import PRESETS, VGGT_PRESETS
-
-    flags = (*overrides, "--runtime.compute_dtype=float16")
-    config = apply_overrides(EvoWorldConfig(), list(flags))
-    pc, loop_cfg = config.pipeline, config.loop
-    on_card = dev.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
-
-    def reset(peak=True):
-        flash_attention.launches = flash_attention_backward.launches = 0
-        if on_card and peak:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-
-    def launches():
-        return [flash_attention.launches, flash_attention_backward.launches]
-
-    def peak():
-        return torch.cuda.max_memory_allocated(dev) if on_card else None
 
     # 1. phase 11's checkpoints as fp32, halved to fp16 by the converter
     svd, svd32, svd16 = (os.path.join(workdir, d) for d in ("svd", "svd_fp32", "svd_fp16"))
@@ -2296,7 +2401,6 @@ def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
             del f32, out
     convert_s = time.perf_counter() - t0
     fp16_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(svd16) for f in fs)
-    shutil.rmtree(svd32)  # only the halving reads it
 
     # 2. validate: the fp16 directory, and a copy with one tensor's shape changed
     def validate(path):  # (exit code, printed lines)
@@ -2323,8 +2427,93 @@ def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
             shapes[changed] = (dtype, (*shape[:-1], shape[-1] + 1))
         save_safetensors_header(shapes, os.path.join(bad, "unet", name))
     bad_code, bad_out = validate(bad)
+    conv = dict(tensors=tensors, exact=exact, seconds=convert_s, halve_s=halve_s, fp16_bytes=fp16_bytes,
+                validate_code=valid_code, validate_s=validate_s, validate_out=valid_out.splitlines(),
+                changed=changed, bad_code=bad_code, bad_out=bad_out.splitlines())
+    log("fp16 convert " + json.dumps(conv))
+    if not exact or conv["validate_code"] != 0 or conv["bad_code"] != 1 or changed not in bad_out \
+            or "unet: OK" in bad_out:
+        raise AssertionError(f"the converter's halve or validate: {conv}")
+    paths = cli_paths(dev, steps, seed, workdir, (*overrides, "--runtime.compute_dtype=float16"), svd16, "fp16")
+    for d in (svd16, bad):  # read by nothing after this phase (phase 12's checkpoints: the same reason)
+        shutil.rmtree(d)
+    return dict(convert=conv, **paths)
 
-    # 3. the single-segment CLI from the fp16 directory
+
+def full_fp32(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -> dict:
+    """Phase 16, the fp32 path, on the files of phases 11, 14 and 15 in
+    `workdir`: `cli_paths` at `--runtime.compute_dtype=float32` from phase
+    15's `svd_fp32/` (phase 11's checkpoints as fp32 safetensors), every
+    attention of 4096 tokens or more on the fp32 kernels. It runs under
+    torch's default TF32 flags, the state a user of the CLIs gets (matmuls in
+    full fp32, cuDNN convolutions in TF32), printed and restored after. The
+    training step tries the configuration's frames (25 at full width) and, if
+    the card runs out of memory, the next count of FP32_TRAIN_FRAMES, the
+    frames given up reported as the cut."""
+    import torch
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
+    tf32 = dict(matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    log("fp32 tf32 flags " + json.dumps(tf32))
+    try:
+        paths = cli_paths(dev, steps, seed, workdir, (*overrides, "--runtime.compute_dtype=float32"),
+                          os.path.join(workdir, "svd_fp32"), "fp32", train_frames=FP32_TRAIN_FRAMES)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return dict(tf32=tf32, **paths)
+
+
+def cli_paths(dev, steps: int, seed: int, workdir: str, flags: tuple, clip_dir: str, tag: str,
+              train_frames: tuple = (None,)) -> dict:
+    """The CLI paths of phases 15 and 16 on phase 11's and 14's files in
+    `workdir`, at the compute dtype `flags` name (`tag`), on `dev`:
+    `cli.run_single_segment.main` from the checkpoints in `clip_dir` (5N + 18
+    flash launches, finite frames, the PNGs' counts and sizes; the RMS
+    difference from phase 11's bf16 clip is reported, not checked),
+    `cli.train.main` for 2 steps from phase 11's `svd/` with no validation
+    (`expected_train_launches` a step, finite losses and gradient norms,
+    level-0 norm1's gradient nonzero), and `cli.reproject.main` on a fresh
+    copy of phase 14's `prep/ep_1` without its renders (the VGGT launches,
+    finite renders that are not one value); seconds and peak memory of each.
+    The training runs at the first frame count of `train_frames` (None: the
+    configuration's) that does not run the card out of memory."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.cli import reproject, run_single_segment
+    from evoworld_tpu_torch.cli import train as train_cli
+    from evoworld_tpu_torch.cli.common import load_frames
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.data.native_io import image_size
+    from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from evoworld_tpu_torch.runtime import PRESETS, VGGT_PRESETS
+
+    config = apply_overrides(EvoWorldConfig(), list(flags))
+    pc, loop_cfg = config.pipeline, config.loop
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    svd = os.path.join(workdir, "svd")
+
+    def reset():
+        flash_attention.launches = flash_attention_backward.launches = 0
+        if on_card:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def launches():
+        return [flash_attention.launches, flash_attention_backward.launches]
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if on_card else None
+
+    # 1. the single-segment CLI from `clip_dir`
     episode = os.path.join(workdir, "episode_000")
     frames = []
     navigator = run_single_segment.Navigator
@@ -2334,8 +2523,8 @@ def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
             frames.append(super().generate_segment(*args, **kwargs))
             return frames[-1]
 
-    argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={svd16}", "--runtime.allow_random_weights=false",
-            f"--pipeline.num_steps={steps}", f"--runtime.seed={seed}", f"--runtime.save_dir={workdir}/out_fp16",
+    argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={clip_dir}", "--runtime.allow_random_weights=false",
+            f"--pipeline.num_steps={steps}", f"--runtime.seed={seed}", f"--runtime.save_dir={workdir}/out_{tag}",
             *flags]
     reset()
     run_single_segment.Navigator = Keeping
@@ -2360,32 +2549,49 @@ def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
     bf16_rms = float(np.sqrt(np.mean((read(os.path.join(single["out_dir"], "predictions")) - read(bf16_dir)) ** 2)))
     del frames
 
-    # 4. two training steps from phase 11's checkpoints, no validation
-    out = os.path.join(workdir, "train_fp16")
-    train_argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={svd}", "--runtime.allow_random_weights=false",
-                  f"--runtime.save_dir={out}", f"--runtime.seed={seed}", "--train.total_steps=2",
-                  "--train.warmup_steps=1", "--trainer.log_steps=1", *flags]
-    probe = TrainProbe(dev, (flash_attention, flash_attention_backward))
-    reset()
-    probe.last = probe._counts()
-    with probe.installed():
-        t0 = time.perf_counter()
-        state = train_cli.main(train_argv, device=dev)
-        sync()
-        train_s = time.perf_counter() - t0
+    # 2. two training steps from phase 11's checkpoints, no validation
+    out = os.path.join(workdir, f"train_{tag}")
+    layers = PRESETS[config.runtime.model_preset][0].layers_per_block
+    cut = []  # (frames, the out-of-memory message) of each count that did not fit
+    for at, want_frames in enumerate(train_frames):
+        train_frame_count = want_frames or config.data.sequence_length
+        train_argv = [f"--data.root={episode}", f"--runtime.checkpoint_dir={svd}",
+                      "--runtime.allow_random_weights=false", f"--runtime.save_dir={out}", f"--runtime.seed={seed}",
+                      "--train.total_steps=2",
+                      "--train.warmup_steps=1", "--trainer.log_steps=1", *flags,
+                      f"--data.sequence_length={train_frame_count}"]
+        probe = TrainProbe(dev, (flash_attention, flash_attention_backward))
+        reset()
+        probe.last = probe._counts()
+        out_of_memory = None
+        with probe.installed():
+            t0 = time.perf_counter()
+            try:
+                state = train_cli.main(train_argv, device=dev)
+                sync()
+            except torch.cuda.OutOfMemoryError as e:
+                if at + 1 == len(train_frames):
+                    raise
+                out_of_memory = str(e).splitlines()[0]
+            train_s = time.perf_counter() - t0
+        if out_of_memory is None:
+            break
+        cut.append([train_frame_count, out_of_memory])
+        log(f"{tag} training: {train_frame_count} frames ran out of device memory ({out_of_memory}); "
+            f"next {train_frames[at + 1]}")
+        shutil.rmtree(out, ignore_errors=True)
     with open(os.path.join(out, "train_metrics.jsonl")) as f:
         tracked = [json.loads(line) for line in f]
     norm1 = state.unet.down_blocks[0].attentions[0].transformer_blocks[0].norm1.weight.grad
     norm1_max = float(norm1.abs().max()) if norm1 is not None else 0.0
-    layers = PRESETS[config.runtime.model_preset][0].layers_per_block
-    expected_step = expected_train_launches(pc.num_frames, config.train.vae_encode_chunk, layers) \
+    expected_step = expected_train_launches(train_frame_count, config.train.vae_encode_chunk, layers) \
         if on_card else (0, 0)
     del state
     shutil.rmtree(os.path.join(out, "checkpoints"))  # the final save's, which nothing reads
 
-    # 5. reproject on a fresh copy of phase 14's episode (its renders left out)
+    # 3. reproject on a fresh copy of phase 14's episode (its renders left out)
     src_ep = os.path.join(workdir, "prep", "ep_1")
-    ep = os.path.join(workdir, "prep_fp16", "ep_1")
+    ep = os.path.join(workdir, f"prep_{tag}", "ep_1")
     os.makedirs(ep)
     for name in os.listdir(src_ep):
         if name != config.data.reprojection_name:
@@ -2417,41 +2623,35 @@ def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
     stages = records[0]["stage_seconds"] if records else {}
 
     result = dict(
-        convert=dict(tensors=tensors, exact=exact, seconds=convert_s, halve_s=halve_s, fp16_bytes=fp16_bytes,
-                     validate_code=valid_code, validate_s=validate_s, validate_out=valid_out.splitlines(),
-                     changed=changed, bad_code=bad_code, bad_out=bad_out.splitlines()),
-        single=dict(seconds=single_s, load_s=single["load_s"], generate_s=single["generate_s"],
+        single=dict(seconds=single_s, load_s=single["load_s"], generate_s=single["generate_s"], num_steps=steps,
                     launches=single_launches, expected=[5 * steps + 18 if on_card else 0, 0],
                     finite=bool(torch.isfinite(clip).all()), shape=list(clip.shape), pngs=got_pngs,
                     rms_from_bf16_clip=bf16_rms, peak_memory_bytes=single_peak),
-        train=dict(seconds=train_s, steps=probe.steps, losses=[r["train_loss"] for r in tracked],
-                   grad_norms=[r["grad_norm"] for r in tracked], sec_per_step=[r["sec_per_step"] for r in tracked],
-                   expected_step_launches=list(expected_step), norm1_grad_abs_max=norm1_max, saves=probe.saves),
+        train=dict(seconds=train_s, frames=train_frame_count, cut=cut, steps=probe.steps,
+                   losses=[r["train_loss"] for r in tracked], grad_norms=[r["grad_norm"] for r in tracked],
+                   sec_per_step=[r["sec_per_step"] for r in tracked], expected_step_launches=list(expected_step),
+                   norm1_grad_abs_max=norm1_max, saves=probe.saves),
         reproject=dict(seconds=reproject_s, vggt_s=stages.get("reconstruct"), launches=prep_launches,
                        expected=[expected_prep, 0], renders=len(rendered), render_shape=list(rendered.shape[1:]),
                        render_finite=bool(all(torch.isfinite(r).all() for r in renders)) and bool(renders),
                        render_std=float(rendered.std()), peak_memory_bytes=prep_peak))
-    log("fp16 " + json.dumps(result))
-    conv = result["convert"]
-    if not exact or conv["validate_code"] != 0 or conv["bad_code"] != 1 or changed not in bad_out \
-            or "unet: OK" in bad_out:
-        raise AssertionError(f"the converter's halve or validate: {conv}")
+    log(f"{tag} " + json.dumps(result))
     s = result["single"]
     if s["launches"] != s["expected"] or not s["finite"] or got_pngs != want_pngs:
-        raise AssertionError(f"the fp16 clip launched {s['launches']} (expected {s['expected']}), finite "
+        raise AssertionError(f"the {tag} clip launched {s['launches']} (expected {s['expected']}), finite "
                              f"{s['finite']}, wrote {got_pngs} (expected {want_pngs})")
     t = result["train"]
     if [r["step"] for r in tracked] != [1, 2] or any(
             (r["fwd_launches"], r["bwd_launches"]) != tuple(expected_step) for r in probe.steps):
-        raise AssertionError(f"fp16 training logged {tracked} and launched {probe.steps}, expected "
+        raise AssertionError(f"{tag} training logged {tracked} and launched {probe.steps}, expected "
                              f"{list(expected_step)} a step")
     if not all(math.isfinite(v) for v in t["losses"] + t["grad_norms"]) or not norm1_max > 0:
-        raise AssertionError(f"fp16 training: losses {t['losses']}, gradient norms {t['grad_norms']}, "
+        raise AssertionError(f"{tag} training: losses {t['losses']}, gradient norms {t['grad_norms']}, "
                              f"level-0 norm1 gradient {norm1_max}")
     r = result["reproject"]
     if r["launches"] != r["expected"] or r["renders"] != loop_cfg.num_target_view or not r["render_finite"] \
             or not r["render_std"] > 0:
-        raise AssertionError(f"fp16 reproject: {r}, expected {r['expected']} launches and "
+        raise AssertionError(f"{tag} reproject: {r}, expected {r['expected']} launches and "
                              f"{loop_cfg.num_target_view} renders")
     return result
 
@@ -2508,7 +2708,7 @@ def main() -> int:
         return 1
     from evoworld_tpu_torch.data import native_io
     from evoworld_tpu_torch.ops import _build
-    from evoworld_tpu_torch.ops.flash_attention import BWD_SOURCE, SOURCE
+    from evoworld_tpu_torch.ops.flash_attention import BWD_SOURCE, FP32_SOURCE, SOURCE
 
     wall0 = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2527,21 +2727,12 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one compiler per source, started together
-        list(pool.map(_build.load, (SOURCE, BWD_SOURCE, native_io.SOURCE)))
+    with ThreadPoolExecutor(4) as pool:  # one compiler per source, started together
+        list(pool.map(_build.load, (SOURCE, BWD_SOURCE, FP32_SOURCE, native_io.SOURCE)))
     build_s = time.perf_counter() - t0
-    log(f"nvcc build of {SOURCE} and {BWD_SOURCE}, g++ build of {native_io.SOURCE}: {build_s:.3f} s")
-    for source in (SOURCE, BWD_SOURCE):
-        entries = ptxas_report(_build.build_log(source))
-        for row in entries:
-            log(f"ptxas {source} " + json.dumps(row))
-            if row.get("spill_stores") or row.get("spill_loads") or "wgmma_serialized" in row:
-                raise AssertionError(f"{source}: a kernel entry spills or serializes its wgmma: {row}")
-        # every kernel entry in both element types, from the one templated source
-        for twin in ptxas_twins(entries):
-            log(f"ptxas twins {source} " + json.dumps(twin))
-            if set(twin["registers"]) != set(PTXAS_TYPE_NAMES) or None in twin["registers"].values():
-                raise AssertionError(f"{source}: a kernel entry lacks its bf16 or fp16 instantiation: {twin}")
+    log(f"nvcc build of {SOURCE}, {BWD_SOURCE} and {FP32_SOURCE}, g++ build of {native_io.SOURCE}: {build_s:.3f} s")
+    for source in (SOURCE, BWD_SOURCE, FP32_SOURCE):
+        check_ptxas(source, ptxas_report(_build.build_log(source)), fp32=source == FP32_SOURCE)
 
     check_jpeg_fixtures()
 
@@ -2571,6 +2762,9 @@ def main() -> int:
         t0 = time.perf_counter()
         fp16_run = full_fp16(dev, STEPS, SEED, workdir)
         log(f"fp16 phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        fp32_run = full_fp32(dev, STEPS, SEED, workdir)
+        log(f"fp32 phase wall seconds {time.perf_counter() - t0:.3f}")
     torch.cuda.empty_cache()
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
@@ -2584,10 +2778,22 @@ def main() -> int:
     fwd_total, bwd_total = train_run["summary"]["launches_total"]
     cli_train = [sum(r["launches"][i] for r in train_cli_run["runs"]) for i in (0, 1)]
     fp16_train = [sum(r[k] for r in fp16_run["train"]["steps"]) for k in ("fwd_launches", "bwd_launches")]
+    fp32_train = [sum(r[k] for r in fp32_run["train"]["steps"]) for k in ("fwd_launches", "bwd_launches")]
     twin_keys = ("label", "shape", "ms", "twin_ms", "twin_ratio", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err", "kernel_types")
     fwd16 = next(r for r in flash["shapes"] if r["label"] == "unet_l0_spatial_fp16")
     bwd16 = next(r for r in flash_bwd["shapes"] if r["label"] == "unet_l0_train_fp16")
+    fwd32 = next(r for r in flash["shapes"] if r["label"] == "unet_l0_spatial_fp32")
+    bwd32 = next(r for r in flash_bwd["shapes"] if r["label"] == "unet_l0_train_fp32")
+    # The fp32 kernels' launches on phase 16's paths, each read with the counts set to 0 just before it.
+    fp32_fwd_paths = {"fp32_single_segment": fp32_run["single"]["launches"][0], "fp32_train": fp32_train[0],
+                      "fp32_reproject": fp32_run["reproject"]["launches"][0]}
+    fp32_bwd_paths = {"fp32_single_segment": fp32_run["single"]["launches"][1], "fp32_train": fp32_train[1],
+                      "fp32_reproject": fp32_run["reproject"]["launches"][1]}
+    if not all(fp32_fwd_paths.values()) or not fp32_train[1]:
+        raise AssertionError(f"an fp32 kernel was not launched on phase 16's paths: {fp32_fwd_paths}, "
+                             f"{fp32_bwd_paths}")
+    fp32_keys = twin_keys + ("split_bound_ms", "kernel_ms", "max_rel_err", "mean_rel_err")
     kernels = [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2611,7 +2817,7 @@ def main() -> int:
         "library_ms": fwd_row["library_ms"],
         "timed_at": fwd_row["shape"],
         "designs": {str(d): n for d, n in FWD_KERNELS.items()},
-        "dtypes": list(ELEM_TYPES),
+        "dtypes": ["bf16", "fp16"],
         "fp16": {k: fwd16[k] for k in twin_keys},
         "wide": {k: wide_row[k] for k in ("kernel", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                            "max_abs_err")},
@@ -2637,7 +2843,7 @@ def main() -> int:
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],
         "designs": {str(d): design for d, (design, _) in BWD_DESIGNS.items()},
-        "dtypes": list(ELEM_TYPES),
+        "dtypes": ["bf16", "fp16"],
         "fp16": {k: bwd16[k] for k in twin_keys},
         "d128": {k: d128_row[k] for k in ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "max_abs_err", "repeat")},
@@ -2650,6 +2856,40 @@ def main() -> int:
         "library_ms": bwd_row["library_ms"],
         "timed_at": bwd_row["shape"],
         "shapes": flash_bwd["shapes"],
+        "ok": True,
+    }, {
+        "name": "flash_attn_fp32_fwd",
+        "route": "cuda",
+        "source": "evoworld_tpu_torch/csrc/flash_attn_fp32.cu",
+        "replaces": "evoworld_tpu/ops/attention.py:170",
+        "also_replaces": "evoworld_tpu/ops/flash_attention.py:137",
+        "launches": sum(fp32_fwd_paths.values()),
+        "launches_by_path": fp32_fwd_paths,
+        "max_abs_err": max(r["max_abs_err"] for r in flash["shapes"] if r["dtype"] == "fp32"),
+        **{k: fwd32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "split_bound_ms")},
+        "timed_at": fwd32["shape"],
+        "design": FP32_FWD_KERNEL,
+        "dtypes": ["fp32"],
+        "rows": [{k: r[k] for k in fp32_keys} for r in flash["shapes"] if r["dtype"] == "fp32"],
+        "ok": True,
+    }, {
+        "name": "flash_attn_fp32_bwd",
+        "route": "cuda",
+        "source": "evoworld_tpu_torch/csrc/flash_attn_fp32.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "also_replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "reached_from": "evoworld_tpu/ops/attention.py:170",
+        "launches": sum(fp32_bwd_paths.values()),
+        "launches_by_path": fp32_bwd_paths,
+        "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"] if r["dtype"] == "fp32"),
+        **{k: bwd32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "split_bound_ms",
+                                 "kernel_ms")},
+        "timed_at": bwd32["shape"],
+        "design": FP32_BWD_DESIGN[0],
+        "dtypes": ["fp32"],
+        "rows": [{k: r[k] for k in ("label", "shape", "ms", "twin_ms", "twin_ratio", "plain_ms", "bound_ms",
+                                     "split_bound_ms", "library_ms", "max_abs_err", "kernel_ms", "repeat")}
+                 for r in flash_bwd["shapes"] if r["dtype"] == "fp32"],
         "ok": True,
     }]
     log(f"wall seconds {time.perf_counter() - wall0:.3f}")

@@ -11,9 +11,12 @@ to `--out`:
    every kernel entry's instructions (encodings included) are compared with
    the other checkout's entry of the same kernel, head dim and element type.
    An entry whose name carries no element type is bf16 (the kernels before
-   the type became a template parameter). Within this checkout, each fp16
-   entry is compared with its bf16 twin: the lines that differ, counted by
-   the pair of opcodes in which they differ.
+   the type became a template parameter), except the fp32 kernels
+   (`flash_fp32_*`, a source of their own, built where a checkout has it),
+   which are fp32 and paired by kernel and head dim alone. Within this
+   checkout, each fp16 entry is compared with its bf16 twin: the lines that
+   differ, counted by the pair of opcodes in which they differ (fp32 entries
+   have no twin).
 2. `bf16_ab`: each checkout times the bf16 rows of ROWS in a process of its
    own, in the order other, this, this, other, by CUDA events.
 3. `twins`: in this checkout, each row in bf16 and fp16 interleaved (bf16,
@@ -44,9 +47,10 @@ import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_attn_fp32.cu")
 KERNELS = ("flash_fwd_wgmma", "flash_fwd_wide", "flash_bwd_delta", "flash_bwd_fused", "flash_bwd_store_dq",
-           "flash_bwd_wide_dv", "flash_bwd_wide_dk", "flash_bwd_wide_dq")
+           "flash_bwd_wide_dv", "flash_bwd_wide_dk", "flash_bwd_wide_dq",
+           "flash_fp32_fwd", "flash_fp32_bwd_delta", "flash_fp32_bwd_dkdv", "flash_fp32_bwd_dq")
 # (label, direction, B, Sq, Skv, H, D, kv_len, with_lse): the main path's shapes
 ROWS = (
     ("unet_l0_spatial", "fwd", 50, 9216, 9216, 5, 64, 9216, False),
@@ -90,7 +94,8 @@ def entry_key(mangled: str) -> tuple:
         at = mangled.find(f"{len(name)}{name}")
         if at >= 0:
             d = re.match(r"ILi(\d+)E", mangled[at + len(str(len(name))) + len(name):])
-            return name, int(d.group(1)) if d else None, "fp16" if "6__half" in mangled else "bf16"
+            elem = "fp32" if name.startswith("flash_fp32_") else "fp16" if "6__half" in mangled else "bf16"
+            return name, int(d.group(1)) if d else None, elem
     return mangled, None, None
 
 
@@ -116,7 +121,7 @@ def compare_sass(other: str) -> dict:
     cuobjdump = os.path.join(os.path.dirname(mine["nvcc"]), "cuobjdump")
     entries, twins = [], []
     for src in SOURCES:
-        a, b = sass_entries(mine["libs"][src], cuobjdump), sass_entries(theirs["libs"][src], cuobjdump)
+        a, b = ({} if src not in lib["libs"] else sass_entries(lib["libs"][src], cuobjdump) for lib in (mine, theirs))
         for key in sorted(set(a) | set(b), key=str):
             row = dict(source=src, kernel=key[0], d=key[1], dtype=key[2], lines=len(a.get(key, [])),
                        other_lines=len(b.get(key, [])))
@@ -126,10 +131,12 @@ def compare_sass(other: str) -> dict:
             entries.append(row)
             if key[2] == "fp16" and (key[0], key[1], "bf16") in a:
                 twins.append(dict(source=src, kernel=key[0], d=key[1], **twin_diff(a[(key[0], key[1], "bf16")], a[key])))
-    bf16 = [e for e in entries if e["dtype"] == "bf16"]
-    return dict(build_s=time.perf_counter() - t0, entries=entries, fp16_against_bf16=twins,
-                bf16_identical=bool(bf16) and all(e.get("identical") for e in bf16),
-                bf16_entries=len(bf16), bf16_paired=sum("identical" in e for e in bf16))
+    summary = {}
+    for elem in ("bf16", "fp16", "fp32"):
+        typed = [e for e in entries if e["dtype"] == elem]
+        summary.update({f"{elem}_identical": bool(typed) and all(e.get("identical") for e in typed),
+                        f"{elem}_entries": len(typed), f"{elem}_paired": sum("identical" in e for e in typed)})
+    return dict(build_s=time.perf_counter() - t0, entries=entries, fp16_against_bf16=twins, **summary)
 
 
 def worker(mode: str) -> dict:
@@ -139,9 +146,10 @@ def worker(mode: str) -> dict:
     if mode == "build":
         from evoworld_tpu_torch.ops import _build
 
-        with ThreadPoolExecutor(len(SOURCES)) as pool:
-            list(pool.map(_build.load, SOURCES))
-        return dict(nvcc=_build._nvcc(), libs={s: str(_build._lib_path(s)) for s in SOURCES})
+        sources = [s for s in SOURCES if (_build.CSRC / s).exists()]  # an older checkout lacks the fp32 source
+        with ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(_build.load, sources))
+        return dict(nvcc=_build._nvcc(), libs={s: str(_build._lib_path(s)) for s in sources})
     if mode == "bf16":
         return {label: time_row(row, torch.bfloat16)[0] for label, *row in ROWS}
     if mode == "twins":

@@ -6,9 +6,9 @@ The same sections, field names and defaults as the JAX package's tree (but
 port's own `PipelineConfig`, `LoopConfig`, `TrainConfig` and `TrainerConfig`
 fill the first four. Every CLI accepts `--section.field=value` (or
 `--section.field value`) overrides. `runtime.compute_dtype` maps to a torch
-dtype through `compute_dtype`; on CUDA anything but bfloat16 or float16
-meets the entry points' refusal (`runtime.check_compute_dtype`) before any
-file is read. The mesh fields (`runtime.mesh_data`, `mesh_model`, `vggt_mesh`) are
+dtype through `compute_dtype`; bfloat16, float16 and float32 all run on
+CUDA, each on flash kernels of its type, and any other dtype meets the entry
+points' refusal (`runtime.check_compute_dtype`) before any file is read. The mesh fields (`runtime.mesh_data`, `mesh_model`, `vggt_mesh`) are
 accepted and do on one card what the JAX package's do on one device: nothing.
 """
 

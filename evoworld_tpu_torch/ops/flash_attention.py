@@ -13,14 +13,16 @@ non-causal softmax(Q K^T * scale) V over (B, S, H, D):
 needed it goes through `FlashAttentionFunction`, which saves q, k, v, the
 output and its per-row log-sum-exp; its backward is `flash_attention_backward`.
 For CUDA tensors the forward launches `csrc/flash_attn_fwd.cu` and the
-backward `csrc/flash_attn_bwd.cu`; tensors on the CPU take
-`flash_attention_plain` and `flash_attention_backward_plain`. On a CUDA tensor
-each wrapper launches its kernel or raises; it never falls back.
+backward `csrc/flash_attn_bwd.cu` (fp32: both `csrc/flash_attn_fp32.cu`);
+tensors on the CPU take `flash_attention_plain` and
+`flash_attention_backward_plain`. On a CUDA tensor each wrapper launches its
+kernel or raises; it never falls back.
 
-The kernels take bf16 or fp16 (q, k, v, o, dO and the gradients all of one
-of the two; the log-sum-exp and the scratch fp32): each kernel is one
-source templated over the element type, and the wrapper passes the type's
-code (`_ELEM_CODES`). Both directions are bound by tensor-core operations
+The kernels take bf16, fp16 or fp32 (q, k, v, o, dO and the gradients all of
+one of the three; the log-sum-exp and the scratch fp32). bf16 and fp16 share
+one design: each kernel of `csrc/flash_attn_fwd.cu` and `csrc/flash_attn_bwd.cu`
+is one source templated over the element type, and the wrapper passes the
+type's code (`_ELEM_CODES`). Both directions are bound by tensor-core operations
 (the same dense rate in bf16 and fp16 on an H100) at the paths' 9216
 tokens, with one exp2 per score beside them. Which head dim takes which kernel:
   - forward, D = 64 and 128: `flash_fwd_wgmma` (wgmma, a TMA ring of K and V
@@ -48,6 +50,20 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     columns of the gradient and half of each score's 512-deep sum, and swap
     their partial sums. No sweep sums across blocks, so all three gradients
     repeat bit for bit.
+fp32 has a design of its own, `csrc/flash_attn_fp32.cu` with its own C entry
+points: wgmma takes fp32 only as one TF32 pass (10 mantissa bits, fp16's
+width) with both shared operands K-major, so every product there is an
+mma.sync m16n8k8 TF32 product with each operand split into two TF32 parts
+(three products a k-step, fp32 sums, within ~1e-6 of full fp32), warps of 16
+rows, cp.async tiles in two stages:
+  - forward `flash_fp32_fwd` (64 queries a block; at D = 512 32 queries, D
+    split across 4 warps that swap partial scores, as `flash_fwd_wide` splits
+    it), writing the log-sum-exp when asked;
+  - backward `flash_fp32_bwd_delta`, then `flash_fp32_bwd_dkdv` (a block per
+    key tile, query tiles streamed) and `flash_fp32_bwd_dq` (a block per
+    query tile, key tiles streamed), D split across warps at 512 as in the
+    forward: no sums across blocks and no atomics, so dQ, dK and dV repeat
+    bit for bit.
 Other head dims are zero-padded along D up to the smallest kernel head dim
 that holds them (`kernel_head_dim`: 64, 128 or 512, in both directions) and
 the output is sliced back; the scale stays that of the true D. Zero columns
@@ -67,6 +83,7 @@ from evoworld_tpu_torch.ops import _build
 
 SOURCE = "flash_attn_fwd.cu"
 BWD_SOURCE = "flash_attn_bwd.cu"
+FP32_SOURCE = "flash_attn_fp32.cu"  # the fp32 forward and backward, entry points of their own
 HEAD_DIMS = (64, 128, 512)  # head dims of the forward and of the backward kernels
 _LOG2_E = 1.4426950408889634  # log2(e)
 _GRID_LIMIT = 65535  # heads on grid.y, batch on grid.z
@@ -74,9 +91,10 @@ _ENCODE_ERROR = 10000  # the C entry points return this + the CUresult when a TM
 _BWD_QUERY_TILE = 64  # the backward's fp32 scratch (delta, L in the exp2 domain) is padded to whole query tiles
 _FUSED_BWD_DIMS = (64, 128)  # head dims of the fused pass, which sums dQ in an fp32 buffer (512: the wide sweeps)
 _PLAIN_BLOCK_K = 512  # keys per step of the plain versions
-# The kernels' element types and the C entry points' code for each (ElemCode
-# in csrc/flash_attn_common.cuh).
+# The element types of the bf16/fp16 kernels and the C entry points' code for
+# each (ElemCode in csrc/flash_attn_common.cuh); fp32 goes to FP32_SOURCE.
 _ELEM_CODES = {torch.bfloat16: 0, torch.float16: 1}
+_KERNEL_DTYPES = (*_ELEM_CODES, torch.float32)
 
 
 def _plain_forward(q, k, v, scale, kv_len, use_exp2):
@@ -138,10 +156,10 @@ def flash_attention_backward_plain(
     Recomputes P = exp(Q K^T * scale - lse) one block of keys at a time from
     the forward's row log-sum-exp `lse` (B, H, Sq); delta = rowsum(dO * O);
     dS = P * (dO V^T - delta). P and dS are cast to q's dtype before their
-    products, as the kernel rounds them to its bf16 or fp16 operands; dK's
-    scale is applied in fp32 before the final cast, as in the kernel. Rows of
-    dK and dV at or past `kv_len` are zero. Returns three tensors in q's
-    dtype, shaped like q, k and v.
+    products, as the bf16 and fp16 kernels round them to their operands (a
+    no-op in fp32); dK's scale is applied in fp32 before the final cast, as
+    in the kernel. Rows of dK and dV at or past `kv_len` are zero. Returns
+    three tensors in q's dtype, shaped like q, k and v.
     """
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -166,27 +184,33 @@ def flash_attention_backward_plain(
     return tuple(t.to(q.dtype).transpose(1, 2) for t in (dq, dk, dv))
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    """D contiguous, every other stride a whole 16 bytes (8 bf16 / fp16 or 4
+    fp32 elements), and a 16-byte aligned base: what the kernels' copies take."""
+    step = 16 // t.element_size()
+    return t.stride(-1) == 1 and not any(s % step for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
 def _check_layout(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
     if t.device != q.device:
         raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if t.dtype not in _ELEM_CODES:
-        raise ValueError(f"{name} must be bfloat16 or float16, got {t.dtype}")
+    if t.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name} must be bfloat16, float16 or float32, got {t.dtype}")
     if t.dtype != q.dtype:
         raise ValueError(f"{name} is {t.dtype} and q {q.dtype}: the kernels take one element type for all inputs")
     if t.dim() != 4:
         raise ValueError(f"{name} must be (B, S, H, D), got {tuple(t.shape)}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
-        raise ValueError(f"{name} strides {t.stride()}: need D stride 1, others multiples of 8")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} is not 16-byte aligned")
+    if not _aligned(t):
+        raise ValueError(f"{name} ({t.dtype}) strides {t.stride()}: need D stride 1, others multiples of "
+                         f"{16 // t.element_size()} elements (16 bytes), and a 16-byte aligned base")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, grads: dict | None = None) -> None:
     """Raise on anything the CUDA kernels do not take.
 
-    Every input is bfloat16, or every input float16: a mix of the two, or
-    another dtype, is refused by name. `grads` holds the backward's extra
-    inputs (`o`, `do`: like q; `lse`: fp32 contiguous (B, H, Sq)).
+    Every input is bfloat16, every input float16 or every input float32: a
+    mix, or another dtype (float64), is refused by name. `grads` holds the
+    backward's extra inputs (`o`, `do`: like q; `lse`: fp32 contiguous (B, H, Sq)).
     """
     extra = {n: t for n, t in (grads or {}).items() if n != "lse"}
     for name, t in (("q", q), ("k", k), ("v", v), *extra.items()):
@@ -246,6 +270,32 @@ def _bwd_fn():
     return fn
 
 
+def _fp32_fwd_fn():
+    fn = _build.load(FP32_SOURCE).flash_attn_fp32_fwd
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int]
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _fp32_bwd_fn():
+    fn = _build.load(FP32_SOURCE).flash_attn_fp32_bwd
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 11
+            + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_forward(q, k, v, scale, kv_len, use_exp2=False, with_lse=False):
     """(output, row log-sum-exp fp32 (B, H, Sq) or None): the forward kernel, or its
     plain version for CPU tensors; no autograd. A head dim without a kernel of
@@ -265,18 +315,20 @@ def flash_attention_forward(q, k, v, scale, kv_len, use_exp2=False, with_lse=Fal
     _check(q, k, v, kv_len)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
-    fn = _fwd_fn()
+    fp32 = q.dtype == torch.float32
+    fn = _fp32_fwd_fn() if fp32 else _fwd_fn()
+    code = () if fp32 else (_ELEM_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, sq, h, d, kv_len, scale, int(use_exp2), _ELEM_CODES[q.dtype],
+            b, sq, h, d, kv_len, scale, int(use_exp2), *code,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err >= _ENCODE_ERROR:
         raise RuntimeError(f"flash_attn_fwd could not encode a TMA tensor map: CUresult {err - _ENCODE_ERROR}")
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed with cudaError {err}")
+        raise RuntimeError(f"{'flash_attn_fp32_fwd' if fp32 else 'flash_attn_fwd'} launch failed with cudaError {err}")
     flash_attention.launches += 1
     return out, lse
 
@@ -294,12 +346,14 @@ def flash_attention_backward(
     """dQ, dK, dV from the forward's inputs, output `o`, row log-sum-exp `lse` and `do`.
 
     CUDA tensors go to the Hopper kernels of `csrc/flash_attn_bwd.cu` (bf16
-    or fp16, all inputs of one type; the fused wgmma pass at D = 64 and 128, the three wide sweeps at D =
-    512); one launch counts every kernel of a call. Each call allocates fp32
-    delta and L scratch padded to whole 64-query tiles; at D = 64 and 128
-    also a zeroed fp32 buffer shaped like q (padded the same way) that the
-    fused pass sums dQ into, so that dQ may differ in its last bit
-    between two calls. CPU tensors go to `flash_attention_backward_plain`.
+    or fp16, all inputs of one type; the fused wgmma pass at D = 64 and 128,
+    the three wide sweeps at D = 512) or of `csrc/flash_attn_fp32.cu` (fp32);
+    one launch counts every kernel of a call. Each call allocates fp32 delta
+    and L scratch padded to whole 64-query tiles; in bf16
+    and fp16 at D = 64 and 128 also a zeroed fp32 buffer shaped like q (padded
+    the same way) that the fused pass sums dQ into, so that dQ may differ in
+    its last bit between two calls (fp32 sums nothing across blocks and
+    repeats all three). CPU tensors go to `flash_attention_backward_plain`.
     Returns contiguous tensors shaped like q, k and v. A head dim without a
     kernel of its own is zero-padded to `kernel_head_dim` and the gradients
     sliced back.
@@ -316,15 +370,27 @@ def flash_attention_backward(
             return flash_attention_backward_plain(q, k, v, o, do, lse, scale, kv_len)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_backward: no kernel for device {q.device}")
-    if do.dtype == q.dtype and (do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16):
+    if do.dtype == q.dtype and not _aligned(do):
         do = do.contiguous()  # e.g. the expanded gradient of a sum
     _check(q, k, v, kv_len, grads={"o": o, "do": do, "lse": lse})
     b, sq, h, _ = q.shape
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     sq_pad = -(-sq // _BWD_QUERY_TILE) * _BWD_QUERY_TILE
     delta, lse2 = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
-    dq_acc = torch.zeros((b, h, sq_pad, d), dtype=torch.float32, device=q.device) if d in _FUSED_BWD_DIMS else None
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    if q.dtype == torch.float32:
+        with torch.cuda.device(q.device):
+            err = _fp32_bwd_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), lse2.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, sq, sq_pad, k.shape[1], h, d, kv_len, scale, strides,
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"flash_attn_fp32_bwd launch failed with cudaError {err}")
+        flash_attention_backward.launches += 1
+        return dq, dk, dv
+    dq_acc = torch.zeros((b, h, sq_pad, d), dtype=torch.float32, device=q.device) if d in _FUSED_BWD_DIMS else None
     fn = _bwd_fn()
     with torch.cuda.device(q.device):
         err = fn(
@@ -369,8 +435,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Exact attention over (B, S, H, D) tensors; keys at or past `kv_len` masked.
 
-    CUDA tensors go to the Hopper kernel (bf16 or fp16, q, k and v of one
-    type; D up to 512, padded to 64,
+    CUDA tensors go to the Hopper kernels (bf16, fp16 or fp32, q, k and v of
+    one type; D up to 512, padded to 64,
     128 or 512, strided layouts allowed as long as D is contiguous); CPU
     tensors to `flash_attention_plain`. Under grad with an input that requires it, the
     call goes through `FlashAttentionFunction`.

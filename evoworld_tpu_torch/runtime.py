@@ -13,11 +13,11 @@ names. `build_trainer(checkpoint_dir=...)` reads the same directory as
 `build_pipeline`. The repository ships no checkpoint (WEIGHTS.md); the tests
 write small random ones.
 
-On CUDA every entry point takes bfloat16 or float16: the Hopper
-flash-attention kernels exist in those two types, and the attention
-dispatch never falls back to plain attention on the card. float32 raises
-ValueError there before any weight is drawn (its kernels are queued,
-ROADMAP.md §2.1 and §3.1); the CPU takes any dtype.
+On CUDA every entry point takes bfloat16, float16 or float32: the Hopper
+flash-attention kernels exist in those three types, and the attention
+dispatch never falls back to plain attention on the card. Any other dtype
+(float64) raises ValueError there before any weight is drawn; the CPU takes
+any dtype.
 """
 
 from __future__ import annotations
@@ -74,8 +74,9 @@ VGGT_PRESETS = {
 }
 
 
-#: Compute dtypes the card's flash-attention kernels take.
-CUDA_COMPUTE_DTYPES = (torch.bfloat16, torch.float16)
+#: Compute dtypes the card's flash-attention kernels take: bf16 and fp16
+#: (one wgmma design templated over the type) and fp32 (split-TF32 mma.sync).
+CUDA_COMPUTE_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) -> None:
@@ -83,8 +84,7 @@ def check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) 
     if torch.device(device).type == "cuda" and compute_dtype not in CUDA_COMPUTE_DTYPES:
         raise ValueError(
             f"compute_dtype {compute_dtype} on CUDA: the port's Hopper flash-attention kernels take "
-            "bfloat16 or float16 (the float32 kernels, TF32 wgmma or a split-precision design, are queued "
-            "in ROADMAP.md §2.1; §3.1); use torch.bfloat16 or torch.float16 on the card, or device='cpu'"
+            "bfloat16, float16 or float32; use one of those on the card, or device='cpu'"
         )
 
 
@@ -115,7 +115,7 @@ def build_pipeline(
     random weights; with `allow_random_weights` False, no usable checkpoint
     raises FileNotFoundError. Runs on CUDA unless `device="cpu"` is passed;
     raises RuntimeError when CUDA is asked for and absent, ValueError for a
-    compute dtype other than bfloat16 or float16 on CUDA (before any file is
+    compute dtype other than bfloat16, float16 or float32 on CUDA (before any file is
     read).
     """
     check_compute_dtype(device, compute_dtype)
@@ -169,8 +169,8 @@ def build_trainer(
     to the compute dtype first), `compute_dtype` frozen ones; its blocks are
     checkpointed (remat). The VAE and CLIP are frozen. Runs on CUDA unless
     `device="cpu"` is passed; raises RuntimeError when CUDA is asked for and
-    absent, ValueError for a compute dtype other than bfloat16 or float16 on
-    CUDA (before any file is read).
+    absent, ValueError for a compute dtype other than bfloat16, float16 or
+    float32 on CUDA (before any file is read).
     """
     check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)
@@ -220,7 +220,7 @@ def build_reconstructor(
     every other leaf is cast to `compute_dtype`. The depth head runs in
     chunks of 8 frames. Runs on CUDA unless `device="cpu"` is passed; raises
     RuntimeError when CUDA is asked for and absent, ValueError for a compute
-    dtype other than bfloat16 or float16 on CUDA.
+    dtype other than bfloat16, float16 or float32 on CUDA.
     """
     check_compute_dtype(device, compute_dtype)
     dev = resolve_device(device)

@@ -1,8 +1,9 @@
 """`chip_smoke.py`'s own logic off the card: its reading of nvcc's ptxas
 report, on a log shaped like nvcc's, with each kernel's bf16 and fp16
-instantiations paired, the fp16 rows' pairing with their bf16 twins, its
-CLI, training-CLI, evaluation, data-preparation and fp16 phases at tiny
-size, and its GIF block parser.
+instantiations paired and the fp32 source's entries found, the fp16 rows'
+pairing with their bf16 twins and the fp32 rows' with their fp16 twins,
+each type's limits, its CLI, training-CLI, evaluation, data-preparation,
+fp16 and fp32 phases at tiny size, and its GIF block parser.
 
 ptxas prints its warning that it serialized an entry's wgmma before the
 entries' own lines, naming the function; the report must attach it to that
@@ -83,7 +84,8 @@ def test_fp16_rows_meet_their_bf16_twins():
     assert fp16["twin_ms"] == 10.0 and abs(fp16["twin_ratio"] - 1.05) < 1e-12
     chip_smoke.add_twin_ratio(rows[1], rows)
     assert rows[1]["twin_ms"] is None and rows[1]["twin_ratio"] is None
-    assert {getattr(torch, name) for name in chip_smoke.ELEM_TYPES.values()} == {torch.bfloat16, torch.float16}
+    assert {getattr(torch, name) for name in chip_smoke.ELEM_TYPES.values()} == {
+        torch.bfloat16, torch.float16, torch.float32}
     key = "void (anonymous namespace)::flash_fwd_wgmma<64, __half>(CUtensorMap_st, (anonymous namespace)::FwdArgs<__half>)"
     assert chip_smoke.trace_elem_type(key) == "fp16"
     assert chip_smoke.trace_elem_type(key.replace("__half", "__nv_bfloat16")) == "bf16"
@@ -94,6 +96,63 @@ def test_fp16_rows_meet_their_bf16_twins():
     assert chip_smoke.twin_runs(cases, ("a", "c")) == [(0, ("a", 1), "bf16"), (0, ("a_fp16", 1), "fp16"),
                                                        (1, ("b", 2), "bf16"), (2, ("c", 3), "bf16"),
                                                        (2, ("c_fp16", 3), "fp16")]
+
+
+# ptxas's report of csrc/flash_attn_fp32.cu: its kernels are not templated
+# over the element type, one entry per kernel and head dim.
+FP32_LOG = "".join(
+    f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(name)}{name}ILi{d}EEEvNS_9FwdParamsE' "
+    f"for 'sm_90a'\nptxas info    : Used {100 + d // 64} registers, used 1 barriers\n"
+    for name, d in chip_smoke.FP32_ENTRIES)
+
+
+def test_ptxas_check_exempts_fp32_entries_from_twins_and_fails_a_missing_one():
+    """Phase 2 holds the bf16/fp16 sources to a bf16 and an fp16 instantiation
+    of every entry, and the fp32 source, whose entries carry no type, to every
+    entry of FP32_ENTRIES: the full fp32 report passes (it would fail the twin
+    check), and one without flash_fp32_bwd_dq<512> fails naming it."""
+    entries = chip_smoke.ptxas_report(FP32_LOG)
+    assert len(entries) == len(chip_smoke.FP32_ENTRIES) == 12
+    chip_smoke.check_ptxas("flash_attn_fp32.cu", entries, fp32=True)
+    with pytest.raises(AssertionError, match="lacks its bf16 or fp16 instantiation"):
+        chip_smoke.check_ptxas("flash_attn_fp32.cu", entries)
+    found = {(r["kernel"], r["d"]): r["registers"] for r in chip_smoke.fp32_entries(entries)}
+    assert found[("flash_fp32_bwd_dq", 512)] == 108 and found[("flash_fp32_fwd", 64)] == 101
+    missing = [r for r in entries if "17flash_fp32_bwd_dqILi512E" not in r["entry"]]
+    with pytest.raises(AssertionError, match=r"\('flash_fp32_bwd_dq', 512\)"):
+        chip_smoke.check_ptxas("flash_attn_fp32.cu", missing, fp32=True)
+    spilled = [dict(r, spill_stores=8) if i == 0 else r for i, r in enumerate(entries)]
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.check_ptxas("flash_attn_fp32.cu", spilled, fp32=True)
+    paired = TWINS_LOG.replace("_ZN12_GLOBAL__N_114flash_fwd_wideI13__nv_bfloat16EEvv",
+                               "_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi64E6__halfEEvv")
+    chip_smoke.check_ptxas("flash_attn_fwd.cu", chip_smoke.ptxas_report(paired))  # both types: passes
+
+
+@pytest.mark.parametrize("elem, errs, passes", [
+    ("fp32", (9.8e-5, 1.6e-6), True),    # the worst fp32 reading (the VAE mid D = 512 dK)
+    ("fp32", (0.0022, 0.00021), False),  # the best fp16 twin's reading: one TF32 pass in an fp32 kernel
+    ("fp32", (1.1, 0.05), False),        # 32 dropped keys
+    ("fp32", (5e-5, 4.2e-4), False),     # one accumulator across 75,993 keys (PERF.md)
+])
+def test_fp32_rows_have_limits_of_their_own(elem, errs, passes):
+    """fp32 rows are held to FP32_MAX_REL_ERR / FP32_MEAN_REL_ERR, which pass
+    the split-TF32 kernels' readings and fail fp16's, so that an fp32 kernel
+    that lost precision to a single TF32 pass (fp16's mantissa) fails; each
+    fp32 row meets its fp16 twin, and its bound is at the TF32 rate, with
+    three times it beside it."""
+    e = dict(max_rel_err=errs[0], mean_rel_err=errs[1])
+    assert chip_smoke.within_limits(e, elem) is passes
+    rows = [dict(label="a", dtype="bf16"), dict(label="a_fp16", dtype="fp16"), dict(label="a_fp32", dtype="fp32"),
+            dict(label="b_fp32", dtype="fp32")]
+    assert chip_smoke.twin_of(rows[2], rows) is rows[1] and chip_smoke.twin_of(rows[3], rows) is None
+    assert set(chip_smoke.FP32_FWD_TWINS) <= set(chip_smoke.FP16_FWD_TWINS)
+    assert set(chip_smoke.FP32_BWD_TWINS) <= set(chip_smoke.FP16_BWD_TWINS)
+    bound = chip_smoke.row_bound(4.95e12, 1e6, "fp32")
+    assert bound["bound_by"] == "operations" and abs(bound["bound_ms"] - 10.0) < 1e-9
+    assert abs(bound["split_bound_ms"] - 30.0) < 1e-9 and chip_smoke.row_bound(9.89e12, 1e6, "bf16") == dict(
+        bound_ms=10.0, bound_by="operations", split_bound_ms=None)
+    assert chip_smoke.trace_elem_type("void (anonymous namespace)::flash_fp32_bwd_dkdv<64>(BwdParams)") == "fp32"
 
 
 @pytest.mark.parametrize("elem, errs, passes", [
@@ -121,6 +180,7 @@ def test_every_kernel_the_smoke_run_names_is_a_global_function():
     text = "\n".join(f.read_text() for f in sorted(csrc.glob("*.cu")))
     defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
     named = set(chip_smoke.FWD_KERNELS.values()) | {n for _, names in chip_smoke.BWD_DESIGNS.values() for n in names}
+    named |= {chip_smoke.FP32_FWD_KERNEL, *chip_smoke.FP32_BWD_DESIGN[1]} | {n for n, _ in chip_smoke.FP32_ENTRIES}
     assert named <= defined, named - defined
     assert not set(chip_smoke.RETIRED_BWD_KERNELS) & defined
 
@@ -221,19 +281,28 @@ def test_prep_phase_runs_at_tiny_size_on_the_cpu(prepped):
     assert prep["sky_mask_flipped"] == 0.0 and set(prep["cube_to_pano"]["ue"]) >= {"flipped", "panoramas"}
 
 
-def test_fp16_phase_runs_at_tiny_size_on_the_cpu(prepped, monkeypatch):
+@pytest.fixture(scope="module")
+def fp16_run(prepped):
+    """Phase 15 on `prepped`'s workdir at the tiny presets on the CPU, the
+    tiny configurations standing in for the full-width ones `validate`
+    checks against: (the workdir, phase 15's result)."""
+    import torch
+
+    from evoworld_tpu_torch import runtime
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(runtime.PRESETS, "full", runtime.PRESETS["tiny"])
+        return prepped[0], chip_smoke.full_fp16(torch.device("cpu"), 2, 0, prepped[0], overrides=PREP)
+
+
+def test_fp16_phase_runs_at_tiny_size_on_the_cpu(fp16_run):
     """Phase 15 on phases 11's and 14's files at the tiny presets, in fp16 on
     the CPU (where the kernels' plain versions run, so no launch is
     counted): the checkpoints halved and validated (the tiny configurations
     standing in for the full-width ones `validate` checks against), the
     single-segment clip, two training steps and reproject, each at
     `--runtime.compute_dtype=float16`."""
-    import torch
-
-    from evoworld_tpu_torch import runtime
-
-    monkeypatch.setitem(runtime.PRESETS, "full", runtime.PRESETS["tiny"])
-    result = chip_smoke.full_fp16(torch.device("cpu"), 2, 0, prepped[0], overrides=PREP)
+    result = fp16_run[1]
     conv = result["convert"]
     assert conv["exact"] and conv["validate_code"] == 0 and conv["bad_code"] == 1
     assert conv["validate_out"] == ["unet: OK", "vae: OK", "image_encoder: OK"]
@@ -242,4 +311,30 @@ def test_fp16_phase_runs_at_tiny_size_on_the_cpu(prepped, monkeypatch):
     assert result["single"]["pngs"]["predictions"] == (5, [(128, 64)])
     assert 0 < result["single"]["rms_from_bf16_clip"] < 1
     assert len(result["train"]["losses"]) == 2 and result["train"]["norm1_grad_abs_max"] > 0
+    assert result["reproject"]["renders"] == 10 and result["reproject"]["render_shape"] == [64, 128, 3]
+
+
+def test_fp32_phase_runs_at_tiny_size_on_the_cpu(fp16_run):
+    """Phase 16 on the files of phases 11, 14 and 15 (its `svd_fp32/`) at the
+    tiny presets, in fp32 on the CPU: the single-segment clip, two training
+    steps at the configuration's frames (no cut: the CPU does not run out of
+    memory) and reproject, each at `--runtime.compute_dtype=float32`, under
+    torch's default TF32 flags, which it restores after."""
+    import os
+
+    import torch
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    assert os.path.isdir(os.path.join(fp16_run[0], "svd_fp32", "unet"))
+    result = chip_smoke.full_fp32(torch.device("cpu"), 2, 0, fp16_run[0], overrides=PREP)
+    assert result["tf32"] == dict(matmul_allow_tf32=False, cudnn_allow_tf32=True)
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+    assert result["single"]["finite"] and result["single"]["launches"] == [0, 0]
+    assert result["single"]["pngs"]["predictions"] == (5, [(128, 64)])
+    # the rehearsal's phase 11 ran in fp32 on the CPU too, from the same
+    # weights: its clip and this one are the same computation
+    assert result["single"]["rms_from_bf16_clip"] == 0.0
+    train = result["train"]
+    assert len(train["losses"]) == 2 and train["norm1_grad_abs_max"] > 0
+    assert train["frames"] == 5 and train["cut"] == []
     assert result["reproject"]["renders"] == 10 and result["reproject"]["render_shape"] == [64, 128, 3]

@@ -142,19 +142,29 @@ def test_padded_head_dim_backward_equals_the_unpadded_plain_route(d):
 @pytest.mark.parametrize("build", ["build_pipeline", "build_trainer", "build_reconstructor"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 def test_build_refuses_non_bf16_on_cuda_before_anything(monkeypatch, build, dtype):
-    """The Hopper kernels take bf16 and fp16: a CUDA build in fp32 raises
-    ValueError before the device is resolved (so with no card: not the
-    missing-CUDA RuntimeError) and before any weight is drawn; fp16 and bf16
-    pass the check and meet the missing card, still before any weight."""
+    """The Hopper kernels take bf16, fp16 and fp32: a CUDA build in fp32 or
+    fp16 passes the dtype check and meets the missing card (the missing-CUDA
+    RuntimeError), before any weight is drawn, as bf16 does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for drawing in ("init_random_", "make_random_pipeline", "random_model"):
         monkeypatch.setattr(runtime, drawing, lambda *a, **kw: pytest.fail("weights drawn"))
-    if dtype == torch.float32:
-        with pytest.raises(ValueError, match="float32"):
-            getattr(runtime, build)(compute_dtype=dtype, device="cuda")
-    else:
-        runtime.check_compute_dtype("cuda", dtype)
-        with pytest.raises(RuntimeError, match="CUDA"):
-            getattr(runtime, build)(compute_dtype=dtype, device="cuda")
+    runtime.check_compute_dtype("cuda", dtype)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(runtime, build)(compute_dtype=dtype, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):  # bf16 passes the check and meets the missing card
         getattr(runtime, build)(compute_dtype=torch.bfloat16, device="cuda")
+
+
+@pytest.mark.parametrize("build", ["build_pipeline", "build_trainer", "build_reconstructor"])
+def test_build_refuses_float64_on_cuda_before_anything(monkeypatch, build):
+    """A dtype without kernels (float64) is refused by name, with ValueError,
+    before the device is resolved (so with no card: not the missing-CUDA
+    RuntimeError) and before any weight is drawn; the CPU takes it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for drawing in ("init_random_", "make_random_pipeline", "random_model"):
+        monkeypatch.setattr(runtime, drawing, lambda *a, **kw: pytest.fail("weights drawn"))
+    with pytest.raises(ValueError, match="float64"):
+        runtime.check_compute_dtype("cuda", torch.float64)
+    with pytest.raises(ValueError, match="float64"):
+        getattr(runtime, build)(compute_dtype=torch.float64, device="cuda")
+    runtime.check_compute_dtype("cpu", torch.float64)

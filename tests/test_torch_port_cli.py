@@ -117,11 +117,18 @@ def test_apply_overrides_matches_jax(argv):
 
 
 @pytest.mark.parametrize("cli", [run_single_segment, run_unified])
-def test_cli_refuses_non_bf16_on_cuda_before_reading(cli, tmp_path, capsys):
-    """fp32 on CUDA meets the runtime's refusal before any file is read (the
-    data root does not exist); `--help` prints the defaults and exits 0."""
-    with pytest.raises(ValueError, match="bfloat16"):
-        cli.main(["--runtime.compute_dtype=float32", f"--data.root={tmp_path / 'missing'}"], device="cuda")
+def test_cli_refuses_non_bf16_on_cuda_before_reading(cli, tmp_path, capsys, monkeypatch):
+    """Before any file is read (the data root does not exist): a compute
+    dtype the CLIs do not name (float64) is refused by name, and fp32 on
+    CUDA, which the card's kernels now take as they take bf16 and fp16,
+    passes the runtime's dtype check and meets the missing card; `--help`
+    prints the defaults and exits 0."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = f"--data.root={tmp_path / 'missing'}"
+    with pytest.raises(SystemExit, match="float64"):
+        cli.main(["--runtime.compute_dtype=float64", missing], device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--runtime.compute_dtype=float32", missing], device="cuda")
     with pytest.raises(SystemExit) as exit_info:
         cli.main(["--help"], device="cpu")
     assert exit_info.value.code == 0 and '"compute_dtype": "bfloat16"' in capsys.readouterr().out

@@ -1,7 +1,8 @@
 """`evoworld_tpu_torch/compare_kernels.py` off the card: its pairing of
 kernel entries across two builds by kernel, head dim and element type (an
 entry whose name carries no type is bf16, as before the type became a
-template parameter), and its reading of `cuobjdump -sass`."""
+template parameter, but the fp32 source's `flash_fp32_*` kernels, which are
+fp32), and its reading of `cuobjdump -sass`."""
 
 import os
 import stat
@@ -22,6 +23,13 @@ NS = "_ZN50_GLOBAL__N__5f87c45e_17_flash_attn_bwd_cu_ca4a9867"
      ("flash_bwd_wide_dq", None, "fp16")),
     (NS + "4wide17flash_bwd_wide_dvEv14CUtensorMap_stS1_S1_NS0_8WideArgsE", ("flash_bwd_wide_dv", None, "bf16")),
     ("_ZN12_GLOBAL__N_114flash_fwd_wideI13__nv_bfloat16EEvv", ("flash_fwd_wide", None, "bf16")),
+    # the fp32 source's kernels carry no type: fp32 by name, paired by kernel and head dim
+    ("_ZN51_GLOBAL__N__638dd51a_18_flash_attn_fp32_cu_a7cea31217flash_fp32_bwd_dqILi512EEEvNS_9BwdParamsE",
+     ("flash_fp32_bwd_dq", 512, "fp32")),
+    ("_ZN51_GLOBAL__N__638dd51a_18_flash_attn_fp32_cu_a7cea31220flash_fp32_bwd_deltaILi64EEEvNS_9BwdParamsEl",
+     ("flash_fp32_bwd_delta", 64, "fp32")),
+    ("_ZN51_GLOBAL__N__638dd51a_18_flash_attn_fp32_cu_a7cea31214flash_fp32_fwdILi128EEEvNS_9FwdParamsE",
+     ("flash_fp32_fwd", 128, "fp32")),
 ])
 def test_entry_key_pairs_the_same_kernel_across_builds(mangled, key):
     assert compare_kernels.entry_key(mangled) == key

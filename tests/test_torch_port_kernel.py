@@ -1,9 +1,12 @@
 """The port's Hopper flash-attention kernels (forward and backward) on the card.
 
 Held against `flash_attention_plain` and `flash_attention_backward_plain`
-(fp32 on the same bf16 or fp16 inputs: every test runs in both of the
+(fp32 on the same bf16, fp16 or fp32 inputs: every test runs in each of the
 kernels' element types, at the true head dim where the wrapper pads it) with the limits `chip_smoke.py` uses: the error over the RMS of the plain output at
-most 0.1 (max) and 0.01 (mean). Keys and values past `kv_len` are set so
+most 0.1 (max) and 0.01 (mean) in bf16 and fp16, and fp32's own limits,
+FP32_MAX_REL_ERR and FP32_MEAN_REL_ERR, for the split-TF32 kernels of
+`csrc/flash_attn_fp32.cu` (the plain version in full fp32: torch's default
+of no TF32 in matmuls). Keys and values past `kv_len` are set so
 large (K = 10, V = 100) that a missed mask would swamp the output. Every test
 carries the `cuda` marker and skips without a card. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -23,7 +26,12 @@ from evoworld_tpu_torch.ops.flash_attention import (
 )
 
 MAX_REL_ERR, MEAN_REL_ERR = 0.1, 0.01
-DTYPES = [pytest.param(torch.bfloat16, id="bf16"), pytest.param(torch.float16, id="fp16")]
+FP32_MAX_REL_ERR, FP32_MEAN_REL_ERR = 2e-4, 1e-5  # chip_smoke.py's
+FP32_LSE_ATOL = 1e-4  # chip_smoke.py's
+DTYPES = [pytest.param(torch.bfloat16, id="bf16"), pytest.param(torch.float16, id="fp16"),
+          pytest.param(torch.float32, id="fp32")]
+# The backward's kernels by element type, as named in a profiler trace.
+FP32_BWD = ("flash_fp32_bwd_delta", "flash_fp32_bwd_dkdv", "flash_fp32_bwd_dq")
 
 
 @pytest.fixture
@@ -37,6 +45,11 @@ def _rel_errors(out, ref):
     err = (out.float() - ref).abs()
     rms = ref.pow(2).mean().sqrt()
     return (err.max() / rms).item(), (err.mean() / rms).item()
+
+
+def _limits(dtype):
+    """(max, mean) error over the plain output's RMS that `dtype`'s kernels keep to."""
+    return (FP32_MAX_REL_ERR, FP32_MEAN_REL_ERR) if dtype == torch.float32 else (MAX_REL_ERR, MEAN_REL_ERR)
 
 
 @pytest.mark.cuda
@@ -76,7 +89,8 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, sq, skv, kv_len, h, d, use
     torch.cuda.synchronize()
     ref = flash_attention_plain(q.float(), k.float(), v.float(), kv_len=kv_len, use_exp2=use_exp2)
     max_rel, mean_rel = _rel_errors(out, ref)
-    assert max_rel <= MAX_REL_ERR and mean_rel <= MEAN_REL_ERR
+    max_lim, mean_lim = _limits(dtype)
+    assert max_rel <= max_lim and mean_rel <= mean_lim
 
 
 @pytest.mark.cuda
@@ -88,15 +102,19 @@ def test_kernel_reads_strided_views_and_rejects_bad_inputs(cuda, dtype, d):
     q, k, v = qkv.unbind(2)  # strided views of one packed tensor
     ref = flash_attention_plain(q.float(), k.float(), v.float())
     max_rel, mean_rel = _rel_errors(flash_attention(q, k, v), ref)
-    assert max_rel <= MAX_REL_ERR and mean_rel <= MEAN_REL_ERR
-    with pytest.raises(ValueError, match="bfloat16 or float16"):
-        flash_attention(q.float(), k.float(), v.float())  # fp32: the kernels take bf16 or fp16
-    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
+    max_lim, mean_lim = _limits(dtype)
+    assert max_rel <= max_lim and mean_rel <= mean_lim
     before = flash_attention.launches
+    with pytest.raises(ValueError, match="float64"):
+        flash_attention(q.double(), k.double(), v.double())  # the kernels take bf16, fp16 or fp32
+    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
     with pytest.raises(ValueError, match="one element type"):
         flash_attention(q, k.to(other), v)  # a mix of the two types is refused by name
     with pytest.raises(ValueError, match="one element type"):
         flash_attention_backward(q, k, v, q, q.to(other), torch.zeros((1, 4, 500), device=cuda), kv_len=500)
+    loose = torch.zeros((1, 64, 2, d + 2), device=cuda).to(dtype)[..., :d]  # rows not a whole 16 bytes apart
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention(loose, loose, loose)
     assert flash_attention.launches == before
     wide = torch.zeros((1, 64, 1, 520), device=cuda).to(dtype)
     with pytest.raises(ValueError):
@@ -155,7 +173,9 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, skv, kv_len, 
     With a single query dK and dV are one row of P times dO: their largest
     entries are many times their RMS, so there, beside the RMS-relative limits,
     each entry is allowed two bf16 steps of its own size (P and the output are
-    each rounded to bf16, 2^-8 of the value at most, on both sides).
+    each rounded to bf16, 2^-8 of the value at most, on both sides); in fp32,
+    whose kernels split each operand into two TF32 parts (about 21 bits),
+    2^-18 of its size.
     """
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn((b, h, sq, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
@@ -169,10 +189,12 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, skv, kv_len, 
     assert flash_attention_backward.launches == before + 1
     ref = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), do.float(), lse,
                                          kv_len=kv_len)
+    max_lim, mean_lim = _limits(dtype)
+    step = 2.0 ** -18 if dtype == torch.float32 else 2.0 ** -6
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         err, rms = (a.float() - r).abs(), r.pow(2).mean().sqrt()
-        assert bool((err <= MAX_REL_ERR * rms + (2.0 ** -6 * r.abs() if sq == 1 else 0.0)).all()), name
-        assert (err.mean() / rms).item() <= MEAN_REL_ERR, name
+        assert bool((err <= max_lim * rms + (step * r.abs() if sq == 1 else 0.0)).all()), name
+        assert (err.mean() / rms).item() <= mean_lim, name
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
 
 
@@ -195,14 +217,14 @@ def test_fused_backward_twice_repeats_on_card(cuda, dtype, d):
     reductions in no fixed order, which can move a sum across a bf16
     rounding boundary: one bf16 step (2^-7 of the value), beside 1e-4 of
     dQ's RMS for sums that nearly cancel; a dQ buffer that was not zeroed
-    would double dQ in the second call. The D = 512 sweeps sum nothing
-    across blocks, so there dQ repeats bit for bit too."""
+    would double dQ in the second call. The D = 512 sweeps and the fp32
+    kernels sum nothing across blocks, so there dQ repeats bit for bit too."""
     q, k, v, out, do, lse = _backward_inputs(cuda, dtype, 6, 2, 1000, 1100, 1041, 4, d)
     first = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     second = flash_attention_backward(q, k, v, out, do, lse, kv_len=1041)
     torch.cuda.synchronize()
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
-    if d == 512:
+    if d == 512 or dtype == torch.float32:
         assert torch.equal(first[0], second[0])
     dq = first[0].float()
     gap = (second[0].float() - dq).abs()
@@ -224,8 +246,13 @@ def test_backward_trace_names_its_design_on_card(cuda, dtype, d, design, others)
     """A profiler trace of one backward call holds its head dim's kernels and
     none of the other designs': the fused pass at D = 64 and 128, the three
     wgmma sweeps at D = 512, never the mma.sync pair they replaced. Every
-    flash kernel in it is the instantiation of the inputs' element type."""
+    flash kernel in it is the instantiation of the inputs' element type. In
+    fp32 the trace holds the three fp32 kernels at every head dim, and no
+    other flash kernel."""
     from torch.profiler import ProfilerActivity, profile
+
+    if dtype == torch.float32:
+        design, others = FP32_BWD, design + others
 
     q, k, v, out, do, lse = _backward_inputs(cuda, dtype, 7, 1, 300, 300, 300, 2, d)
     flash_attention_backward(q, k, v, out, do, lse)
@@ -237,8 +264,11 @@ def test_backward_trace_names_its_design_on_card(cuda, dtype, d, design, others)
     names = " ".join(keys)
     assert all(n in names for n in design), names
     assert not any(n in names for n in others), names
+    flash = [key for key in keys if "flash_" in key]
+    if dtype == torch.float32:
+        assert flash and all("flash_fp32_" in key for key in flash), flash
+        return
     want, other = ("__half", "__nv_bfloat16") if dtype == torch.float16 else ("__nv_bfloat16", "__half")
-    flash = [key for key in keys if "flash_bwd_" in key]
     assert flash and all(want in key and other not in key for key in flash), flash
 
 
@@ -247,12 +277,15 @@ def test_backward_trace_names_its_design_on_card(cuda, dtype, d, design, others)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_forward_kernel_log_sum_exp_on_card(cuda, dtype, use_exp2, d):
     """The row log-sum-exp of both forward kernels (flash_fwd_wide's at D = 512,
-    whose 200 queries end inside a 64-row block) against torch's, within 1e-3."""
+    whose 200 queries end inside a 64-row block) against torch's, within 1e-3;
+    the fp32 kernel's within FP32_LSE_ATOL (torch's own fp32 logsumexp sits
+    1.3e-5 from it at D = 512)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn((2, s, 2, d), generator=g, device=cuda).to(dtype) for s in (200, 300, 300))
     _, lse = flash_attention_forward(q, k, v, 0.125, 250, use_exp2, with_lse=True)
     want = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, :250].float()) * 0.125, dim=-1)
-    assert lse.shape == (2, 2, 200) and (lse - want).abs().max().item() < 1e-3
+    limit = FP32_LSE_ATOL if dtype == torch.float32 else 1e-3
+    assert lse.shape == (2, 2, 200) and (lse - want).abs().max().item() < limit
 
 
 @pytest.mark.cuda
