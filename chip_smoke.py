@@ -168,17 +168,20 @@ converter) adds:
      level-0 norm1's gradient nonzero), and `cli.reproject.main` on a fresh
      copy of phase 14's episode (24 launches, 24 finite renders that are not
      one value); seconds, peak memory.
-The fp32 slice (csrc/flash_attn_fp32.cu, split-TF32 mma.sync) adds:
+The fp32 slice (csrc/flash_attn_fp32.cu; split-TF32 mma.sync, then wgmma on a
+three-part bf16 split of each fp32 operand) adds:
   2. its source built beside the others (every entry of FP32_ENTRIES in
-     ptxas's report, no spill);
+     ptxas's report, no spill); `cuobjdump -sass` of the fp32 library shows
+     every entry of FP32_WGMMA_KERNELS holding HGMMA and no HMMA
+     (`fp32_sass_rows`, `check_fp32_sass`);
   3, 3b. the FP32_FWD_TWINS and FP32_BWD_TWINS rows again in fp32 on the same
      draws (labels with "_fp32"), against the plain version in fp32 with TF32
      off, under fp32's own limits (FP32_MAX_REL_ERR, FP32_MEAN_REL_ERR; the
      LSE within FP32_LSE_ATOL), which the dropped-keys version and the fp16
      twin's errors (every gradient's) must fail; dQ, dK and dV repeated bit
      for bit; the trace naming the fp32 kernels and no other; timed beside
-     the bound at the TF32 rate, three times it (a design of three TF32
-     products a product), the plain version and the library call;
+     the bound at the TF32 rate, three times it (six bf16 products a
+     product), the plain version and the library call;
   16. the fp32 path on the files of phases 11, 14 and 15 under torch's default
      TF32 flags (printed): at `--runtime.compute_dtype=float32`
      `cli.run_single_segment.main` from phase 15's `svd_fp32/` (5N + 18
@@ -224,15 +227,16 @@ MAX_REL_ERR, MEAN_REL_ERR = 0.1, 0.01
 # HBM3, 700.00 W; PERF.md). An fp16 kernel that rounded anything to bf16
 # would read bf16's mean, which each fp16 row checks its twin's errors fail.
 FP16_MAX_REL_ERR, FP16_MEAN_REL_ERR = 0.02, 0.0006
-# The same for the fp32 rows (csrc/flash_attn_fp32.cu, each product a
-# split-TF32 mma.sync, against the plain version in fp32 with TF32 off).
-# Each fp32 row checks that its fp16 twin's errors fail them, so that an fp32
-# kernel that lost precision to a single TF32 pass (fp16's 10 mantissa bits)
-# fails.
-# Readings: 1.6e-5-9.3e-5 max and 8.8e-7-1.65e-6 mean over every fp32 row
+# The same for the fp32 rows (csrc/flash_attn_fp32.cu: each product six bf16
+# wgmma products over a three-part split of each operand; against the plain
+# version in fp32 with TF32 off). Each fp32 row checks that its fp16 twin's
+# errors fail them, so that an fp32 kernel that lost precision to a single
+# TF32 pass (fp16's 10 mantissa bits) or to a bf16 one fails.
+# Readings: 1.2e-5-5.4e-5 max and 4.9e-7-1.6e-6 mean over every fp32 row
 # (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), part of it the plain version's
-# own fp32 rounding; the max limit sits at twice the worst reading, and fp16
-# twins (2.2e-3-9.8e-3 / 2.1e-4-2.3e-4) fail both limits ten times over.
+# own fp32 rounding; the max limit sits at twice the worst reading of the
+# split-TF32 kernels these replaced (9.3e-5), and fp16 twins (2.2e-3-9.8e-3
+# / 2.1e-4-2.3e-4) fail both limits ten times over.
 FP32_MAX_REL_ERR, FP32_MEAN_REL_ERR = 2e-4, 1e-5
 DROPPED_KEYS = 32
 # Forward kernel's row log-sum-exp against the plain one (about 9.6 for 9216
@@ -274,9 +278,13 @@ RETIRED_BWD_KERNELS = ("flash_bwd_dkdv", "flash_bwd_dq")
 # The fp32 kernels (csrc/flash_attn_fp32.cu), one design at every head dim,
 # and the entries phase 2 must find in ptxas's report of that source.
 FP32_FWD_KERNEL = "flash_fp32_fwd"
-FP32_BWD_DESIGN = ("split-TF32 mma.sync: delta, a dK/dV sweep over query tiles, a dQ sweep over key tiles",
+FP32_BWD_DESIGN = ("wgmma on a three-part bf16 split: delta, a dK/dV sweep over query tiles (dV and dK from "
+                   "separate blocks at D = 512), a dQ sweep over key tiles",
                    ("flash_fp32_bwd_delta", "flash_fp32_bwd_dkdv", "flash_fp32_bwd_dq"))
 FP32_ENTRIES = tuple((name, d) for name in (FP32_FWD_KERNEL, *FP32_BWD_DESIGN[1]) for d in (64, 128, 512))
+# The fp32 kernels redesigned on wgmma: phase 2 holds every entry of each to
+# HGMMA instructions and no HMMA (mma.sync) in the library's SASS.
+FP32_WGMMA_KERNELS = (FP32_FWD_KERNEL, "flash_fp32_bwd_dkdv", "flash_fp32_bwd_dq")
 # Every kernel a backward call may launch, or once did: a row's trace must
 # hold its design's kernels and none of the others.
 BWD_KERNELS = tuple(sorted({n for _, names in BWD_DESIGNS.values() for n in names} | set(RETIRED_BWD_KERNELS)
@@ -309,15 +317,17 @@ PTXAS_TYPE_NAMES = {"bf16": "13__nv_bfloat16", "fp16": "6__half"}
 # kernels at the same tensor-core rate; a serialized wgmma or another
 # schedule would cost more).
 FP16_FWD_TWINS = ("unet_l0_spatial", "unet_l0_train_lse", "vae_encoder_mid", "vae_encoder_mid_train",
-                  "vae_decoder_mid", "ragged_padded_kv", "ragged_padded_kv_exp2", "vggt_global_49", "vggt_global_73")
+                  "vae_decoder_mid", "ragged_padded_kv", "ragged_padded_kv_exp2", "vggt_global_49", "vggt_global_73",
+                  "head_dim_128_fwd")
 FP16_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padded_kv", "ragged_d128", "ragged_d512")
 TWIN_MS_RATIO = 1.10
 # The rows repeated in fp32 (labels with "_fp32", right after the fp16 twin
 # on the same values): the main path's shapes, under fp32's own limits, which
 # their fp16 twin's errors must fail. Their bound is the TF32 rate's; a
-# design of three TF32 products a product cannot beat three times it.
+# design of six bf16 products a product at twice that rate (as long as three
+# TF32 products) cannot beat three times it.
 FP32_FWD_TWINS = ("unet_l0_spatial", "unet_l0_train_lse", "vae_encoder_mid", "vae_encoder_mid_train",
-                  "vae_decoder_mid", "ragged_padded_kv", "ragged_padded_kv_exp2", "vggt_global_73")
+                  "vae_decoder_mid", "ragged_padded_kv", "ragged_padded_kv_exp2", "vggt_global_73", "head_dim_128_fwd")
 FP32_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padded_kv", "ragged_d128", "ragged_d512")
 # JPEGs with PIL's decode of each stored beside it as a PNG
 # (tests/torch_port_data/make_jpeg_fixtures.py).
@@ -407,7 +417,8 @@ def lse_limit(elem: str) -> float:
 def row_bound(flops: float, nbytes: float, elem: str) -> dict:
     """A row's bound: flops over the tensor cores' dense rate for its type
     (TF32's for fp32), bytes over HBM's; fp32 rows also get three times the
-    operations' time, what a design of three TF32 products a product needs."""
+    operations' time, what six bf16 products a product (three TF32 ones'
+    tensor-core time) need."""
     ops_ms = flops / (PEAK_TF32_FLOPS if elem == "fp32" else PEAK_BF16_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -462,6 +473,8 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         ("vggt_global_73", 1, 75993, 75993, 16, 64, 75993, False, False),
         # a head dim without a kernel (the tiny presets' 16), zero-padded to 64
         ("padded_d16", 2, 9216, 9216, 2, 16, 9216, False, False),
+        # head dim 128 at the backward's D = 128 row's shape
+        ("head_dim_128_fwd", 2, 9216, 9216, 2, 128, 9216, False, False),
     ]
     shapes = []
     for i, (label, b, sq, skv, h, d, kv_len, use_exp2, with_lse), elem in twin_runs(cases, FP16_FWD_TWINS,
@@ -831,6 +844,33 @@ def fp32_entries(entries: list[dict]) -> list[dict]:
         row = next((r for r in entries if f"{len(name)}{name}ILi{d}E" in r["entry"]), {})
         rows.append(dict(kernel=name, d=d, registers=row.get("registers")))
     return rows
+
+
+def fp32_sass_rows(sass: dict) -> list[dict]:
+    """Each entry of FP32_ENTRIES with the count of its HGMMA (wgmma) and
+    HMMA (mma.sync) instructions, from `compare_kernels.sass_entries` of the
+    fp32 library ({(kernel, head dim, "fp32"): SASS lines}); None where the
+    dump lacks the entry."""
+    from evoworld_tpu_torch.compare_kernels import opcode
+
+    rows = []
+    for name, d in FP32_ENTRIES:
+        lines = sass.get((name, d, "fp32"))
+        ops = [opcode(line).split(".")[0] for line in lines] if lines is not None else None
+        rows.append(dict(kernel=name, d=d, hgmma=ops.count("HGMMA") if ops is not None else None,
+                         hmma=ops.count("HMMA") if ops is not None else None,
+                         wgmma_design=name in FP32_WGMMA_KERNELS))
+    return rows
+
+
+def check_fp32_sass(rows: list[dict]) -> None:
+    """Phase 2: every entry of FP32_WGMMA_KERNELS holds HGMMA and no HMMA
+    (the redesign is what was built), each row logged first."""
+    for row in rows:
+        log("sass fp32 entry " + json.dumps(row))
+    bad = [r for r in rows if r["wgmma_design"] and not (r["hgmma"] and r["hmma"] == 0)]
+    if bad:
+        raise AssertionError(f"an fp32 wgmma kernel's SASS lacks HGMMA or holds HMMA: {bad}")
 
 
 def check_ptxas(source: str, entries: list[dict], fp32: bool = False) -> None:
@@ -2733,6 +2773,11 @@ def main() -> int:
     log(f"nvcc build of {SOURCE}, {BWD_SOURCE} and {FP32_SOURCE}, g++ build of {native_io.SOURCE}: {build_s:.3f} s")
     for source in (SOURCE, BWD_SOURCE, FP32_SOURCE):
         check_ptxas(source, ptxas_report(_build.build_log(source)), fp32=source == FP32_SOURCE)
+    from evoworld_tpu_torch.compare_kernels import sass_entries
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    fp32_sass = fp32_sass_rows(sass_entries(str(_build._lib_path(FP32_SOURCE)), cuobjdump))
+    check_fp32_sass(fp32_sass)
 
     check_jpeg_fixtures()
 
@@ -2869,6 +2914,7 @@ def main() -> int:
         **{k: fwd32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "split_bound_ms")},
         "timed_at": fwd32["shape"],
         "design": FP32_FWD_KERNEL,
+        "sass": [r for r in fp32_sass if r["kernel"] == FP32_FWD_KERNEL],
         "dtypes": ["fp32"],
         "rows": [{k: r[k] for k in fp32_keys} for r in flash["shapes"] if r["dtype"] == "fp32"],
         "ok": True,
@@ -2886,6 +2932,7 @@ def main() -> int:
                                  "kernel_ms")},
         "timed_at": bwd32["shape"],
         "design": FP32_BWD_DESIGN[0],
+        "sass": [r for r in fp32_sass if r["kernel"] in FP32_BWD_DESIGN[1]],
         "dtypes": ["fp32"],
         "rows": [{k: r[k] for k in ("label", "shape", "ms", "twin_ms", "twin_ratio", "plain_ms", "bound_ms",
                                      "split_bound_ms", "library_ms", "max_abs_err", "kernel_ms", "repeat")}

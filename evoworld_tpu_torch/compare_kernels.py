@@ -1,9 +1,9 @@
 """Compare this checkout's flash kernels with another checkout's on one card.
 
     python -m evoworld_tpu_torch.compare_kernels --other <root of another checkout> \\
-        [--parts sass,bf16_ab,twins,vggt,power] [--out chiprun_out/compare_kernels.json]
+        [--parts sass,bf16_ab,fp32_ab,twins,vggt,power] [--out chiprun_out/compare_kernels.json]
 
-Five parts (all by default), each printed as one JSON line and all written
+Six parts (all by default), each printed as one JSON line and all written
 to `--out`:
 
 1. `sass`: both checkouts build their kernel libraries (each with its own
@@ -19,15 +19,18 @@ to `--out`:
    have no twin).
 2. `bf16_ab`: each checkout times the bf16 rows of ROWS in a process of its
    own, in the order other, this, this, other, by CUDA events.
-3. `twins`: in this checkout, each row in bf16 and fp16 interleaved (bf16,
+3. `fp32_ab`: the same for the fp32 rows of ROWS (`csrc/flash_attn_fp32.cu`
+   where a checkout has it), so that an fp32 kernel's before and after come
+   from one card in one run.
+4. `twins`: in this checkout, each row in bf16 and fp16 interleaved (bf16,
    fp16, fp16, bf16), by CUDA events around the whole call and by the
    profiler's device time of the `flash_` kernels, and the ratios of the two
    types by each.
-4. `vggt`: VGGT-1B with random weights (seed 0) on 73 random crops of
+5. `vggt`: VGGT-1B with random weights (seed 0) on 73 random crops of
    384 x 512 (`cli/reproject.py` on a 97-frame episode), in bf16 and fp16 in
    one process, in both orders: each type's first call and the mean of the
    three calls after it.
-5. `power`: in this checkout, each of POWER_ROWS called back to back for
+6. `power`: in this checkout, each of POWER_ROWS called back to back for
    POWER_S seconds a type (bf16, fp16, fp16, bf16) while `nvidia-smi`
    samples the card's power draw and SM clock every 100 ms: the means of
    both after the first POWER_SETTLE_S seconds, beside the ms a call.
@@ -62,11 +65,13 @@ ROWS = (
     ("vae_encoder_mid_train", "fwd", 8, 9216, 9216, 1, 512, 9216, False),
     ("vae_decoder_mid", "fwd", 5, 9216, 9216, 1, 512, 9216, False),
     ("unet_l0_train", "bwd", 25, 9216, 9216, 5, 64, 9216, True),
+    ("head_dim_128_fwd", "fwd", 2, 9216, 9216, 2, 128, 9216, False),
     ("head_dim_128", "bwd", 2, 9216, 9216, 2, 128, 9216, True),
     ("vae_mid_d512", "bwd", 8, 9216, 9216, 1, 512, 9216, True),
 )
-PARTS = ("sass", "bf16_ab", "twins", "vggt", "power")
-DTYPES = {"bf16": "bfloat16", "fp16": "float16"}
+PARTS = ("sass", "bf16_ab", "fp32_ab", "twins", "vggt", "power")
+AB_PARTS = {"bf16_ab": "bf16", "fp32_ab": "fp32"}  # the parts that time both checkouts, and their type
+DTYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
 POWER_ROWS = ("unet_l0_train", "vae_mid_d512", "vggt_global_49", "unet_l0_spatial")
 POWER_S, POWER_SETTLE_S = 4.0, 1.0
 FILL_MS = 200.0  # each timing repeats a call until about this much device time has passed
@@ -150,12 +155,12 @@ def worker(mode: str) -> dict:
         with ThreadPoolExecutor(len(sources)) as pool:
             list(pool.map(_build.load, sources))
         return dict(nvcc=_build._nvcc(), libs={s: str(_build._lib_path(s)) for s in sources})
-    if mode == "bf16":
-        return {label: time_row(row, torch.bfloat16)[0] for label, *row in ROWS}
+    if mode in AB_PARTS.values():
+        return {label: time_row(row, getattr(torch, DTYPES[mode]))[0] for label, *row in ROWS}
     if mode == "twins":
         out = {}
         for label, *row in ROWS:
-            reads = {t: [] for t in DTYPES}
+            reads = {t: [] for t in ("bf16", "fp16")}
             for t in ("bf16", "fp16", "fp16", "bf16"):
                 reads[t].append(time_row(row, getattr(torch, DTYPES[t]), trace=True))
             mean = {t: [sum(r[i] for r in v) / len(v) for i in (0, 1)] for t, v in reads.items()}
@@ -292,6 +297,19 @@ def time_vggt(order: list[str]) -> dict:
     return out
 
 
+def ab_times(runs: list[tuple[str, dict]], other: str) -> dict:
+    """{label: other's and this checkout's ms, and the ratio of their sums} from
+    the (root, {label: ms}) runs of an A B B A part; a row that a checkout
+    does not time (an older checkout lacks it) gets no ratio."""
+    out = {}
+    for label, *_ in ROWS:
+        mine = [r[label] for root, r in runs if root != other and label in r]
+        theirs = [r[label] for root, r in runs if root == other and label in r]
+        out[label] = dict(other_ms=theirs, this_ms=mine,
+                          ratio=sum(mine) / sum(theirs) if mine and theirs else None)
+    return out
+
+
 def run_worker(root: str, mode: str) -> dict:
     """`worker(mode)` in a new process that imports the package of the checkout at `root`."""
     done = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", mode, "--root", root],
@@ -303,7 +321,7 @@ def run_worker(root: str, mode: str) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", help="root of the checkout to compare with (parts sass and bf16_ab)")
+    ap.add_argument("--other", help="root of the checkout to compare with (parts sass, bf16_ab and fp32_ab)")
     ap.add_argument("--parts", default=",".join(PARTS))
     ap.add_argument("--out", default="chiprun_out/compare_kernels.json")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
@@ -317,8 +335,8 @@ def main(argv: list[str] | None = None) -> int:
     if set(parts) - set(PARTS):
         ap.error(f"unknown parts {sorted(set(parts) - set(PARTS))}; known: {','.join(PARTS)}")
     other = os.path.abspath(args.other) if args.other else None
-    if other is None and {"sass", "bf16_ab"} & set(parts):
-        ap.error("parts sass and bf16_ab need --other")
+    if other is None and {"sass", *AB_PARTS} & set(parts):
+        ap.error("parts sass, bf16_ab and fp32_ab need --other")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=False).stdout.strip()
     result = {"device": smi}
@@ -327,16 +345,10 @@ def main(argv: list[str] | None = None) -> int:
         result["sass"] = compare_sass(other)
         print(json.dumps({"sass": {k: v for k, v in result["sass"].items() if k != "entries"}}), flush=True)
         print(json.dumps({"sass_entries": result["sass"]["entries"]}), flush=True)
-    if "bf16_ab" in parts:
-        runs = [(root, run_worker(root, "bf16")) for root in (other, HERE, HERE, other)]
-        result["bf16_ab"] = {
-            label: dict(other_ms=[r[label] for root, r in runs if root == other],
-                        this_ms=[r[label] for root, r in runs if root == HERE],
-                        ratio=sum(r[label] for root, r in runs if root == HERE)
-                        / sum(r[label] for root, r in runs if root == other))
-            for label, *_ in ROWS
-        }
-        print(json.dumps({"bf16_ab": result["bf16_ab"]}), flush=True)
+    for part, elem in AB_PARTS.items():
+        if part in parts:
+            result[part] = ab_times([(root, run_worker(root, elem)) for root in (other, HERE, HERE, other)], other)
+            print(json.dumps({part: result[part]}), flush=True)
     if "twins" in parts:
         result["twins"] = run_worker(HERE, "twins")
         print(json.dumps({"twins": {k: {m: v[m] for m in ("events_ms", "trace_ms", "events_ratio", "trace_ratio")}

@@ -52,18 +52,26 @@ tokens, with one exp2 per score beside them. Which head dim takes which kernel:
     repeat bit for bit.
 fp32 has a design of its own, `csrc/flash_attn_fp32.cu` with its own C entry
 points: wgmma takes fp32 only as one TF32 pass (10 mantissa bits, fp16's
-width) with both shared operands K-major, so every product there is an
-mma.sync m16n8k8 TF32 product with each operand split into two TF32 parts
-(three products a k-step, fp32 sums, within ~1e-6 of full fp32), warps of 16
-rows, cp.async tiles in two stages:
-  - forward `flash_fp32_fwd` (64 queries a block; at D = 512 32 queries, D
-    split across 4 warps that swap partial scores, as `flash_fwd_wide` splits
-    it), writing the log-sum-exp when asked;
+width) with both shared operands K-major, so every fp32 operand is split
+into three bf16 planes (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+mid)) and each product is six bf16 wgmma products (lo*hi, hi*lo, mid*mid,
+mid*hi, hi*mid, hi*hi, fp32 sums; about 24 bits of each operand kept), the
+other operand read MN-major through the transpose bit where a product needs
+it. A splitter warpgroup copies fp32 chunks of 64 x 64 and writes each
+element's planes once into shared memory; two consumer warpgroups run the
+products and split P and dS in their registers; each tile's product with P
+or dS starts from zero and is added into its sum on the CUDA cores:
+  - forward `flash_fp32_fwd` (128 queries a block with Q resident at D = 64
+    and 128; at D = 512 64 queries, the consumers splitting D and swapping
+    partial scores, as `flash_fwd_wide` splits it), writing the
+    log-sum-exp when asked;
   - backward `flash_fp32_bwd_delta`, then `flash_fp32_bwd_dkdv` (a block per
-    key tile, query tiles streamed) and `flash_fp32_bwd_dq` (a block per
-    query tile, key tiles streamed), D split across warps at 512 as in the
-    forward: no sums across blocks and no atomics, so dQ, dK and dV repeat
-    bit for bit.
+    key tile, query tiles streamed; at D = 512 dV and dK from separate
+    blocks) and `flash_fp32_bwd_dq` (a block per query tile, key tiles
+    streamed), D split across the consumers at 128 and 512: no sums across
+    blocks and no atomics, so dQ, dK and dV repeat bit for bit.
+`flash_attention_split_plain` computes the forward the way the fp32 kernel
+does, for the tests.
 Other head dims are zero-padded along D up to the smallest kernel head dim
 that holds them (`kernel_head_dim`: 64, 128 or 512, in both directions) and
 the output is sliced back; the scale stays that of the true D. Zero columns
@@ -139,6 +147,79 @@ def flash_attention_plain(
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     kv_len = k.shape[1] if kv_len is None else kv_len
     return _plain_forward(q, k, v, scale, kv_len, use_exp2)[0]
+
+
+# The fp32 forward's six bf16 products of a split pair a b, small first:
+# (plane of a, plane of b), planes 0 hi, 1 mid, 2 lo (csrc/flash_attn_fp32.cu,
+# `part_a` / `part_b`).
+_SPLIT_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+_SPLIT_CHUNK = 64  # columns of a chunk of the kernel's contraction, and keys a tile
+
+
+def _split_planes(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), as fp32:
+    the first `parts` of them, each rounded to nearest even, each
+    subtraction exact in fp32."""
+    planes = []
+    for _ in range(parts):
+        plane = x.to(torch.bfloat16).float()
+        planes.append(plane)
+        x = x - plane
+    return planes
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor, parts: int) -> torch.Tensor:
+    """a @ b as the fp32 sum of the products of `_SPLIT_PRODUCTS` between the
+    `parts`-plane splits of a and b (parts = 1: one bf16 product), in order."""
+    pa, pb = _split_planes(a, parts), _split_planes(b, parts)
+    out = None
+    for i, j in _SPLIT_PRODUCTS:
+        if i < parts and j < parts:
+            term = torch.matmul(pa[i], pb[j])
+            out = term if out is None else out + term
+    return out
+
+
+def flash_attention_split_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float | None = None,
+    kv_len: int | None = None,
+    parts: int = 3,
+) -> torch.Tensor:
+    """fp32 attention computed the way `flash_fp32_fwd` computes it; for the
+    tests (no path calls it).
+
+    Every operand of the two products (Q, K, P, V) is split into `parts`
+    bf16 planes (`_split_planes`: 3 in the kernel; 1 is plain bf16) and each
+    product is summed from the plane products of `_SPLIT_PRODUCTS`. S is
+    summed over 64-column chunks, each chunk's products from zero; the online
+    softmax runs in the exp2 domain over 64-key tiles; each tile's P V starts
+    from zero and is added into O. Keys at or past `kv_len` are left out.
+    Returns (B, Sq, H, D) fp32.
+    """
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    qf, kf, vf = (t.transpose(1, 2).float() for t in (q, k[:, :kv_len], v[:, :kv_len]))  # (B, H, S, D)
+    m = torch.full((*qf.shape[:3], 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    for j in range(0, kv_len, _SPLIT_CHUNK):
+        kt, vt = kf[:, :, j:j + _SPLIT_CHUNK], vf[:, :, j:j + _SPLIT_CHUNK]
+        s = None
+        for c in range(0, d, _SPLIT_CHUNK):
+            part = _split_matmul(qf[..., c:c + _SPLIT_CHUNK], kt[..., c:c + _SPLIT_CHUNK].transpose(-1, -2), parts)
+            s = part if s is None else s + part
+        s = s * (scale * _LOG2_E)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        m = m_new
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + _split_matmul(p, vt, parts)
+    return (o / l).transpose(1, 2)
 
 
 def flash_attention_backward_plain(

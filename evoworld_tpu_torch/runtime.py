@@ -75,7 +75,8 @@ VGGT_PRESETS = {
 
 
 #: Compute dtypes the card's flash-attention kernels take: bf16 and fp16
-#: (one wgmma design templated over the type) and fp32 (split-TF32 mma.sync).
+#: (one wgmma design templated over the type) and fp32 (wgmma on a three-part
+#: bf16 split of each operand).
 CUDA_COMPUTE_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 

@@ -129,6 +129,47 @@ def test_ptxas_check_exempts_fp32_entries_from_twins_and_fails_a_missing_one():
     chip_smoke.check_ptxas("flash_attn_fwd.cu", chip_smoke.ptxas_report(paired))  # both types: passes
 
 
+WGMMA_SASS = ["SYNCS.ARRIVE.TRANS64", "HGMMA.64x64x16.F32.BF16", "WARPGROUP.DEPBAR.LE", "FADD"]
+
+
+def _fp32_sass(changed: dict) -> dict:
+    """A `compare_kernels.sass_entries` result for the fp32 library, lines
+    shaped like cuobjdump's: the entries of FP32_WGMMA_KERNELS with wgmma's
+    HGMMA, flash_fp32_bwd_delta with no tensor-core instruction, and the
+    (kernel, D) entries of `changed` with the opcodes given there."""
+    def lines(ops):
+        return [f"/*{16 * i:04x}*/  {op} R0, R2, R4 ;" for i, op in enumerate(ops)]
+    sass = {(name, d, "fp32"): lines(WGMMA_SASS if name in chip_smoke.FP32_WGMMA_KERNELS else ["FFMA", "SHFL.BFLY"])
+            for name, d in chip_smoke.FP32_ENTRIES}
+    sass.update({(name, d, "fp32"): lines(ops) for (name, d), ops in changed.items()})
+    return sass
+
+
+def test_fp32_sass_check_holds_the_wgmma_kernels_to_hgmma_alone():
+    """Phase 2 reads the fp32 library's SASS: every entry of
+    FP32_WGMMA_KERNELS (the forward, dK/dV and dQ at every D) must hold HGMMA
+    and no HMMA; flash_fp32_bwd_delta is counted and not held to it. An
+    entry with an mma.sync (HMMA) left, or with no HGMMA, or missing from the
+    dump, fails naming it."""
+    assert set(chip_smoke.FP32_WGMMA_KERNELS) == {"flash_fp32_fwd", "flash_fp32_bwd_dkdv", "flash_fp32_bwd_dq"}
+    good = chip_smoke.fp32_sass_rows(_fp32_sass({}))
+    assert len(good) == len(chip_smoke.FP32_ENTRIES) == 12
+    fwd = {r["d"]: r for r in good if r["kernel"] == chip_smoke.FP32_FWD_KERNEL}
+    assert fwd[512] == dict(kernel="flash_fp32_fwd", d=512, hgmma=1, hmma=0, wgmma_design=True)
+    delta = next(r for r in good if r["kernel"] == "flash_fp32_bwd_delta" and r["d"] == 64)
+    assert (delta["hgmma"], delta["hmma"], delta["wgmma_design"]) == (0, 0, False)
+    chip_smoke.check_fp32_sass(good)
+    for bad in ({("flash_fp32_fwd", 128): WGMMA_SASS + ["HMMA.1688.F32.TF32"]},
+                {("flash_fp32_bwd_dq", 512): ["LDS.128", "HMMA.1688.F32.TF32", "FADD"]},
+                {("flash_fp32_bwd_dkdv", 64): ["FADD"]}):
+        with pytest.raises(AssertionError, match="lacks HGMMA or holds HMMA"):
+            chip_smoke.check_fp32_sass(chip_smoke.fp32_sass_rows(_fp32_sass(bad)))
+    missing = _fp32_sass({})
+    del missing[(chip_smoke.FP32_FWD_KERNEL, 64, "fp32")]
+    with pytest.raises(AssertionError, match="'d': 64"):
+        chip_smoke.check_fp32_sass(chip_smoke.fp32_sass_rows(missing))
+
+
 @pytest.mark.parametrize("elem, errs, passes", [
     ("fp32", (9.8e-5, 1.6e-6), True),    # the worst fp32 reading (the VAE mid D = 512 dK)
     ("fp32", (0.0022, 0.00021), False),  # the best fp16 twin's reading: one TF32 pass in an fp32 kernel
@@ -137,7 +178,7 @@ def test_ptxas_check_exempts_fp32_entries_from_twins_and_fails_a_missing_one():
 ])
 def test_fp32_rows_have_limits_of_their_own(elem, errs, passes):
     """fp32 rows are held to FP32_MAX_REL_ERR / FP32_MEAN_REL_ERR, which pass
-    the split-TF32 kernels' readings and fail fp16's, so that an fp32 kernel
+    the fp32 kernels' readings and fail fp16's, so that an fp32 kernel
     that lost precision to a single TF32 pass (fp16's mantissa) fails; each
     fp32 row meets its fp16 twin, and its bound is at the TF32 rate, with
     three times it beside it."""

@@ -74,8 +74,25 @@ def test_twin_diff_counts_lines_by_the_opcodes_that_differ():
 
 
 def test_main_refuses_unknown_parts_and_a_missing_other(capsys):
-    for argv in (["--parts", "sass,speed"], ["--parts", "bf16_ab"]):
+    for argv in (["--parts", "sass,speed"], ["--parts", "bf16_ab"], ["--parts", "fp32_ab"]):
         with pytest.raises(SystemExit) as exit_info:
             compare_kernels.main(argv)
         assert exit_info.value.code == 2
     assert "need --other" in capsys.readouterr().err
+
+
+def test_ab_times_pair_each_row_of_the_two_checkouts():
+    """`fp32_ab` (and `bf16_ab`) time each checkout twice, other, this, this,
+    other: each row gets both checkouts' reads in that order and the ratio of
+    their sums; a row the other checkout does not time gets no ratio."""
+    label, second = compare_kernels.ROWS[0][0], compare_kernels.ROWS[1][0]
+    assert ("head_dim_128_fwd", "fwd") == next(r[:2] for r in compare_kernels.ROWS if r[0] == "head_dim_128_fwd")
+    assert compare_kernels.AB_PARTS == {"bf16_ab": "bf16", "fp32_ab": "fp32"}
+    assert compare_kernels.DTYPES["fp32"] == "float32"
+    other, here = "/other", compare_kernels.HERE
+    runs = [(other, {label: 4.0}), (here, {label: 2.0, second: 1.0}), (here, {label: 2.2, second: 1.0}),
+            (other, {label: 4.2})]
+    times = compare_kernels.ab_times(runs, other)
+    assert times[label] == dict(other_ms=[4.0, 4.2], this_ms=[2.0, 2.2], ratio=4.2 / 8.2)
+    assert times[second] == dict(other_ms=[], this_ms=[1.0, 1.0], ratio=None)
+    assert set(times) == {r[0] for r in compare_kernels.ROWS}

@@ -4,8 +4,9 @@ Held against `flash_attention_plain` and `flash_attention_backward_plain`
 (fp32 on the same bf16, fp16 or fp32 inputs: every test runs in each of the
 kernels' element types, at the true head dim where the wrapper pads it) with the limits `chip_smoke.py` uses: the error over the RMS of the plain output at
 most 0.1 (max) and 0.01 (mean) in bf16 and fp16, and fp32's own limits,
-FP32_MAX_REL_ERR and FP32_MEAN_REL_ERR, for the split-TF32 kernels of
-`csrc/flash_attn_fp32.cu` (the plain version in full fp32: torch's default
+FP32_MAX_REL_ERR and FP32_MEAN_REL_ERR, for the kernels of
+`csrc/flash_attn_fp32.cu` (six bf16 wgmma products over a three-part split
+of each fp32 operand; the plain version in full fp32: torch's default
 of no TF32 in matmuls). Keys and values past `kv_len` are set so
 large (K = 10, V = 100) that a missed mask would swamp the output. Every test
 carries the `cuda` marker and skips without a card. The file imports no JAX,
