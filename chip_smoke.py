@@ -192,6 +192,33 @@ three-part bf16 split of each fp32 operand) adds:
      `cli.reproject.main` on a fresh copy of phase 14's episode (24
      launches); seconds, peak memory. The kernels line gets an entry for the
      fp32 forward and one for the fp32 backward, their launches phase 16's.
+The tools and multi-GPU slice (validate_parity, the PLY / OBJ export, the
+mesh routes, the sharded clip, VGGT, render and loop) adds:
+  10. phase 10 keeps its first rebuild's confidence-filtered cloud (25 frames
+     of VGGT-1B points and colours) on the host for phase 17, and its first
+     segment for phase 18;
+  17. `cli.validate_parity.main` at full width on phase 11's checkpoint
+     directories, model.pt and episode (N = STEPS, `--parity.dry_run`):
+     against phase 11's own single-segment frames the gate must pass, against
+     them perturbed it must exit with code 1 (the JAX CLI's), each run 5N + 18
+     launches; then phase 10's cloud written as PLY and OBJ by
+     `memory/export.py` in one process, seconds and bytes;
+  18. the multi-GPU serving path on the one card, W ranks spawned by
+     `parallel/launch.py` sharing cuda:0 over gloo: VGGT's 51,009-token global
+     attention in bf16 on the head-sharded route at W = 2 and the ring at
+     W = 3, each rank within the bf16 limits of the plain fp32 version and
+     its launches counted (1, and W ring blocks); the composed loop gate at
+     W = 2 against the same episode on one rank in this process (fp32),
+     teacher-forced at the memory, with the free-running differences and a
+     reading of their cause (`memory_flip_reading`; the one-rank episode
+     fed its own memory with only the flipped pixels taken from the ranks'
+     must pass the gate); a full-width episode at W = 2 (`LoopConfig()`,
+     VGGT-1B, N = STEPS), finite, the ranks' outputs equal, its first
+     segment held to phase 10's by the gate's rule (and the same frames
+     rolled by a decode chunk must fail it), each rank's launches
+     `sharded_clip_launches` a clip and 24 a rebuild (steps, then segments,
+     cut where two ranks run the card out of memory, and the cut
+     reported). Two ranks on one card measure nothing of multi-GPU speed.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card, so that both sides hold the same weights.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -1385,6 +1412,7 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
     from evoworld_tpu_torch.loop.navigator import Navigator
     from evoworld_tpu_torch.loop.unified import LoopConfig, UnifiedLoop
+    from evoworld_tpu_torch.memory.pointcloud import confidence_mask
     from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
     from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
     from evoworld_tpu_torch.runtime import VGGT_PRESETS, build_pipeline, build_reconstructor
@@ -1400,7 +1428,15 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     scaled, camera_params = synthetic_path(rows, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     start = torch.rand((cfg.height, cfg.width, 3), generator=g, device=dev) * 2 - 1
-    loop = UnifiedLoop(Navigator(pipe, num_frames=loop_cfg.num_frames), recon, loop_cfg)
+    clouds = []
+
+    def reconstruct(images):  # keeps each rebuild's confidence-filtered cloud on the host (phase 17 exports one)
+        preds = recon(images)
+        keep = confidence_mask(preds["conf"], loop_cfg.conf_percentile).reshape(-1)
+        clouds.append({k: preds[k].reshape(-1, 3)[keep].cpu() for k in ("world_points", "colors")})
+        return preds
+
+    loop = UnifiedLoop(Navigator(pipe, num_frames=loop_cfg.num_frames), reconstruct, loop_cfg)
     expected = expected_loop_launches(steps, loop_cfg, VGGT_PRESETS["full"], FLASH_MIN_SEQ)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1432,8 +1468,11 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     if launches != expected or bwd_launches:
         raise AssertionError(f"the episode launched the flash kernels {launches} / {bwd_launches} times, "
                              f"expected {expected} / 0")
+    first_segment = out["segments"][0].cpu()
     del loop, pipe, recon, out
     torch.cuda.empty_cache()
+    result["cloud"] = clouds[0]  # the first rebuild's (25 frames); not in the logged line
+    result["first_segment"] = first_segment  # phase 18(c) holds the sharded episode's to it
     return result
 
 
@@ -2696,6 +2735,369 @@ def cli_paths(dev, steps: int, seed: int, workdir: str, flags: tuple, clip_dir: 
     return result
 
 
+def full_tools(dev, steps: int, seed: int, workdir: str, cloud: dict, overrides: tuple = ()) -> dict:
+    """Phase 17, the last single-card tools, on phase 11's files in `workdir`
+    and phase 10's first VGGT cloud: `cli.validate_parity.main` at full width
+    (phase 11's `svd/` and `model.pt`, its episode, N steps, PSNR and LPIPS
+    on random LPIPS features, `--parity.dry_run`) against phase 11's own
+    single-segment frames (the gate must pass, 5N + 18 launches) and against
+    them perturbed (it must exit with code 1, the JAX CLI's); then the cloud
+    written by `memory/export.py` as PLY and OBJ, each file's seconds and
+    bytes, and its header and first line read back."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.cli import validate_parity
+    from evoworld_tpu_torch.cli.common import save_frames
+    from evoworld_tpu_torch.cli.calculate_metrics import read_video_dir
+    from evoworld_tpu_torch.memory.export import save_obj, save_ply
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    on_card = dev.type == "cuda"
+    own = os.path.join(workdir, "out", "episode_000", "predictions")  # phase 11's run_single_segment frames
+    frames = read_video_dir(own, len(os.listdir(own)))
+    rng = np.random.default_rng(seed)
+    bad = os.path.join(workdir, "parity_perturbed")
+    save_frames(np.clip(frames + rng.normal(scale=0.2, size=frames.shape), 0, 1), bad)
+    argv = [f"--data.root={workdir}/episode_000", f"--runtime.svd_checkpoint={workdir}/svd",
+            f"--runtime.vggt_checkpoint={workdir}/svd/model.pt", "--runtime.allow_random_weights=false",
+            f"--pipeline.num_steps={steps}", f"--runtime.seed={seed}", f"--runtime.save_dir={workdir}/parity",
+            "--parity.dry_run=true", *overrides]
+    runs = {}
+    for label, ref in (("own_frames", own), ("perturbed", bad)):
+        flash_attention.launches = flash_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        try:
+            gate = validate_parity.main(argv + [f"--parity.reference_frames={ref}"], device=dev)
+            code = 0
+        except SystemExit as e:  # the gate's FAIL: checked against the JAX CLI's code below
+            gate, code = None, e.code
+        runs[label] = dict(seconds=time.perf_counter() - t0, exit_code=code,
+                           launches=[flash_attention.launches, flash_attention_backward.launches],
+                           scores=gate and {k: gate[k] for k in ("ours", "theirs")})
+    expected = [5 * steps + 18 if on_card else 0, 0]
+    points, colors = cloud["world_points"], cloud["colors"]
+    files = {}
+    for name, write in (("cloud.ply", save_ply), ("cloud.obj", save_obj)):
+        path = os.path.join(workdir, name)
+        t0 = time.perf_counter()
+        write(points, colors, path)
+        seconds = time.perf_counter() - t0
+        with open(path) as f:
+            head = [f.readline() for _ in range(10 if name.endswith(".ply") else 1)]
+        files[name] = dict(seconds=seconds, bytes=os.path.getsize(path), points=int(points.shape[0]),
+                           first_lines=head[-1:] if name.endswith(".obj") else head[2:3] + head[-1:])
+        os.remove(path)
+    result = dict(validate_parity=runs, expected_launches=expected, export=files)
+    log("tools " + json.dumps(result))
+    if runs["own_frames"]["exit_code"] != 0 or runs["perturbed"]["exit_code"] != 1:
+        raise AssertionError(f"the parity gate did not pass against its own frames and fail (code 1) against "
+                             f"perturbed ones: {runs}")
+    if any(r["launches"] != expected for r in runs.values()):
+        raise AssertionError(f"validate_parity launched the flash kernels {[r['launches'] for r in runs.values()]} "
+                             f"times, expected {expected}")
+    if files["cloud.ply"]["first_lines"][0] != f"element vertex {points.shape[0]}\n":
+        raise AssertionError(f"the PLY header is {files['cloud.ply']['first_lines']}")
+    if not torch.isfinite(points).all():
+        raise AssertionError("the exported cloud is not finite")
+    return result
+
+
+@contextlib.contextmanager
+def kept_memory_renders():
+    """The inputs of every memory render the loop makes while the context is
+    active, kept on the host in a list (the render itself is unchanged)."""
+    from evoworld_tpu_torch.loop import unified
+
+    render, kept = unified.render_memory_panoramas, []
+
+    def keeping(points, colors, valid, target_c2w, height, width, **kwargs):
+        kept.append(dict(points=points.cpu(), colors=colors.cpu(), valid=valid.cpu(), target_c2w=target_c2w.cpu(),
+                         height=height, width=width))
+        return render(points, colors, valid, target_c2w, height, width, **kwargs)
+
+    unified.render_memory_panoramas = keeping
+    try:
+        yield kept
+    finally:
+        unified.render_memory_panoramas = render
+
+
+def gate_rank_keeping_renders(mesh, n_devices: int) -> dict:
+    """`parallel.checks.gate_rank` with its memory renders' inputs kept (a
+    rank function of phase 18(b), spawned as `chip_smoke:...`)."""
+    from evoworld_tpu_torch.parallel import checks
+
+    with kept_memory_renders() as kept:
+        out = checks.gate_rank(mesh, n_devices)
+    return dict(out, renders=kept)
+
+
+def splat_coords(points, c2w, height: int, width: int):
+    """Each point's distance from the camera and its pixel coordinates (v, u)
+    before the floor, as `ops/splat.py` computes them for one pose of
+    `render_memory_panoramas` (its rotation divided by its column norm
+    first); the point's pixel is (floor(v) clamped, floor(u))."""
+    import torch
+
+    from evoworld_tpu_torch.geometry.pose import invert_pose
+
+    rot = c2w[:, :3]
+    pose = torch.cat([rot / torch.clamp(torch.linalg.norm(rot[:, 0]), min=1e-12), c2w[:, 3:]], dim=-1)
+    w2c = invert_pose(pose.float())
+    p_cam = points.float() @ w2c[:3, :3].T + w2c[:3, 3]
+    depth = torch.linalg.norm(p_cam, dim=-1)
+    d = p_cam / torch.clamp(depth, min=1e-12)[:, None]
+    u = (torch.atan2(d[:, 0], d[:, 2]) / (2.0 * math.pi) + 0.5) * width
+    v = (torch.asin(torch.clamp(d[:, 1], -1.0, 1.0)) / math.pi + 0.5) * height
+    return depth, v, u
+
+
+def memory_flip_reading(ref: dict, got: dict, ref_memory, got_memory, dev, atol: float = 3e-2, rows: int = 8
+                        ) -> dict:
+    """Where two runs' memory renders differ by more than `atol`, what
+    changed at each such pixel. `ref` and `got` are the renders' inputs
+    (`kept_memory_renders`), the memories (T, H, W, 3) what they rendered.
+    Each side is rendered again on `dev` with point indices for colours, so
+    the winning splat of every pixel is known on each side (`winners_reproduce`
+    says whether the winners' colours are the memories'). Of the one or two
+    winners of a flipped pixel, the kind of flip is: `same_winner` (its
+    colour moved), `validity` (a winner inside the confidence mask on one
+    side only), `pixel_edge` (a winner whose 2 x 2 footprint covers the
+    pixel on one side only: its projected coordinates crossed a pixel edge),
+    `depth_order` (both winners cover it and are valid on both sides: the
+    nearer one changed) or `other`. Each row gives the winners' coordinates
+    before the floor on both sides, and their distances' relative gap; the
+    summary, for the winners whose pixel changed, the largest move of their
+    coordinates in pixels and their nearest approach to the edge they
+    crossed, beside the splat's depth quantum (the relative step of its
+    log-depth key) and the largest relative move of any point."""
+    import torch
+
+    from evoworld_tpu_torch.memory.render import render_memory_panoramas
+    from evoworld_tpu_torch.ops.splat import _depth_bits_for
+
+    side = [{k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in r.items()} for r in (ref, got)]
+    mems = [m.to(dev).float() for m in (ref_memory, got_memory)]
+    flipped = ((mems[0] - mems[1]).abs() > atol).any(-1)
+    height, width = side[0]["height"], side[0]["width"]
+    n = side[0]["points"].shape[0]
+    index = torch.arange(1, n + 1, dtype=torch.float32, device=dev)[:, None].expand(n, 3)
+    win = [render_memory_panoramas(s["points"], index, s["valid"], s["target_c2w"], height, width)[..., 0].long() - 1
+           for s in side]
+    reproduce = all(bool(torch.equal(torch.where((w >= 0)[..., None], s["colors"].float()[w.clamp(min=0)],
+                                                 torch.zeros_like(m)), m))
+                    for w, s, m in zip(win, side, mems))
+    kinds, table, crossed = {}, [], {}  # crossed: point -> (move, distance to the edge), in pixels
+    for t, y, x in flipped.nonzero().tolist():
+        pair = [win[0][t, y, x].item(), win[1][t, y, x].item()]
+        row = dict(view=t, pixel=[y, x], color_diff=(mems[0][t, y, x] - mems[1][t, y, x]).abs().max().item(),
+                   winners=pair)
+        ids = sorted({i for i in pair if i >= 0})
+        if pair[0] == pair[1]:
+            row["kind"] = "same_winner"
+        else:
+            coords = [splat_coords(s["points"][ids], s["target_c2w"][t], height, width) for s in side]
+            pix = [torch.stack([c[1].floor().clamp(0, height - 1), c[2].floor() % width], -1).long() for c in coords]
+            covers = [[(0 <= y - pv < 2) and (x - pu) % width < 2 for pv, pu in p.tolist()] for p in pix]
+            valid = [[bool(s["valid"][i]) for i in ids] for s in side]
+            row.update(points=ids, valid=valid, covers=covers,
+                       coords=[torch.stack([c[1], c[2]], -1).tolist() for c in coords])
+            if len(ids) == 2:
+                row["depth_gap"] = [abs(c[0][1] - c[0][0]).item() / c[0][0].item() for c in coords]
+            for j in range(len(ids)):
+                for axis in (0, 1):
+                    a_, b_ = coords[0][1 + axis][j].item(), coords[1][1 + axis][j].item()
+                    if math.floor(a_) != math.floor(b_):
+                        edge = max(math.floor(a_), math.floor(b_))
+                        crossed[ids[j]] = (abs(a_ - b_), min(abs(a_ - edge), abs(b_ - edge)))
+            if valid[0] != valid[1]:
+                row["kind"] = "validity"
+            elif covers[0] != covers[1]:
+                row["kind"] = "pixel_edge"
+            elif len(ids) == 2 and all(valid[0] + valid[1] + covers[0] + covers[1]):
+                row["kind"] = "depth_order"
+            else:
+                row["kind"] = "other"
+        kinds[row["kind"]] = kinds.get(row["kind"], 0) + 1
+        if len(table) < rows:
+            table.append(row)
+    ok = side[0]["valid"]
+    depth = torch.stack([splat_coords(side[0]["points"][ok], c2w, height, width)[0] for c2w in side[0]["target_c2w"]])
+    levels = (1 << _depth_bits_for(height * width)) - 1
+    both = side[0]["valid"] & side[1]["valid"]
+    shift = (side[0]["points"] - side[1]["points"]).norm(dim=-1) / side[0]["points"].norm(dim=-1).clamp(min=1e-12)
+    return dict(flipped=int(flipped.sum()), pixels=int(flipped.numel()), kinds=kinds, winners_reproduce=reproduce,
+                edge_crossings=len(crossed), max_edge_move_px=max((m for m, _ in crossed.values()), default=None),
+                max_edge_distance_px=max((e for _, e in crossed.values()), default=None),
+                depth_quantum=math.expm1((depth.log().amax(-1) - depth.log().amin(-1)).max().item() / levels),
+                max_point_shift=shift[both].max().item() if both.any() else None,
+                validity_changed=int((side[0]["valid"] != side[1]["valid"]).sum()), rows=table)
+
+
+def segment_agreement(ref, got) -> dict:
+    """A segment against another run's by the composed gate's rule
+    (`parallel/checks.py::assert_episode_close`: at least 99% of pixels
+    within 3e-2 and none more than 0.2 away), with the relative RMS error."""
+    d = (got.float() - ref.float()).abs()
+    out = dict(share_within_3e_2=(d <= 3e-2).float().mean().item(), max_abs=d.max().item(),
+               rel_rms=((d.pow(2).mean() / ref.float().pow(2).mean()).sqrt()).item())
+    out["passes"] = out["share_within_3e_2"] >= 0.99 and out["max_abs"] <= 0.2
+    return out
+
+
+def sharded_clip_launches(steps: int, cfg, world: int) -> int:
+    """Flash launches of one rank's share of a clip: the UNet's level-0
+    attention (5 a step, on the rank's guidance half), and the VAE's mid-block
+    attention once for each of its ceil(chunks / W) encode and decode chunks."""
+    encode_chunks, decode_chunks = (cfg.num_frames + 1) // cfg.encode_chunk, cfg.num_frames // cfg.decode_chunk
+    return 5 * steps + math.ceil(encode_chunks / world) + math.ceil(decode_chunks / world)
+
+
+def mesh_gate(dev, workdir: str) -> dict:
+    """Phase 18(b): the composed loop gate's episode on two ranks sharing
+    `dev` (over gloo) against one rank in this process, teacher-forced at the
+    memory and free-running, with the reading of the free runs' parting
+    (`memory_flip_reading`, and the one-rank episode fed its own memory with
+    only the flipped pixels taken from the ranks'); the teacher-forced and
+    the swapped episodes must pass the gate. Runs on the CPU too (no flash
+    launches there)."""
+    import torch
+
+    from evoworld_tpu_torch.parallel import checks
+    from evoworld_tpu_torch.parallel.launch import Ranks
+    from evoworld_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    ranks = Ranks("chip_smoke:gate_rank_keeping_renders", 2, os.path.join(workdir, "gate"), device=dev.type,
+                  args=(2,), threads=2 if dev.type == "cuda" else 1, timeout=600)
+    one = make_mesh(dev)  # W = 1: the same routes on one rank (the flash kernel on every head)
+    with kept_memory_renders() as one_renders:
+        free = checks.run_composed_loop(2, one, dev)
+    gate_ranks = ranks.results()
+    forced = checks.run_composed_loop(2, one, dev, memories=gate_ranks[0]["loop"]["memories"])
+    free_memory, ranks_memory = free["memories"][0], gate_ranks[0]["loop"]["memories"][0]
+    flips = memory_flip_reading(one_renders[0], gate_ranks[0]["renders"][0], free_memory, ranks_memory, dev)
+    swapped_memory = torch.where(((free_memory - ranks_memory).abs() > 3e-2).any(-1, keepdim=True), ranks_memory,
+                                 free_memory)
+    swapped = checks.run_composed_loop(2, one, dev, memories=[swapped_memory])
+
+    def compare(ref, got):
+        out = {}
+        for k in ("segments", "memories"):
+            d = [(a - b).abs() for a, b in zip(ref[k], got[k])]
+            out[k] = dict(max_abs=[x.max().item() for x in d], share_within_3e_2=[(x <= 3e-2).float().mean().item()
+                                                                                  for x in d])
+        return out
+
+    gate = dict(seconds=time.perf_counter() - t0, launches=[r["launches"] for r in gate_ranks],
+                teacher_forced=[compare(forced, r["loop"]) for r in gate_ranks],
+                free_running=[compare(free, r["loop"]) for r in gate_ranks], flipped_pixels=flips,
+                flipped_pixels_swapped=dict(vs_ranks=[compare(swapped, r["loop"]) for r in gate_ranks],
+                                            vs_free_running=compare(free, swapped)))
+    log("mesh gate " + json.dumps(gate))
+    for r in gate_ranks:
+        checks.assert_episode_close(forced, r["loop"])
+        checks.assert_episode_close(swapped, r["loop"])  # those pixels alone part the free runs
+    if dev.type == "cuda" and any(r["launches"][0] == 0 for r in gate_ranks):
+        raise AssertionError(f"the gate's ranks launched no flash kernel: {gate}")
+    return gate
+
+
+def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
+    """Phase 18, the multi-GPU serving path on the one card: W ranks spawned
+    by `parallel/launch.py` sharing cuda:0 over gloo (NCCL refuses two ranks
+    on one device). (a) VGGT's 51,009-token global attention in bf16 through
+    the head-sharded route at W = 2 (8 heads a rank) and the ring at W = 3
+    (16 % 3 != 0): each rank's output within the bf16 limits of the plain
+    version in fp32 and against the one-process kernel, the flash launches
+    of the routed call (1 head-sharded, W ring blocks). (b) The composed loop
+    gate at W = 2 against the same episode on one rank in this process (fp32,
+    the same routes), teacher-forced at the memory: the one-rank run renders
+    its own memory from its own frames (held to the ranks' by the gate's
+    share) but conditions its second segment on the ranks' render, so that
+    `assert_episode_close` holds each stage to the ranks' given the same
+    inputs. The free-running episode's differences are reported beside it
+    with their cause read off: `memory_flip_reading` of the memory pixels
+    the one-rank and the ranks' free runs disagree on, and the one-rank
+    episode fed its own memory with only those pixels taken from the ranks',
+    which must pass the gate against the ranks. (c) A full-width episode at
+    W = 2 (`LoopConfig()`, 1024x576, VGGT-1B, N steps, bf16): every output
+    finite, both ranks' outputs equal (SHA-256), each rank's launches
+    `sharded_clip_launches` a clip and 24 a rebuild, and its first segment
+    held to `first_segment`, phase 10's (one process, the same seed, start
+    image, camera path and N), by `segment_agreement`, which the same
+    frames rolled by one decode chunk must fail; if two ranks run the card
+    out of memory the steps are cut first, then the segments, the cut is
+    reported, and a cut episode is not compared with phase 10's. VGGT's
+    frames are split only where W divides their count: the 25 and 49 frames
+    here do not, so the frame-sharded VGGT runs in the CPU gate alone."""
+    import torch
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+    from evoworld_tpu_torch.loop.unified import LoopConfig
+    from evoworld_tpu_torch.parallel.launch import spawn
+
+    torch.cuda.empty_cache()
+    result = {}
+    routes = []
+    for world in (2, 3):
+        t0 = time.perf_counter()
+        ranks = spawn("evoworld_tpu_torch.parallel.checks:route_rank", world, os.path.join(workdir, f"route{world}"),
+                      device="cuda", args=((1, 51009, 16, 64), "bfloat16", seed), threads=2, timeout=600)
+        routes.append(dict(wall_s=time.perf_counter() - t0, ranks=ranks))
+    result["routes"] = routes
+    log("mesh routes " + json.dumps(routes))
+    for r in (rank for run in routes for rank in run["ranks"]):
+        want = [1 if r["route"] == "head_sharded" else r["world_size"], 0]
+        if not (within_limits(r) and r["finite"] and r["launches"] == want):
+            raise AssertionError(f"the {r['route']} route on rank {r['rank']} of {r['world_size']}: {r}")
+
+    result["gate"] = mesh_gate(dev, workdir)
+
+    loop_cfg = LoopConfig()
+    cuts = []
+    for steps_, segments in ((steps, loop_cfg.num_segments), (max(1, steps // 2), loop_cfg.num_segments), (1, 2)):
+        scaled, camera_params = synthetic_path(segments * loop_cfg.num_target_view + loop_cfg.num_frames, seed)
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn("evoworld_tpu_torch.parallel.checks:episode_rank", 2,
+                          os.path.join(workdir, f"ep{steps_}_{segments}"), device="cuda",
+                          args=(steps_, segments, seed, scaled, camera_params), threads=2, timeout=900)
+            break
+        except RuntimeError as e:  # a cut is reported, and only out of memory makes one
+            if "OutOfMemoryError" not in str(e) and "out of memory" not in str(e):
+                raise
+            cuts.append(dict(steps=steps_, segments=segments, error="out of memory"))
+            log(f"mesh episode at {steps_} steps, {segments} segments: out of memory, cutting")
+    else:
+        raise AssertionError(f"the sharded episode ran out of memory at every cut: {cuts}")
+    cfg = PipelineConfig(num_steps=steps_)
+    want = [segments * sharded_clip_launches(steps_, cfg, 2) + 24 * (segments - 1), 0]
+    got = ranks[0]["first_segment"]
+    compared = steps_ == steps  # phase 10 ran N steps; a cut episode has nothing to be held to
+    episode = dict(wall_s=time.perf_counter() - t0, cuts=cuts, expected_launches=want,
+                   first_segment_vs_one_process=compared and segment_agreement(first_segment, got),
+                   rolled_by_a_decode_chunk=compared and segment_agreement(first_segment,
+                                                                          torch.roll(got, cfg.decode_chunk, 0)),
+                   ranks=[{k: v for k, v in r.items() if k not in ("outputs", "first_segment")} for r in ranks],
+                   outputs=[{k: o[k] for k in ("kind", "shape", "finite")} for o in ranks[0]["outputs"]],
+                   ranks_equal=[o["sha256"] for o in ranks[0]["outputs"]] == [o["sha256"] for o in ranks[1]["outputs"]])
+    result["episode"] = episode
+    log("mesh episode " + json.dumps(episode))
+    if not (episode["ranks_equal"] and all(o["finite"] for r in ranks for o in r["outputs"])):
+        raise AssertionError("the sharded episode's outputs are not finite or differ between the ranks")
+    if any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"the sharded episode's ranks launched {[r['launches'] for r in ranks]}, expected {want}")
+    if compared and not (episode["first_segment_vs_one_process"]["passes"]
+                         and not episode["rolled_by_a_decode_chunk"]["passes"]):
+        raise AssertionError("the sharded episode's first segment is not phase 10's by the gate's rule, or the rule "
+                             f"cannot tell a misplaced decode chunk: {episode}")
+    return result
+
+
 def full_clips(dev, steps: int, seed: int) -> list[dict]:
     """Two full-width clips (cold, warm); checks launch counts and outputs."""
     import torch
@@ -2791,6 +3193,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_loop_against_cpu(dev, SEED)
     loop_run = full_loop(dev, STEPS, SEED)
+    cloud, first_segment = loop_run.pop("cloud"), loop_run.pop("first_segment")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:  # phases 11-14 share it
         t0 = time.perf_counter()
         cli_run = full_cli(dev, STEPS, SEED, workdir=workdir)
@@ -2810,6 +3213,15 @@ def main() -> int:
         t0 = time.perf_counter()
         fp32_run = full_fp32(dev, STEPS, SEED, workdir)
         log(f"fp32 phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        tools_run = full_tools(dev, STEPS, SEED, workdir, cloud)
+        log(f"tools phase wall seconds {time.perf_counter() - t0:.3f}")
+        del cloud
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh_run = full_mesh(dev, STEPS, SEED, workdir, first_segment)
+        del first_segment
+        log(f"mesh phase wall seconds {time.perf_counter() - t0:.3f}")
     torch.cuda.empty_cache()
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
@@ -2839,6 +3251,14 @@ def main() -> int:
         raise AssertionError(f"an fp32 kernel was not launched on phase 16's paths: {fp32_fwd_paths}, "
                              f"{fp32_bwd_paths}")
     fp32_keys = twin_keys + ("split_bound_ms", "kernel_ms", "max_rel_err", "mean_rel_err")
+    # Phases 17 and 18: launches summed over the runs and ranks of each path, each read with its counts set to 0.
+    mesh_paths = {"validate_parity": sum(r["launches"][0] for r in tools_run["validate_parity"].values()),
+                  **{f"mesh_{run['ranks'][0]['route']}": sum(r["launches"][0] for r in run["ranks"])
+                     for run in mesh_run["routes"]},
+                  "mesh_episode": sum(r["launches"][0] for r in mesh_run["episode"]["ranks"])}
+    if not all(mesh_paths.values()):
+        raise AssertionError(f"a forward kernel was not launched on phase 17's or 18's paths: {mesh_paths}")
+    fp32_fwd_paths["mesh_gate"] = sum(r[0] for r in mesh_run["gate"]["launches"])
     kernels = [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2853,7 +3273,8 @@ def main() -> int:
                              "cli_train": cli_train[0], "eval": eval_run["launches"][0],
                              "reproject": prep_run["launches"][0],
                              "fp16_single_segment": fp16_run["single"]["launches"][0],
-                             "fp16_train": fp16_train[0], "fp16_reproject": fp16_run["reproject"]["launches"][0]},
+                             "fp16_train": fp16_train[0], "fp16_reproject": fp16_run["reproject"]["launches"][0],
+                             **mesh_paths},
         "max_abs_err": max(r["max_abs_err"] for r in flash["shapes"]),
         "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"],

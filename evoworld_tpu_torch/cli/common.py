@@ -1,5 +1,5 @@
 """Shared CLI plumbing: config parsing, frame IO, logging (counterpart of
-`evoworld_tpu/cli/common.py`).
+`evoworld_tpu/cli/common.py`; the log lines through `utils/logging.py`).
 
 Overrides: --section.field=value (sections pipeline, loop, train, trainer,
 data, runtime, parity). Entry points run on CUDA; a caller asks for the CPU
@@ -22,39 +22,16 @@ import torch
 
 from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides, describe
 from evoworld_tpu_torch.data.native_io import image_size, load_image_batch, save_png_batch
+from evoworld_tpu_torch.utils.logging import get_logger
 
 
 logger = logging.getLogger("evoworld_tpu_torch")  # the runtime's too
 
 
-class _StderrHandler(logging.StreamHandler):
-    """A stream handler on whatever `sys.stderr` is when a record is emitted:
-    one bound at creation keeps writing to a stream that a caller (a test
-    runner's capture) has since replaced and closed."""
-
-    @property
-    def stream(self):
-        return sys.stderr
-
-    @stream.setter
-    def stream(self, value):
-        pass
-
-
-def _log_to_stderr() -> None:
-    """Timestamped INFO lines of the port's logger on stderr, once per process."""
-    if not logger.handlers:
-        handler = _StderrHandler()
-        handler.setFormatter(logging.Formatter("%(asctime)s - %(levelname)s - %(message)s"))
-        logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
-        logger.propagate = False
-
-
 def parse_config(argv=None, doc: str | None = None) -> EvoWorldConfig:
     """The config tree with `argv`'s overrides (and the CLI's logging);
     `--help` / `-h` prints `doc`, the sections and the defaults, and exits."""
-    _log_to_stderr()
+    get_logger(logger.name)
     argv = sys.argv[1:] if argv is None else argv
     if "--help" in argv or "-h" in argv:
         print(doc or __doc__ or "")

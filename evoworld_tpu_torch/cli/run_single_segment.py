@@ -11,6 +11,9 @@ Usage (on the card):
       --data.root=<episode dir> --runtime.save_dir=outputs/single_segment \\
       [--pipeline.num_steps=25] [--runtime.checkpoint_dir=<diffusers pipeline dir>]
 
+Under `torchrun --nproc-per-node W` the clip is sharded over the ranks as
+`run_unified`'s is, and only rank 0 writes.
+
 From Python, `main(argv, device="cpu")` runs on the CPU.
 """
 
@@ -24,9 +27,8 @@ import torch
 from evoworld_tpu_torch.cli.common import frames_from_minus1_1, logger, parse_config, save_frames
 from evoworld_tpu_torch.config import compute_dtype
 from evoworld_tpu_torch.data.dataset import EpisodeDataset
-from evoworld_tpu_torch.device import resolve_device
 from evoworld_tpu_torch.loop.navigator import Navigator
-from evoworld_tpu_torch.runtime import build_pipeline, check_compute_dtype
+from evoworld_tpu_torch.runtime import build_pipeline, check_compute_dtype, inference_setup
 
 
 def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
@@ -35,7 +37,8 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
     data, rt = config.data, config.runtime
     dtype = compute_dtype(rt)
     check_compute_dtype(device, dtype)
-    dev = resolve_device(device)
+    dev, mesh = inference_setup(device, rt.mesh_data, rt.mesh_model)
+    writes = mesh is None or mesh.rank == 0
 
     dataset = EpisodeDataset(
         data.root,
@@ -51,7 +54,7 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
     t0 = time.perf_counter()
     pipeline = build_pipeline(config.pipeline, rt.model_preset, rt.seed, dtype, dev,
                               checkpoint_dir=rt.checkpoint_dir or rt.svd_checkpoint,
-                              allow_random_weights=rt.allow_random_weights)
+                              allow_random_weights=rt.allow_random_weights, mesh=mesh)
     load_s = time.perf_counter() - t0
     navigator = Navigator(pipeline, num_frames=config.pipeline.num_frames)
 
@@ -76,12 +79,15 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
 
         out_dir = os.path.join(rt.save_dir, name)
         t0 = time.perf_counter()
-        save_frames(frames, os.path.join(out_dir, "predictions"))
-        save_frames(frames_from_minus1_1(sample.pixel_values), os.path.join(out_dir, "predictions_gt"))
+        if writes:
+            save_frames(frames, os.path.join(out_dir, "predictions"))
+            save_frames(frames_from_minus1_1(sample.pixel_values), os.path.join(out_dir, "predictions_gt"))
         save_s = time.perf_counter() - t0
         record = dict(episode=name, out_dir=out_dir, load_s=load_s, host_decode_s=decode_s,
                       generate_s=generate_s, host_save_s=save_s)
-        logger.info(f"Saved to {out_dir} " + ", ".join(f"{k} {v:.3f} s" for k, v in record.items() if k.endswith("_s")))
+        if writes:
+            logger.info(f"Saved to {out_dir} " + ", ".join(f"{k} {v:.3f} s" for k, v in record.items()
+                                                            if k.endswith("_s")))
         records.append(record)
     return records
 

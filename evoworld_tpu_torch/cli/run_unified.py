@@ -14,9 +14,18 @@ Usage (on the card):
       --runtime.save_dir=outputs/unified [--loop.num_segments=3] \\
       [--runtime.checkpoint_dir=<diffusers pipeline dir>] [--runtime.vggt_checkpoint=<model.pt>]
 
+On several cards (or ranks sharing one), one process per rank:
+  torchrun --nproc-per-node W -m evoworld_tpu_torch.cli.run_unified --data.root=... \
+      [--runtime.mesh_model=M]
+Each rank takes `cuda:LOCAL_RANK % device_count` (NCCL where every rank has
+a card of its own, gloo where ranks share one); the clip, VGGT
+(`--runtime.vggt_mesh`, on by default) and the memory renders are sharded
+over the ranks, and only rank 0 writes frames and logs the episode.
+
 From Python, `main(argv, device="cpu")` runs on the CPU. Draws come from
-`torch.Generator(device).manual_seed(runtime.seed + episode index)`, so the
-frames are not the JAX CLI's (which draws from jax.random).
+`torch.Generator(device).manual_seed(runtime.seed + episode index)`, the same
+on every rank, so the frames are not the JAX CLI's (which draws from
+jax.random).
 """
 
 from __future__ import annotations
@@ -29,10 +38,9 @@ import torch
 from evoworld_tpu_torch.cli.common import AsyncFrameWriter, frames_from_minus1_1, logger, parse_config
 from evoworld_tpu_torch.config import compute_dtype
 from evoworld_tpu_torch.data.dataset import EpisodeDataset, load_camera_poses
-from evoworld_tpu_torch.device import resolve_device
 from evoworld_tpu_torch.loop.navigator import Navigator, calculate_segment_indices
 from evoworld_tpu_torch.loop.unified import UnifiedLoop
-from evoworld_tpu_torch.runtime import build_pipeline, build_reconstructor, check_compute_dtype
+from evoworld_tpu_torch.runtime import build_pipeline, build_reconstructor, check_compute_dtype, inference_setup
 
 
 def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
@@ -43,7 +51,8 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
     data, rt = config.data, config.runtime
     dtype = compute_dtype(rt)
     check_compute_dtype(device, dtype)
-    dev = resolve_device(device)
+    dev, mesh = inference_setup(device, rt.mesh_data, rt.mesh_model)
+    writes = mesh is None or mesh.rank == 0
 
     dataset = EpisodeDataset(
         data.root,
@@ -57,15 +66,16 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
     t0 = time.perf_counter()
     pipeline = build_pipeline(config.pipeline, rt.model_preset, rt.seed, dtype, dev,
                               checkpoint_dir=rt.checkpoint_dir or rt.svd_checkpoint,
-                              allow_random_weights=rt.allow_random_weights)
+                              allow_random_weights=rt.allow_random_weights, mesh=mesh)
     reconstructor = None
     if config.loop.num_segments > 1:
         reconstructor = build_reconstructor("tiny" if rt.vggt_tiny else "full", rt.seed, dtype, dev,
                                             vggt_checkpoint=rt.vggt_checkpoint,
-                                            allow_random_weights=rt.allow_random_weights)
+                                            allow_random_weights=rt.allow_random_weights,
+                                            mesh=mesh if rt.vggt_mesh else None)
     load_s = time.perf_counter() - t0
     navigator = Navigator(pipeline, num_frames=config.pipeline.num_frames)
-    loop = UnifiedLoop(navigator, reconstructor, config.loop)
+    loop = UnifiedLoop(navigator, reconstructor, config.loop, mesh=mesh)
 
     records = []
     end = data.end_idx if data.end_idx >= 0 else len(dataset)
@@ -79,6 +89,8 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
         ep_dir = os.path.join(rt.save_dir, name)
 
         def save_segment(seg_id, frames, writer):
+            if not writes:
+                return
             t0 = time.perf_counter()
             start = seg_id * (config.pipeline.num_frames - 1)
             writer.submit(frames, os.path.join(ep_dir, f"predictions_{seg_id}"), start)
@@ -89,6 +101,8 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
             host["host_save_s"] += time.perf_counter() - t0
 
         def save_memory(seg_id, mem, writer):
+            if not writes:
+                return
             t0 = time.perf_counter()
             writer.submit(mem, os.path.join(ep_dir, f"rendered_panorama_{seg_id}"), 0, "{:02d}.png")
             host["host_save_s"] += time.perf_counter() - t0
@@ -112,7 +126,8 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
         # The writer's encode overlaps the card's compute; only writer_wait_s
         # (the last segment's encode, after the loop) adds to the episode.
         seconds = {**timings, **{k: v for k, v in record.items() if k.endswith("_s")}}
-        logger.info(f"Saved episode to {ep_dir}: " + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items()))
+        if writes:
+            logger.info(f"Saved episode to {ep_dir}: " + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items()))
         records.append(record)
     return records
 

@@ -8,8 +8,10 @@ fill the first four. Every CLI accepts `--section.field=value` (or
 `--section.field value`) overrides. `runtime.compute_dtype` maps to a torch
 dtype through `compute_dtype`; bfloat16, float16 and float32 all run on
 CUDA, each on flash kernels of its type, and any other dtype meets the entry
-points' refusal (`runtime.check_compute_dtype`) before any file is read. The mesh fields (`runtime.mesh_data`, `mesh_model`, `vggt_mesh`) are
-accepted and do on one card what the JAX package's do on one device: nothing.
+points' refusal (`runtime.check_compute_dtype`) before any file is read. The
+mesh fields (`runtime.mesh_data`, `mesh_model`, `vggt_mesh`) shape a serving
+run under `torchrun` (`runtime.inference_setup`); in one process they do
+nothing, as the JAX package's do on one device.
 """
 
 from __future__ import annotations
@@ -50,13 +52,13 @@ class RuntimeConfig:
     seed: int = 42
     compute_dtype: str = "bfloat16"
     model_preset: str = "full"  # "full" | "tiny" (smoke runs without weights)
-    mesh_data: int = 0          # one card: no mesh
+    mesh_data: int = 0          # ranks on the data axis (0: all of them over mesh_model)
     mesh_model: int = 1
     checkpoint_dir: Optional[str] = None      # diffusers pipeline dir (unet/ vae/ image_encoder/)
     svd_checkpoint: Optional[str] = None      # the same layout, as the HF SVD pipeline ships it
     vggt_checkpoint: Optional[str] = None     # facebook/VGGT-1B model.pt
     vggt_tiny: bool = False  # small random VGGT (CPU demos / smoke runs)
-    vggt_mesh: bool = True   # one card: no mesh
+    vggt_mesh: bool = True   # shard VGGT over the serving mesh too
     metric_weights_dir: str = ""
     skyseg_onnx: str = "skyseg.onnx"
     dreamsim_variant: str = "dino_vitb16"
@@ -67,7 +69,7 @@ class RuntimeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParityConfig:
-    """Thresholds of the weights-day parity gate (`cli/validate_parity.py`, not ported yet)."""
+    """Thresholds of the weights-day parity gate (`cli/validate_parity.py`)."""
 
     dry_run: bool = False
     reference_scores: str = ""

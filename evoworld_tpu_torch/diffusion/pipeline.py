@@ -11,6 +11,15 @@ Counterpart of `evoworld_tpu/diffusion/pipeline.py`, in three stages:
   3. decode: the temporal VAE in chunks of `decode_chunk`.
 Latent math runs in fp32, model compute in `compute_dtype`.
 
+With a mesh (a multi-GPU run, one process per rank, every rank given the
+same inputs and draws) the three stages are split over the ranks and every
+rank returns the whole clip: the conditioning encode by chunks of frames,
+the denoise by guidance half (rank r runs the UNet on half r mod 2, the
+unconditional or the conditional, and one all-gather a step forms the
+guided prediction; ranks past the first two repeat a half, so more than two
+ranks make the denoise no faster), and the decode by chunks. The JAX package
+shards the same stages over its mesh by frame (GSPMD).
+
 Public layouts are the JAX package's: image (H, W, 3) in [-1, 1], plucker
 (F, 6, h, w), memory (F, H, W, 3), latents (F, h, w, 4), output
 (F, H, W, 3) in [0, 1]. Torch and JAX draw different random numbers, so
@@ -78,6 +87,7 @@ class PanoDiffusionPipeline:
         clip_tower: CLIPVisionTower,
         config: PipelineConfig = PipelineConfig(),
         compute_dtype: torch.dtype = torch.bfloat16,
+        mesh=None,
     ):
         c = config
         if (c.num_frames + 1) % c.encode_chunk or c.num_frames % c.decode_chunk:
@@ -85,7 +95,22 @@ class PanoDiffusionPipeline:
         self.unet, self.vae, self.clip_tower = unet.eval(), vae.eval(), clip_tower.eval()
         self.config = config
         self.compute_dtype = compute_dtype
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = next(unet.parameters()).device
+
+    def _sharded(self, fn, chunks: list) -> torch.Tensor:
+        """torch.cat of fn(chunk) over `chunks` (all of one size). With a mesh
+        each rank computes its contiguous share, a rank past the end
+        repeating the last chunk so that every share has one size, and an
+        all-gather joins them, cut back to the chunks' rows."""
+        if self.mesh is None:
+            return torch.cat([fn(c) for c in chunks])
+        from evoworld_tpu_torch.parallel.collectives import all_gather
+        from evoworld_tpu_torch.parallel.mesh import shard_bounds
+
+        start, stop, _ = shard_bounds(len(chunks), self.mesh)
+        mine = torch.cat([fn(chunks[min(i, len(chunks) - 1)]) for i in range(start, stop)])
+        return all_gather(mine, self.mesh)[: sum(c.shape[0] for c in chunks)]
 
     @torch.no_grad()
     def __call__(
@@ -160,10 +185,8 @@ class PanoDiffusionPipeline:
         cond_images = torch.cat([image[None], memory_frames.to(dev, torch.float32)], 0)
         cond_images = cond_images + c.noise_aug_strength * cond_noise.to(dev, torch.float32)
         cond_images = cond_images.permute(0, 3, 1, 2)                         # (1+F, 3, H, W)
-        cond_latents = torch.cat([
-            self.vae.encode_mode(chunk.to(dtype)).float()
-            for chunk in cond_images.split(c.encode_chunk)
-        ])                                                                     # (1+F, 4, h, w)
+        cond_latents = self._sharded(lambda chunk: self.vae.encode_mode(chunk.to(dtype)).float(),
+                                     list(cond_images.split(c.encode_chunk)))  # (1+F, 4, h, w)
 
         first_lat = cond_latents[0:1].expand(f, -1, -1, -1)
         mem_lat = cond_latents[1:] * (0.0 if mask_mem else 1.0)
@@ -183,12 +206,17 @@ class PanoDiffusionPipeline:
         sigmas = karras_sigmas(c.num_steps, c.schedule, device=dev)
         guidance = torch.linspace(c.min_guidance, c.max_guidance, f, device=dev).view(1, f, 1, 1, 1)
 
+        half = slice(None) if self.mesh is None else slice(self.mesh.rank % 2, self.mesh.rank % 2 + 1)
         lat = init_noise.to(dev, torch.float32).permute(0, 3, 1, 2) * sigmas[0]  # (F, 4, h, w)
         for i in range(c.num_steps):
             sigma, sigma_next = sigmas[i], sigmas[i + 1]
             lat_in = scale_model_input(lat, sigma)[None].expand(2, -1, -1, -1, -1)
-            unet_in = torch.cat([lat_in, cond_cfg], dim=2)                     # (2, F, 18, h, w)
-            out = self.unet(unet_in.to(dtype), sigma_to_timestep(sigma), context_cfg, time_ids).float()
+            unet_in = torch.cat([lat_in, cond_cfg], dim=2)[half]               # (2 or 1, F, 18, h, w)
+            out = self.unet(unet_in.to(dtype), sigma_to_timestep(sigma), context_cfg[half], time_ids[half]).float()
+            if self.mesh is not None:  # rank 0 ran the unconditional half, rank 1 the conditional
+                from evoworld_tpu_torch.parallel.collectives import all_gather
+
+                out = all_gather(out, self.mesh)[:2]
             pred = out[0:1] + guidance * (out[1:2] - out[0:1])
             lat = euler_step(pred[0], lat, sigma, sigma_next)
         return lat
@@ -197,10 +225,8 @@ class PanoDiffusionPipeline:
     def decode(self, latents):
         """(F, 4, h, w) latents -> (F, H, W, 3) fp32 frames in [0, 1]."""
         c = self.config
-        frames = torch.cat([
-            self.vae.decode(chunk.to(self.compute_dtype), c.decode_chunk).float()
-            for chunk in (latents / c.vae_scaling).split(c.decode_chunk)
-        ])
+        frames = self._sharded(lambda chunk: self.vae.decode(chunk.to(self.compute_dtype), c.decode_chunk).float(),
+                               list((latents / c.vae_scaling).split(c.decode_chunk)))
         return torch.clamp(frames.permute(0, 2, 3, 1) / 2.0 + 0.5, 0.0, 1.0)
 
 
@@ -224,8 +250,10 @@ def make_random_pipeline(
     seed: int = 0,
     compute_dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> PanoDiffusionPipeline:
-    """A pipeline with deterministic random weights, made on `device` from `seed`.
+    """A pipeline with deterministic random weights, made on `device` from `seed`
+    (the same on every rank of `mesh`, which it shards over when given).
 
     Modules are built on the meta device and filled in place, so the full
     1.5B-parameter UNet never passes through host memory. Each model gets
@@ -239,4 +267,4 @@ def make_random_pipeline(
     unet = random_model(UNetSpatioTemporal, unet_config or UNetConfig(), gen(0), dev, compute_dtype)
     vae = random_model(AutoencoderKLTemporal, vae_config or VAEConfig(), gen(1), dev, compute_dtype)
     clip = random_model(CLIPVisionTower, clip_config or CLIPVisionConfig(), gen(2), dev, compute_dtype)
-    return PanoDiffusionPipeline(unet, vae, clip, config, compute_dtype)
+    return PanoDiffusionPipeline(unet, vae, clip, config, compute_dtype, mesh)

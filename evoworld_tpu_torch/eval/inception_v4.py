@@ -7,6 +7,7 @@ timm's `inception_v4` with its module names (`features.0.conv.weight`,
 `last_linear`, is left out: the metric reads the pooled features). Batch
 norms in eval mode, epsilon 1e-3. (N, 299, 299, 3) normalised images,
 channels-last as in the JAX package -> (N, 1536) pooled features.
+`latent_mse` is the metric's reduction over two feature sets.
 """
 
 from __future__ import annotations
@@ -145,3 +146,12 @@ class InceptionV4Features(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.features(x.permute(0, 3, 1, 2)).mean(dim=(2, 3))
+
+
+def latent_mse(feats_a: torch.Tensor, feats_b: torch.Tensor) -> torch.Tensor:
+    """Mean squared distance between feature sets (upstream
+    calculate_latent_mse.py:34-45), in fp32 with TF32 off (`full_fp32`)."""
+    from evoworld_tpu_torch.eval.metrics import full_fp32
+
+    with full_fp32():
+        return torch.mean((feats_a.float() - feats_b.float()) ** 2)

@@ -1,5 +1,5 @@
 """The evolving-memory loop: generate -> reconstruct -> re-condition
-(counterpart of `evoworld_tpu/loop/unified.py`, one device).
+(counterpart of `evoworld_tpu/loop/unified.py`).
 
 For each segment:
   1. generate a 25-frame panoramic clip (segment 0: zero memory, masked);
@@ -18,6 +18,12 @@ throughout. The reconstructor is injected: any callable
 images (S, Hp, Wp, 3) in [0, 1] -> dict(world_points (S, h, w, 3),
 conf (S, h, w), extrinsic (S, 3, 4) w2c, colors optional), e.g.
 `models/vggt/model.py::Reconstructor`.
+
+In a multi-GPU run every rank runs the loop on the same inputs and draws:
+the pipeline and the reconstructor shard over their own mesh, the memory
+renders over the loop's (`mesh`, `memory/render.py`), and each stage hands
+every rank the whole result, so the renders re-enter the pipeline on every
+rank as they are.
 """
 
 from __future__ import annotations
@@ -78,10 +84,11 @@ class UnifiedLoop:
     """Episode-level orchestration of the evolving 3D memory."""
 
     def __init__(self, navigator: Navigator, reconstructor: Optional[Callable] = None,
-                 config: LoopConfig = LoopConfig()):
+                 config: LoopConfig = LoopConfig(), mesh=None):
         self.navigator = navigator
         self.reconstructor = reconstructor
         self.config = config
+        self.mesh = mesh
         self.device = navigator.pipeline.device
 
     def panos_to_perspectives(self, frames: torch.Tensor, camera_params: np.ndarray, segment_id: int,
@@ -152,7 +159,7 @@ class UnifiedLoop:
                                             recon_start=offset)
             valid = confidence_mask(conf, cfg.conf_percentile).reshape(-1)
             return render_memory_panoramas(preds["world_points"].reshape(-1, 3), colors.reshape(-1, 3), valid,
-                                           target_c2w, all_frames.shape[1], all_frames.shape[2])
+                                           target_c2w, all_frames.shape[1], all_frames.shape[2], mesh=self.mesh)
 
         return clock(f"splat_render_s{segment_id}", render)
 

@@ -1,13 +1,16 @@
-"""Memory rendering (counterpart of `evoworld_tpu/memory/render.py`, one device):
-align the GT cameras to the reconstruction and splat the point cloud onto the
-next segment's panoramic views.
+"""Memory rendering (counterpart of `evoworld_tpu/memory/render.py`): align
+the GT cameras to the reconstruction and splat the point cloud onto the next
+segment's panoramic views.
 
   1. fit a similarity (s, R, t) on the FIRST and LAST camera centres mapping
      GT centres into the reconstruction's frame;
   2. transform the next segment's GT poses (rows (segment_id+1)*24+1 on) by it;
   3. z-buffer splat the cloud at each target pose (`ops/splat.py`).
-The JAX module's mesh branch (renders sharded over devices) waits for the
-port's multi-GPU work.
+With a mesh the views are split over its ranks (each holding the whole
+cloud): the poses are padded to a multiple of the mesh size by repeating the
+last, each rank renders its contiguous share, and an all-gather joins them,
+cut back to T. Each view is rendered alone either way, so the result is the
+unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ def render_memory_panoramas(
     height: int = 1000,
     width: int = 2000,
     splat_radius: int = 2,
+    mesh=None,
 ) -> torch.Tensor:
     """Splat the memory cloud onto each target camera, one view at a time.
 
@@ -65,6 +69,7 @@ def render_memory_panoramas(
     Args:
         points: (N, 3) world points; colors: (N, 3) in [0, 1]; valid: (N,) bool.
         target_c2w: (T, 3, 4) render poses.
+        mesh: optional `parallel.mesh.Mesh` whose ranks share the views out.
 
     Returns:
         (T, height, width, 3) panoramas in [0, 1], zero where no point lands.
@@ -72,7 +77,15 @@ def render_memory_panoramas(
     rot = target_c2w[:, :, :3]
     scale = torch.linalg.norm(rot[:, :, 0], dim=-1)[:, None, None]
     poses = torch.cat([rot / torch.clamp(scale, min=1e-12), target_c2w[:, :, 3:]], dim=-1)
-    return torch.stack([
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        from evoworld_tpu_torch.parallel.collectives import all_gather
+        from evoworld_tpu_torch.parallel.mesh import shard_batch
+
+        t = poses.shape[0]
+        poses = shard_batch(poses, mesh)
+    out = torch.stack([
         splat_points_to_pano(points, colors, c2w, height, width, valid=valid, splat_radius=splat_radius)[0]
         for c2w in poses
     ])
+    return all_gather(out, mesh)[:t] if sharded else out

@@ -13,7 +13,13 @@ activations' dtype.
 Attention goes through `ops/attention.py::multi_head_attention`: the frame
 attention (1041 tokens a frame at 392x518) takes the plain route, the global
 attention (frames x 1041 tokens, 16 heads x 64) the Hopper flash kernel on
-the card.
+the card. With a mesh (`forward(images, mesh)`), each rank runs the
+per-frame work (patch encoder, frame blocks) on its share of the frames
+when the mesh size divides the frame count (else every rank runs all of
+them); the tokens are all-gathered before each global block, which every
+rank runs whole with its attention on the mesh routes
+(`ops/attention.py::head_sharded_attention`), and each rank keeps its own
+frames' rows after it.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from evoworld_tpu_torch.models.layers import LayerNorm
-from evoworld_tpu_torch.ops.attention import multi_head_attention
+from evoworld_tpu_torch.ops.attention import head_sharded_attention, multi_head_attention
 from evoworld_tpu_torch.ops.resize import resize_half_pixel
 
 LN_EPS = 1e-6
@@ -198,18 +204,23 @@ class Aggregator(nn.Module):
                            for _ in range(cfg.depth)])
             for _ in range(2))
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor, mesh=None):
+        """`mesh`: optional `parallel.mesh.Mesh` (every rank given the same
+        images); the taps then hold this rank's frames only, `frame_shard`
+        of them (all S when the mesh size does not divide S)."""
         cfg = self.config
         b, s, height, width, _ = images.shape
+        lo, hi = frame_shard(s, mesh)
+        sharded = hi - lo < s
         ph, pw = height // cfg.patch_size, width // cfg.patch_size
         mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
         std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
-        patches = self.patch_embed(((images - mean) / std).reshape(b * s, height, width, 3))
+        patches = self.patch_embed(((images[:, lo:hi] - mean) / std).reshape(b * (hi - lo), height, width, 3))
         d = patches.shape[-1]
 
         special = torch.cat([self.camera_token, self.register_token], dim=2)[0]   # (2, 1+R, d)
-        per_frame = special[torch.tensor([0] + [1] * (s - 1), device=images.device)]
-        tokens = torch.cat([per_frame.to(patches.dtype).repeat(b, 1, 1), patches], dim=1)  # (B*S, T, d)
+        per_frame = special[torch.tensor([0] + [1] * (s - 1), device=images.device)[lo:hi]]
+        tokens = torch.cat([per_frame.to(patches.dtype).repeat(b, 1, 1), patches], dim=1)  # (B*S_rank, T, d)
         t = tokens.shape[1]
 
         # Rotary positions: special tokens at (0, 0), the patch grid shifted by +1.
@@ -223,7 +234,27 @@ class Aggregator(nn.Module):
         outputs = []
         for i, (frame_block, global_block) in enumerate(zip(self.frame_blocks, self.global_blocks)):
             frame_out = frame_block(tokens, pos_frame)
-            tokens = global_block(frame_out.reshape(b, s * t, d), pos_global).reshape(b * s, t, d)
+            every = gather_frames(frame_out.reshape(b, hi - lo, t, d), mesh) if sharded else frame_out
+            with head_sharded_attention(mesh):
+                glob = global_block(every.reshape(b, s * t, d), pos_global)
+            tokens = glob.reshape(b, s, t, d)[:, lo:hi].reshape(b * (hi - lo), t, d)
             if i in cfg.output_layers:
-                outputs.append(torch.cat([frame_out, tokens], dim=-1).reshape(b, s, t, 2 * d))
+                outputs.append(torch.cat([frame_out, tokens], dim=-1).reshape(b, hi - lo, t, 2 * d))
         return outputs, (ph, pw)
+
+
+def frame_shard(s: int, mesh) -> tuple[int, int]:
+    """(first, last + 1) of this rank's frames: a 1 / W share where the mesh
+    size W divides the frame count, else all of them (the JAX package
+    replicates the frames there too)."""
+    if mesh is None or mesh.size == 1 or s % mesh.size:
+        return 0, s
+    per = s // mesh.size
+    return mesh.rank * per, (mesh.rank + 1) * per
+
+
+def gather_frames(x: torch.Tensor, mesh) -> torch.Tensor:
+    """(B, S_rank, ...) frame shards of every rank -> (B, S, ...) on each."""
+    from evoworld_tpu_torch.parallel.collectives import all_gather
+
+    return all_gather(x.transpose(0, 1).contiguous(), mesh).transpose(0, 1)

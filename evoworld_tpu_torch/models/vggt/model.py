@@ -7,8 +7,13 @@ heads under upstream facebookresearch/vggt's names; `Reconstructor` (made by
 perspective crops (S, Hp, Wp, 3) in [0, 1] -> world points, confidence,
 extrinsics and colours, with the depth head run over chunks of `head_chunk`
 frames (its full-resolution transients grow with the frame count: 49 frames
-at 392x518 at the loop's second rebuild). The JAX module's param host
-offload and mesh sharding are not part of this single-card port.
+at 392x518 at the loop's second rebuild). With a mesh (a multi-GPU run,
+every rank given the same crops), the per-frame work (patch encoder, frame
+attention, depth head) is split over the ranks when their count divides the
+frame count, the global attention takes the mesh routes (head-sharded, or
+the ring where the heads do not divide), and every rank returns the whole
+result. The JAX module's parameter host offload (a single-device memory
+tactic) is not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from evoworld_tpu_torch.models.vggt.aggregator import Aggregator, AggregatorConfig
+from evoworld_tpu_torch.models.vggt.aggregator import Aggregator, AggregatorConfig, frame_shard, gather_frames
 from evoworld_tpu_torch.models.vggt.geometry import pose_encoding_to_extri_intri, unproject_depth_map_to_point_map
 from evoworld_tpu_torch.models.vggt.heads import CameraHead, DPTConfig, DPTHead
 from evoworld_tpu_torch.ops.resize import resize_half_pixel
@@ -110,12 +115,14 @@ class Reconstructor:
     colors (S, h, w, 3), at VGGT's working resolution h x w (392 x 518 for
     384 x 512 crops), by depth unprojection (the upstream loop's
     "depth_unproject" mode). The model is expected on one device in
-    `compute_dtype` (its norms and LayerScales may stay fp32)."""
+    `compute_dtype` (its norms and LayerScales may stay fp32). `mesh`: an
+    optional `parallel.mesh.Mesh` to shard over."""
 
-    def __init__(self, model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8):
+    def __init__(self, model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8, mesh=None):
         self.model = model.eval()
         self.compute_dtype = compute_dtype
         self.head_chunk = head_chunk
+        self.mesh = mesh
         self.device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -124,21 +131,27 @@ class Reconstructor:
         batch = load_and_preprocess_images(torch.as_tensor(images).to(self.device))
         x = batch.to(self.compute_dtype)
         s, hw = x.shape[1], tuple(x.shape[2:4])
-        outputs, patch_hw = model.aggregator(x)
-        pose_enc = model.predict_cameras(outputs)
+        lo, hi = frame_shard(s, self.mesh)
+        sharded = hi - lo < s
+        outputs, patch_hw = model.aggregator(x, self.mesh)
+        camera_tokens = outputs[-1][:, :, 0, :]  # the camera head attends over every frame's
+        pose_enc = model.camera_head(gather_frames(camera_tokens, self.mesh) if sharded else camera_tokens)
         layer_tokens = model.tap_patch_tokens(outputs)
         del outputs
-        chunk = max(1, min(self.head_chunk, s))
+        chunk = max(1, min(self.head_chunk, hi - lo))
         depth_out = torch.cat([
             model.depth_head([t[i:i + chunk] for t in layer_tokens], patch_hw, hw).float()
-            for i in range(0, s, chunk)
+            for i in range(0, hi - lo, chunk)
         ])
+        if sharded:
+            depth_out = gather_frames(depth_out[None], self.mesh)[0]
         depth, conf = decode_depth(depth_out)
         extrinsic, intrinsic = pose_encoding_to_extri_intri(pose_enc[0], hw)
         points = unproject_depth_map_to_point_map(depth, extrinsic, intrinsic)
         return {"world_points": points, "conf": conf, "extrinsic": extrinsic, "colors": batch[0]}
 
 
-def make_reconstructor(model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8) -> Reconstructor:
-    """Wrap a VGGT model as the `UnifiedLoop` reconstructor (one device)."""
-    return Reconstructor(model, compute_dtype, head_chunk)
+def make_reconstructor(model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8, mesh=None
+                       ) -> Reconstructor:
+    """Wrap a VGGT model as the `UnifiedLoop` reconstructor (sharded over `mesh` when given)."""
+    return Reconstructor(model, compute_dtype, head_chunk, mesh)

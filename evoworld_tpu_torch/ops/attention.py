@@ -12,19 +12,72 @@ Routes of `multi_head_attention` on (B, S, H, D) tensors:
   - everything else (2304-token level-1 attention, 25-frame temporal
     attention, CLIP's 257 tokens): plain attention with fp32 logits and
     softmax and matmuls in the input dtype.
-The JAX package's mesh routes (head-sharded and ring attention) are not part
-of this single-card port.
+Inside `head_sharded_attention(mesh)` (a multi-GPU run; the
+reconstructor's global attention), self-attention with at least
+FLASH_MIN_SEQ tokens (or the context's `min_seq`) over inputs that every
+rank of `mesh` holds whole takes a mesh route instead, and every rank gets
+the whole output:
+  - heads divisible by the mesh size: each rank runs the flash forward on its
+    slice of heads and an all-gather joins them;
+  - otherwise: ring attention over sequence shards (`ops/ring_attention.py`).
+Both are forward only (the JAX package's `_head_sharded` and
+`seq_sharded_ring`); under grad they raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
-from evoworld_tpu_torch.ops.flash_attention import flash_attention
+from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_forward
 
 FLASH_MIN_SEQ = 4096
+_HEAD_SHARD = (None, None)  # (mesh, min_seq) of the innermost `head_sharded_attention`
+
+
+@contextlib.contextmanager
+def head_sharded_attention(mesh, min_seq: int | None = None):
+    """Route long self-attention over `mesh` (None: no routing) while the
+    context is active. The inputs of every routed attention must be the same
+    on every rank. A mesh of one rank runs the flash forward on all heads
+    (the route's arithmetic, without a collective).
+
+    `min_seq` lowers the threshold (FLASH_MIN_SEQ tokens; VGGT's global
+    attention has 26,025 and up). Left None, a context keeps the threshold
+    of the one around it: a tiny gate wraps a reconstructor call in
+    `head_sharded_attention(None, 16)`, which routes nothing itself, and
+    the aggregator's `head_sharded_attention(mesh)` around its global blocks
+    then routes from 16 tokens."""
+    global _HEAD_SHARD
+    prev = _HEAD_SHARD
+    _HEAD_SHARD = (mesh, prev[1] if min_seq is None else min_seq)
+    try:
+        yield
+    finally:
+        _HEAD_SHARD = prev
+
+
+def head_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, mesh) -> torch.Tensor:
+    """Each rank's slice of H / W heads through the flash forward, joined by an all-gather."""
+    from evoworld_tpu_torch.parallel.collectives import all_gather
+
+    hl = q.shape[2] // mesh.size
+    heads = slice(mesh.rank * hl, (mesh.rank + 1) * hl)
+    out, _ = flash_attention_forward(q[:, :, heads], k[:, :, heads], v[:, :, heads], scale, k.shape[1])
+    full = all_gather(out.permute(2, 0, 1, 3).contiguous(), mesh)       # (H, B, S, D)
+    return full.permute(1, 2, 0, 3)
+
+
+def _mesh_route(q, k, v, scale, mesh):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError("the mesh attention routes are forward only; run them under torch.no_grad()")
+    if q.shape[2] % mesh.size == 0:
+        return head_sharded(q, k, v, scale, mesh)
+    from evoworld_tpu_torch.ops.ring_attention import seq_sharded_ring
+
+    return seq_sharded_ring(q, k, v, scale, mesh)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -53,6 +106,9 @@ def multi_head_attention(
     scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "auto" and k.shape[1] == 1 and v.shape[-1] == q.shape[-1]:
         return v.expand(q.shape).to(q.dtype)
+    mesh, min_seq = _HEAD_SHARD
+    if mesh is not None and impl == "auto" and q.shape[1] == k.shape[1] >= (min_seq or FLASH_MIN_SEQ):
+        return _mesh_route(q, k, v, scale, mesh)
     if impl == "flash" or (q.is_cuda and q.shape[1] >= FLASH_MIN_SEQ):
         return flash_attention(q, k, v, scale=scale)
     return plain_attention(q, k, v, scale).to(q.dtype)

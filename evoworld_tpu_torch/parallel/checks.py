@@ -1,0 +1,288 @@
+"""The composed multi-GPU loop gate and the rank functions of the port's
+sharded checks (counterpart of `evoworld_tpu/parallel/checks.py`).
+
+One tiny episode of the evolving-memory loop with the mesh in all three
+stages at once (the CFG-parallel clip, VGGT with frames split and its global
+attention on the head-sharded route, the view-sharded render), held to the
+same episode run in one process by `assert_episode_close`: at least 99% of
+pixels within 3e-2, and no segment pixel more than 0.2 away (a splatted
+point that a reordered sum moves across a pixel edge, or past another at a
+z-buffer tie, changes a memory pixel outright, so the memories get the
+share alone). The configurations are the JAX gate's:
+`tiny_gate_pipeline_setup`, `tiny_gate_vggt`.
+
+The rank functions take the rank's `parallel.mesh.Mesh` first, as
+`parallel/launch.py::spawn` calls them, and return CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tiny_gate_pipeline_setup(n_devices: int):
+    """(num_frames, PipelineConfig, make_random_pipeline keyword arguments) of the gate's tiny pipeline."""
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+    from evoworld_tpu_torch.models.clip import CLIPVisionConfig
+    from evoworld_tpu_torch.models.unet import UNetConfig
+    from evoworld_tpu_torch.models.vae import VAEConfig
+
+    f = n_devices
+    cfg = PipelineConfig(height=64, width=128, num_frames=f, num_steps=2, decode_chunk=f, encode_chunk=f + 1)
+    kwargs = dict(
+        unet_config=UNetConfig(block_out_channels=(32, 64, 128, 128), num_attention_heads=(2, 4, 8, 8),
+                               layers_per_block=1),
+        vae_config=VAEConfig(block_out_channels=(32, 64, 128, 128)),
+        clip_config=CLIPVisionConfig(hidden_size=64, num_layers=2, num_heads=4, mlp_dim=128),
+        compute_dtype=torch.float32,
+        seed=7,
+    )
+    return f, cfg, kwargs
+
+
+def tiny_gate_vggt(n_devices: int, device: str | torch.device = "cpu", dtype: torch.dtype = torch.float32):
+    """The gate's tiny VGGT, random from seed 3; heads == n_devices, so the
+    global attention takes the head-sharded route."""
+    from evoworld_tpu_torch.models.vggt.aggregator import AggregatorConfig
+    from evoworld_tpu_torch.models.vggt.model import VGGT, VGGTConfig
+    from evoworld_tpu_torch.models.weights import init_random_
+
+    with torch.device("meta"):
+        model = VGGT(VGGTConfig(aggregator=AggregatorConfig(
+            embed_dim=8 * n_devices, depth=4, num_heads=n_devices, num_register_tokens=2,
+            output_layers=(0, 1, 2, 3), patch_encoder_depth=1)))
+    dev = torch.device(device)
+    return init_random_(model.to_empty(device=dev), torch.Generator(device=dev).manual_seed(3)).to(dtype)
+
+
+def _gate_reconstructor(n_devices: int, mesh, dev: torch.device):
+    """The gate's tiny VGGT as a reconstructor whose global attention takes
+    the mesh route from 16 tokens (the tiny sequences are far below 4096)."""
+    from evoworld_tpu_torch.models.vggt.model import make_reconstructor
+    from evoworld_tpu_torch.ops.attention import head_sharded_attention
+
+    base = make_reconstructor(tiny_gate_vggt(n_devices, dev).requires_grad_(False), torch.float32, mesh=mesh)
+
+    def recon(images):
+        with head_sharded_attention(None, 16):  # a threshold for the aggregator's own context; routes nothing
+            return base(images)
+
+    return recon
+
+
+def run_composed_loop(n_devices: int, mesh=None, device: str | torch.device = "cpu", memories=None) -> dict:
+    """The tiny 2-segment episode, sharded over `mesh` (None: one process).
+    Returns the `run_episode` dict with CPU tensors. With `memories` (another
+    run's renders) the episode is teacher-forced at the memory: each rebuild
+    still renders (and returns) its own, but the next segment is conditioned
+    on the given one, so that a segment is compared with another run's given
+    the same conditioning."""
+    from evoworld_tpu_torch.diffusion.pipeline import make_random_pipeline
+    from evoworld_tpu_torch.loop.navigator import Navigator
+    from evoworld_tpu_torch.loop.unified import LoopConfig, UnifiedLoop
+
+    dev = torch.device(device)
+    f, pipe_cfg, pipe_kwargs = tiny_gate_pipeline_setup(n_devices)
+    pipe = make_random_pipeline(pipe_cfg, device=dev, mesh=mesh, **pipe_kwargs)
+    recon = _gate_reconstructor(n_devices, mesh, dev)
+    loop_cfg = LoopConfig(num_segments=2, num_frames=f, num_target_view=f - 1, pers_height=48, pers_width=64)
+    n_poses = 2 * (f - 1) + f + 5
+    poses = np.zeros((n_poses, 6), np.float32)
+    poses[:, 2] = np.arange(n_poses) * 0.4
+    start = torch.full((64, 128, 3), 0.1, device=dev)
+    loop = UnifiedLoop(Navigator(pipe, num_frames=f), recon, loop_cfg, mesh=mesh)
+    own = []
+    if memories is not None:
+        rebuild = loop.rebuild_memory
+
+        def forced(*args, **kwargs):
+            own.append(rebuild(*args, **kwargs))
+            return memories[len(own) - 1].to(dev)
+
+        loop.rebuild_memory = forced
+    out = loop.run_episode(start, poses * 0.1, poses, draws=torch.Generator(device=dev).manual_seed(0))
+    if memories is not None:
+        out["memories"] = own
+    return {k: [t.cpu() for t in v] for k, v in out.items()}
+
+
+def assert_episode_close(ref: dict, got: dict) -> None:
+    """Sharded episode == one-process episode, up to splat flips in the memory."""
+    if len(got["segments"]) != 2 or len(got["memories"]) != 1:
+        raise AssertionError(f"{len(got['segments'])} segments and {len(got['memories'])} memories, expected 2 and 1")
+    for name, max_abs in (("segments", 0.2), ("memories", None)):
+        for i, (a, b) in enumerate(zip(ref[name], got[name])):
+            diff = np.abs(np.asarray(a) - np.asarray(b))
+            frac = (diff <= 3e-2).mean()
+            if frac < 0.99:
+                raise AssertionError(f"{name} {i}: only {frac:.4f} of pixels within 3e-2")
+            if max_abs is not None and diff.max() > max_abs:
+                raise AssertionError(f"{name} {i}: max abs diff {diff.max():.3f}")
+
+
+def attention_rank(mesh, cases: list) -> dict:
+    """Each case (name, q, k, v numpy (B, S, H, D)) through
+    `multi_head_attention` under `head_sharded_attention(mesh, 1)` (head
+    sharding where the mesh size divides H, else the ring) on this rank's
+    device -> {name: output, "_mesh": (data, model, rank, backend)}."""
+    from evoworld_tpu_torch.ops.attention import head_sharded_attention, multi_head_attention
+
+    out = {"_mesh": (mesh.data, mesh.model, mesh.rank, mesh.backend)}
+    for name, q, k, v in cases:
+        with torch.no_grad(), head_sharded_attention(mesh, min_seq=1):
+            out[name] = multi_head_attention(*(torch.as_tensor(t, device=mesh.device) for t in (q, k, v))).cpu()
+    return out
+
+
+def render_rank(mesh, points, colors, valid, poses, height: int, width: int) -> torch.Tensor:
+    """`memory/render.py::render_memory_panoramas` of numpy inputs, views split over `mesh`."""
+    from evoworld_tpu_torch.memory.render import render_memory_panoramas
+
+    args = [torch.as_tensor(a, device=mesh.device) for a in (points, colors, valid, poses)]
+    return render_memory_panoramas(*args, height, width, mesh=mesh).cpu()
+
+
+def gate_clip(n_devices: int, mesh=None, device: str | torch.device = "cpu") -> torch.Tensor:
+    """One clip of the gate's tiny pipeline on fixed inputs and draws (sharded over `mesh` when given)."""
+    from evoworld_tpu_torch.diffusion.pipeline import make_random_pipeline
+
+    dev = torch.device(device)
+    f, cfg, kwargs = tiny_gate_pipeline_setup(n_devices)
+    pipe = make_random_pipeline(cfg, device=dev, mesh=mesh, **kwargs)
+    g = torch.Generator().manual_seed(5)
+    image = torch.rand((cfg.height, cfg.width, 3), generator=g) * 2 - 1
+    plucker = torch.randn((f, 6, cfg.latent_height, cfg.latent_width), generator=g)
+    memory = torch.rand((f, cfg.height, cfg.width, 3), generator=g) * 2 - 1
+    latents = torch.randn((f, cfg.latent_height, cfg.latent_width, 4), generator=g)
+    cond_noise = torch.randn((f + 1, cfg.height, cfg.width, 3), generator=g)
+    return pipe(*(t.to(dev) for t in (image, plucker, memory)), latents=latents.to(dev),
+                cond_noise=cond_noise.to(dev)).cpu()
+
+
+def gate_reconstruct(n_devices: int, frames: int, mesh=None, device: str | torch.device = "cpu") -> dict:
+    """The gate's tiny VGGT on `frames` fixed 16x512 crops (one patch row at
+    width 518), sharded over `mesh` when given, its global attention on the
+    mesh routes from 16 tokens."""
+    dev = torch.device(device)
+    recon = _gate_reconstructor(n_devices, mesh, dev)
+    crops = torch.rand((frames, 16, 512, 3), generator=torch.Generator().manual_seed(6))
+    return {k: v.cpu() for k, v in recon(crops.to(dev)).items()}
+
+
+def sharded_serving_rank(mesh, n_devices: int, vggt_frames: int) -> dict:
+    """The clip, VGGT and the composed loop of the gate on this rank, sharded over `mesh`."""
+    return {"clip": gate_clip(n_devices, mesh, mesh.device),
+            "vggt": gate_reconstruct(n_devices, vggt_frames, mesh, mesh.device),
+            "loop": run_composed_loop(n_devices, mesh, mesh.device)}
+
+
+def _launch_counts() -> list:
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    return [flash_attention.launches, flash_attention_backward.launches]
+
+
+def _reset_launch_counts() -> None:
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    flash_attention.launches = flash_attention_backward.launches = 0
+
+
+def route_rank(mesh, shape: tuple, dtype: str, seed: int) -> dict:
+    """Self-attention of (B, S, H, D) draws (the same on every rank) in
+    `dtype` through the mesh route on this rank's card: its flash launches
+    (counted from 0 around the routed call alone), its milliseconds (a
+    second, warm call between barriers), and its errors over the RMS of the
+    plain version in fp32 on the same inputs, and against the one-process
+    kernel's output."""
+    import torch.distributed as dist
+
+    from evoworld_tpu_torch.ops.attention import head_sharded_attention, multi_head_attention
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention_forward, flash_attention_plain
+
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(getattr(torch, dtype)) for _ in range(3))
+    scale = 1.0 / shape[-1] ** 0.5
+    with torch.no_grad(), head_sharded_attention(mesh):
+        _reset_launch_counts()
+        out = multi_head_attention(q, k, v)
+        torch.cuda.synchronize(dev)
+        launches = _launch_counts()
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = multi_head_attention(q, k, v)
+        end.record()
+        end.synchronize()
+        dist.barrier()
+        single = flash_attention_forward(q, k, v, scale, shape[1])[0]
+        plain = flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - plain).abs()
+    rms = plain.pow(2).mean().sqrt()
+    return dict(route="head_sharded" if shape[2] % mesh.size == 0 else "ring", world_size=mesh.size, rank=mesh.rank,
+                shape=list(shape), dtype=dtype, launches=launches, ms=start.elapsed_time(end),
+                max_abs_err=err.max().item(), max_rel_err=(err.max() / rms).item(),
+                mean_rel_err=(err.mean() / rms).item(), max_abs_vs_one_process=(out - single).abs().max().item(),
+                repeat_equal=bool(torch.equal(out, again)), finite=bool(torch.isfinite(out).all()))
+
+
+def gate_rank(mesh, n_devices: int) -> dict:
+    """The composed loop gate's sharded episode on this rank's device, with
+    TF32 off (full fp32, as the one-process side runs it), and its flash launches."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    _reset_launch_counts()
+    out = run_composed_loop(n_devices, mesh, mesh.device)
+    return {"loop": out, "launches": _launch_counts()}
+
+
+def episode_rank(mesh, steps: int, num_segments: int, seed: int, scaled, camera_params) -> dict:
+    """A full-width episode (`LoopConfig()` but `num_segments`, 1024x576,
+    `steps` denoise steps, bf16, the pipeline and VGGT-1B random from `seed`)
+    sharded over `mesh`, on the camera rows given: seconds, stage seconds,
+    peak memory, flash launches, each output's shape, finiteness and SHA-256
+    (the ranks' outputs are compared by it), and on rank 0 the first
+    segment's frames (to hold against the same episode in one process)."""
+    import dataclasses
+    import hashlib
+    import time
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+    from evoworld_tpu_torch.loop.navigator import Navigator
+    from evoworld_tpu_torch.loop.unified import LoopConfig, UnifiedLoop
+    from evoworld_tpu_torch.runtime import build_pipeline, build_reconstructor
+
+    dev = mesh.device
+    cfg, loop_cfg = PipelineConfig(num_steps=steps), dataclasses.replace(LoopConfig(), num_segments=num_segments)
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, "full", seed=seed, compute_dtype=torch.bfloat16, device=dev, mesh=mesh)
+    recon = build_reconstructor("full", seed=seed, compute_dtype=torch.bfloat16, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    start = torch.rand((cfg.height, cfg.width, 3), generator=g, device=dev) * 2 - 1
+    loop = UnifiedLoop(Navigator(pipe, num_frames=loop_cfg.num_frames), recon, loop_cfg, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    out = loop.run_episode(start, scaled, camera_params, draws=g, timings=timings)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    outputs = [("segment", t) for t in out["segments"]] + [("memory", t) for t in out["memories"]]
+    return dict(rank=mesh.rank, world_size=mesh.size, steps=steps, num_segments=num_segments, build_s=build_s,
+                seconds=seconds, stage_seconds=timings, peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                launches=_launch_counts(), first_segment=out["segments"][0].cpu() if mesh.rank == 0 else None,
+                outputs=[dict(kind=kind, shape=list(t.shape), finite=bool(torch.isfinite(t).all()),
+                              sha256=hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest())
+                         for kind, t in outputs])
+
+
+
+def cli_rank(mesh, module: str, argv: list) -> list:
+    """`evoworld_tpu_torch.cli.<module>.main(argv)` on this rank's device,
+    as `torchrun --nproc-per-node W -m evoworld_tpu_torch.cli.<module>` runs it."""
+    import importlib
+
+    return importlib.import_module(f"evoworld_tpu_torch.cli.{module}").main(argv, device=str(mesh.device))

@@ -18,6 +18,13 @@ flash-attention kernels exist in those three types, and the attention
 dispatch never falls back to plain attention on the card. Any other dtype
 (float64) raises ValueError there before any weight is drawn; the CPU takes
 any dtype.
+
+A multi-GPU serving run is one process per rank under `torchrun`:
+`inference_setup` brings the process group up (WORLD_SIZE > 1 in the
+environment), gives each rank `cuda:LOCAL_RANK % device_count` and returns
+the mesh (`runtime.mesh_data` x `runtime.mesh_model` ranks, the JAX
+package's `_inference_mesh`), which `build_pipeline` and
+`build_reconstructor` shard over.
 """
 
 from __future__ import annotations
@@ -89,6 +96,29 @@ def check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) 
         )
 
 
+def inference_setup(device: str | torch.device = "cuda", mesh_data: int = 0, mesh_model: int = 1):
+    """(this rank's device, the serving mesh or None).
+
+    With WORLD_SIZE > 1 in the environment (`torchrun --nproc-per-node W`)
+    the process group comes up (`parallel/mesh.py::init_distributed`: NCCL
+    where each rank has a card of its own, gloo where ranks share one) unless
+    it is up already, and the mesh is `mesh_data` x `mesh_model` ranks
+    (`mesh_data` 0: all of them over `mesh_model`). One process: the
+    resolved device and no mesh."""
+    import torch.distributed as dist
+
+    from evoworld_tpu_torch.parallel.mesh import init_distributed, make_mesh, rank_device
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 and not dist.is_initialized():
+        return resolve_device(device), None
+    if dist.is_initialized():
+        dev = rank_device(device, int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+    else:
+        dev = init_distributed(device)
+    mesh = make_mesh(dev, mesh_data, mesh_model)
+    return dev, (mesh if mesh.size > 1 else None)
+
+
 def _preset(presets: dict, name: str):
     if name not in presets:
         raise ValueError(f"unknown model_preset {name!r}; choose from {sorted(presets)}")
@@ -103,9 +133,11 @@ def build_pipeline(
     device: str | torch.device = "cuda",
     checkpoint_dir: str | None = None,
     allow_random_weights: bool = True,
+    mesh=None,
 ) -> PanoDiffusionPipeline:
     """Build the diffusion pipeline from a checkpoint directory, or with
-    deterministic random weights.
+    deterministic random weights; sharded over `mesh` (`inference_setup`)
+    when given, every rank building the same weights.
 
     With `checkpoint_dir` holding `unet/`, `vae/` and `image_encoder/`
     safetensors, the preset's three models are filled from them (strict
@@ -125,10 +157,10 @@ def build_pipeline(
     models = _load_checkpoint_models(checkpoint_dir, (unet_cfg, vae_cfg, clip_cfg), dev, (compute_dtype,) * 3,
                                      allow_random_weights)
     if models is not None:
-        return PanoDiffusionPipeline(*models, pipeline_config, compute_dtype)
+        return PanoDiffusionPipeline(*models, pipeline_config, compute_dtype, mesh)
     logger.warning(f"Building the {model_preset} pipeline with RANDOM weights (seed {seed})")
     return make_random_pipeline(
-        pipeline_config, unet_cfg, vae_cfg, clip_cfg, seed=seed, compute_dtype=compute_dtype, device=dev
+        pipeline_config, unet_cfg, vae_cfg, clip_cfg, seed=seed, compute_dtype=compute_dtype, device=dev, mesh=mesh
     )
 
 
@@ -205,9 +237,11 @@ def build_reconstructor(
     device: str | torch.device = "cuda",
     vggt_checkpoint: str | None = None,
     allow_random_weights: bool = True,
+    mesh=None,
 ) -> Reconstructor:
     """The loop's VGGT reconstructor, from a checkpoint or with deterministic
-    random weights.
+    random weights; sharded over `mesh` when given (frames, and the global
+    attention on the head-sharded or ring route, `ops/attention.py`).
 
     The model is built on the meta device and filled by `init_random_` from a
     generator seeded with `seed` on `device`. With `vggt_checkpoint` (an
@@ -249,4 +283,4 @@ def build_reconstructor(
     for name, p in model.named_parameters():
         if not _keep_fp32(name):
             p.data = p.data.to(compute_dtype)
-    return make_reconstructor(model.requires_grad_(False), compute_dtype)
+    return make_reconstructor(model.requires_grad_(False), compute_dtype, mesh=mesh)

@@ -10,6 +10,7 @@ entries' own lines, naming the function; the report must attach it to that
 entry so that the smoke run fails on it.
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -379,3 +380,98 @@ def test_fp32_phase_runs_at_tiny_size_on_the_cpu(fp16_run):
     assert len(train["losses"]) == 2 and train["norm1_grad_abs_max"] > 0
     assert train["frames"] == 5 and train["cut"] == []
     assert result["reproject"]["renders"] == 10 and result["reproject"]["render_shape"] == [64, 128, 3]
+
+
+def test_tools_phase_runs_at_tiny_size_on_the_cpu(prepped):
+    """Phase 17 on phase 11's files at the tiny presets (the tiny
+    configurations standing in for the full-width ones the converter check
+    reads against), on the CPU: the parity gate passes against phase 11's
+    own frames and exits with code 1 against them perturbed; a small cloud
+    is written as PLY and OBJ."""
+    import torch
+
+    from evoworld_tpu_torch import runtime
+
+    g = torch.Generator().manual_seed(0)
+    cloud = {"world_points": torch.randn((70000, 3), generator=g), "colors": torch.rand((70000, 3), generator=g)}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(runtime.PRESETS, "full", runtime.PRESETS["tiny"])
+        result = chip_smoke.full_tools(torch.device("cpu"), 2, 0, prepped[0], cloud, overrides=TINY)
+    runs = result["validate_parity"]
+    assert runs["own_frames"]["exit_code"] == 0 and runs["perturbed"]["exit_code"] == 1
+    assert runs["own_frames"]["launches"] == [0, 0] and result["expected_launches"] == [0, 0]
+    assert result["export"]["cloud.ply"]["first_lines"][0] == "element vertex 70000\n"
+    assert result["export"]["cloud.obj"]["bytes"] > result["export"]["cloud.ply"]["bytes"] > 70000 * 12
+
+
+def test_sharded_clip_launches_follow_the_chunks():
+    """Each rank's share of a full clip's flash launches at W = 2: 5 a step,
+    7 of the 13 encode chunks (the last rank repeating one), 3 of the 5
+    decode chunks; one process is the single clip's 5N + 18."""
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+
+    assert chip_smoke.sharded_clip_launches(4, PipelineConfig(), 2) == 5 * 4 + 7 + 3
+    assert chip_smoke.sharded_clip_launches(4, PipelineConfig(), 1) == 5 * 4 + 18
+
+
+def test_memory_flip_reading_names_each_kind_of_flip():
+    """Two clouds rendered at one pose: a point that moves behind another
+    flips its 2 x 2 footprint by depth order, a point that leaves the
+    confidence mask empties its footprint, and a point that moves across a
+    pixel edge takes its footprint one pixel over; the index render's
+    winners give back each memory's colours."""
+    import torch
+
+    from evoworld_tpu_torch.memory.render import render_memory_panoramas
+
+    # u = (atan2(x, z) / 2 pi + 0.5) * 32: point 4 at u = 28.01 on one side and 27.99 on the other.
+    lon = [(28.01 / 32 - 0.5) * 2 * math.pi, (27.99 / 32 - 0.5) * 2 * math.pi]
+    points = torch.tensor([[0.0, 0.0, 2.0], [0.0, 0.0, 2.5], [0.0, 0.0, -10.0], [3.0, 0.0, 0.0],
+                           [4 * math.sin(lon[0]), 0.0, 4 * math.cos(lon[0])]])
+    colors = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0], [1.0, 1.0, 1.0], [1.0, 0.0, 1.0]])
+    pose = torch.cat([torch.eye(3), torch.zeros(3, 1)], dim=1)[None]
+    ref = dict(points=points, colors=colors, valid=torch.ones(5, dtype=torch.bool), target_c2w=pose, height=16,
+               width=32)
+    got = dict(ref, points=points.clone(), valid=torch.tensor([True, True, True, False, True]))
+    got["points"][0, 2] = 2.6
+    got["points"][4] = torch.tensor([4 * math.sin(lon[1]), 0.0, 4 * math.cos(lon[1])])
+    memories = [render_memory_panoramas(r["points"], r["colors"], r["valid"], r["target_c2w"], 16, 32) for r in (ref, got)]
+    reading = chip_smoke.memory_flip_reading(ref, got, *memories, torch.device("cpu"))
+    # the edge crossing: footprint columns 28-29 become 27-28, so columns 27 and 29 flip (two rows each)
+    assert reading["kinds"] == {"depth_order": 4, "validity": 4, "pixel_edge": 4} and reading["flipped"] == 12
+    assert reading["winners_reproduce"] and reading["validity_changed"] == 1
+    assert reading["edge_crossings"] == 1 and reading["max_edge_move_px"] == pytest.approx(0.02, abs=1e-4)
+    assert reading["max_edge_distance_px"] == pytest.approx(0.01, abs=1e-4)
+    assert reading["max_point_shift"] == pytest.approx(0.3)
+    assert 0 < reading["depth_quantum"] < 1e-3
+    order = next(r for r in reading["rows"] if r["kind"] == "depth_order")
+    assert order["winners"] == [0, 1] and order["covers"] == [[True, True], [True, True]]
+    assert order["depth_gap"] == [pytest.approx(0.25), pytest.approx(0.1 / 2.6)]
+
+
+def test_segment_agreement_holds_the_gate_rule():
+    """The composed gate's rule on a segment: a little noise passes, the
+    same frames rolled by a chunk or one pixel in a hundred moved by 0.3 fail."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    ref = torch.rand((10, 8, 16, 3), generator=g)
+    assert chip_smoke.segment_agreement(ref, ref + 1e-3 * torch.randn(ref.shape, generator=g))["passes"]
+    assert not chip_smoke.segment_agreement(ref, torch.roll(ref, 5, 0))["passes"]
+    moved = ref.clone()
+    moved[0, 0, 0, 0] += 0.3
+    result = chip_smoke.segment_agreement(ref, moved)
+    assert not result["passes"] and result["share_within_3e_2"] > 0.99 and result["rel_rms"] < 0.01
+
+
+def test_mesh_gate_runs_on_the_cpu(tmp_path):
+    """Phase 18(b) as the card runs it, on two CPU ranks against one rank in
+    this process: the teacher-forced and the pixel-swapped episodes pass the
+    gate, and the reading's winners give back the memories' colours."""
+    import torch
+
+    gate = chip_smoke.mesh_gate(torch.device("cpu"), str(tmp_path))
+    assert gate["launches"] == [[0, 0], [0, 0]]
+    assert gate["flipped_pixels"]["winners_reproduce"]
+    for run in gate["teacher_forced"] + gate["flipped_pixels_swapped"]["vs_ranks"]:
+        assert min(run["segments"]["share_within_3e_2"]) >= 0.99
