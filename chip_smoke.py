@@ -59,7 +59,9 @@ The training slice (EDM fine-tuning) adds:
 The loop slice (the evolving-memory loop) adds:
   3. rows at VGGT's global attention, (1, 26025, 16, 64) and (1, 51009, 16,
      64) at the loop's two rebuilds (25 and 49 frames x 1041 tokens), and a
-     head dim the wrapper zero-pads to the D = 64 kernel, (2, 9216, 2, 16);
+     head dim the wrapper zero-pads to the D = 64 kernel, (2, 9216, 2, 16)
+     (the multi-GPU training slice adds VGGT's frame attention, (25, 1041,
+     16, 64), scripts/exp_vggt_attn.py's shape);
   9. a tiny fp32 3-segment loop on the card, each stage (clip generation,
      memory rebuild) held against the same stage on the CPU given the card's
      inputs (tiny pipeline and VGGT, 64x128 panoramas, 16x512 crops, the
@@ -219,6 +221,31 @@ mesh routes, the sharded clip, VGGT, render and loop) adds:
      `sharded_clip_launches` a clip and 24 a rebuild (steps, then segments,
      cut where two ranks run the card out of memory, and the cut
      reported). Two ranks on one card measure nothing of multi-GPU speed.
+The multi-GPU training slice (the data-parallel step with ZeRO-1 and ZeRO-2,
+rank-0 checkpoints, reproject under torchrun, VGGT's host parameter offload) adds:
+  3, 3b. a row whose profiler trace holds no device time is traced again, up
+     to TRACE_TRIES times, then timed by CUDA events if the kernel's launch
+     count moved once a call (else it fails); each row prints `timed_by`;
+  10. the episode's VGGT keeps its parameters in pinned host memory between
+     rebuilds (the default on one card), and each generate and reconstruct
+     call's peak memory is read;
+  19. on phase 10's, 11's and 14's files, W = 2 ranks sharing cuda:0 over gloo:
+     (a) `cli.reproject.main` on a fresh copy of phase 14's episode, VGGT's
+     global attention head-sharded (73 frames divide by no W): rank 0's 24
+     renders against phase 14's within MESH_RENDER_ATOL / MESH_RENDER_EQUAL,
+     rank 0 alone writing, the ranks' records equal, 24 launches a rank;
+     (b) `cli.train.main` at full width from phase 11's checkpoints and
+     episode, per-device batch 1, bf16, MESH_TRAIN_FRAMES frames (two ranks
+     share the 80 GB): a ZeRO-1 step and its checkpoint, a ZeRO-2 step
+     resumed from it at W = 2, then in this process at W = 1 (batch 2, the
+     same batch and draws) a fresh step 1 and a resume from the ranks'
+     step-1 checkpoint, each step held to the ranks' within MESH_TRAIN_RTOL,
+     MESH_TRAIN_WITHIN_LR and MESH_TRAIN_MU_RMS; `expected_train_launches` a
+     rank a step, rank 0 alone writing; (c) phase 10's episode cut to two segments with VGGT's
+     parameters kept on the card, against phase 10's: outputs bit for bit,
+     each stage's peak memory, seconds. Each sub-phase prints its seconds
+     and every rank's peak memory. Ranks sharing a card measure nothing of
+     multi-GPU speed.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card, so that both sides hold the same weights.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -361,6 +388,7 @@ FP32_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padde
 JPEG_FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_data")
 JPEG_FIXTURES = ("baseline_420", "restart_422", "progressive_420", "grey")
 FILL_MS = 20.0  # a timing repeats a call until about this much device time has passed
+TRACE_TRIES = 3  # profiler traces of a row before it is timed by events (its launch count checked)
 STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5  # a tenth of one update at lr 1e-4
 # The tiny loop on the card against the CPU, the CPU parity test's tolerances
 # (tests/test_torch_port_loop.py): frames atol 2e-3; at most 0.5% of memory
@@ -393,6 +421,17 @@ PREP_MASK_MAX_FLIPPED = 0.01
 CUBE_MAX_FLIPPED = 1e-3
 CUBE_FACE = 1024  # a capture's face size
 CUBE_PANO = (1000, 2000)  # the panoramas' size, the upstream converter's
+# Phase 19: two ranks sharing the card. Renders of reproject at W = 2 against
+# one process: at most this many levels of 255 apart, and at least this share
+# equal (bit for bit is predicted). The data-parallel training step: frames a
+# rank (the full step peaks at 63.4 GB alone: two ranks of 25 frames cannot
+# share 80 GB), and step 2 against the one-process step at batch 2 from the
+# same step-1 state (bf16 GEMMs at batch 1 against 2 round apart; a rank's
+# gradient left out of the mean moves the first moments by a large share of
+# their size and the masters by up to 2 lr in a quarter or more of them).
+MESH_RENDER_ATOL, MESH_RENDER_EQUAL = 1, 0.999
+MESH_TRAIN_FRAMES = 8
+MESH_TRAIN_RTOL, MESH_TRAIN_WITHIN_LR, MESH_TRAIN_MU_RMS = 1e-2, 0.95, 0.1
 
 
 def log(msg: str) -> None:
@@ -476,7 +515,12 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from evoworld_tpu_torch.ops.flash_attention import _plain_forward, flash_attention_forward, kernel_head_dim
+    from evoworld_tpu_torch.ops.flash_attention import (
+        _plain_forward,
+        flash_attention,
+        flash_attention_forward,
+        kernel_head_dim,
+    )
 
     cases = [  # (label, B, Sq, Skv, H, D, kv_len, use_exp2, with_lse)
         ("unet_l0_spatial", 50, 9216, 9216, 5, 64, 9216, False, False),
@@ -498,6 +542,9 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         ("vggt_global_49", 1, 51009, 51009, 16, 64, 51009, False, False),
         # reproject's VGGT over a 97-frame episode's 73 source frames (75993 = 593 x 128 + 89)
         ("vggt_global_73", 1, 75993, 75993, 16, 64, 75993, False, False),
+        # VGGT's frame attention over 25 frames of 1041 tokens (plain torch on the main path, under
+        # FLASH_MIN_SEQ), the shape of scripts/exp_vggt_attn.py's shipped-flash experiment
+        ("vggt_frame_25", 25, 1041, 1041, 16, 64, 1041, False, False),
         # a head dim without a kernel (the tiny presets' 16), zero-padded to 64
         ("padded_d16", 2, 9216, 9216, 2, 16, 9216, False, False),
         # head dim 128 at the backward's D = 128 row's shape
@@ -542,14 +589,16 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
                             dropped_keys_lse_err=(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[1]
                                                   - ref_lse).abs().max().item())
             del lse512
-        traced, traced_types = kernel_ms_from_trace(run, sorted({*FWD_KERNELS.values(), FP32_FWD_KERNEL}))
-        served = [n for n, t in traced.items() if t > 0]
+        traced, traced_types, timed_by = kernel_ms_from_trace(
+            run, sorted({*FWD_KERNELS.values(), FP32_FWD_KERNEL}), served=(served_by,), elem=elem,
+            counter=flash_attention)
+        served = [n for n, t in traced.items() if t is None or t > 0]  # None: launched, timed by events
         plain_ms = cuda_ms(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2), reps=1)
         qt, kt, vt = q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=None)
         ms_line = FWD_MS_LINES.get(label)
         row = dict(label=label, dtype=elem, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, use_exp2=use_exp2,
-                   with_lse=with_lse, kernel=served, kernel_types=traced_types,
+                   with_lse=with_lse, kernel=served, kernel_types=traced_types, timed_by=timed_by,
                    kernel_ms=traced[served_by], d_kernel=d_kernel, **err,
                    lse_max_abs_err=lse_err, dropped_keys_rel_err=[cut["max_rel_err"], cut["mean_rel_err"]],
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
@@ -717,9 +766,10 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
 
         ms = cuda_ms(bwd, reps=None)
         design, names = FP32_BWD_DESIGN if elem == "fp32" else BWD_DESIGNS[d]
-        traced, traced_types = kernel_ms_from_trace(bwd, BWD_KERNELS)
+        traced, traced_types, timed_by = kernel_ms_from_trace(bwd, BWD_KERNELS, served=names, elem=elem,
+                                                              counter=flash_attention_backward)
         split = {n: traced[n] for n in names}
-        strays = [n for n, t in traced.items() if t > 0 and n not in names]
+        strays = [n for n, t in traced.items() if n not in names and t > 0]
         plain_ms = cuda_ms(lambda: flash_attention_backward_plain(*f32, ref_lse, scale, kv_len), reps=1)
         del f32, ref_lse
         torch.cuda.empty_cache()
@@ -736,6 +786,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         nbytes = (4 * sq + 4 * kv_len) * b * h * d * q.element_size() + 2 * b * h * sq * 4
         bound = row_bound(flops, nbytes, elem)
         row = dict(label=label, dtype=elem, shape=[b, sq, h, d], skv=skv, kv_len=kv_len, kernel_types=traced_types,
+                   timed_by=timed_by,
                    **{f"{n}_{key}": e[key] for n, e in errs.items() for key in e},
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()),
                    lse_max_abs_err=lse_err, dropped_keys_lse_err=cut_lse_err,
@@ -764,7 +815,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         dq_summed = d in DQ_SUMMED_DIMS and elem != "fp32"
         if not (repeat["dkdv_equal"] and repeat["dq_ok"]) or (not dq_summed and not repeat["dq_equal"]):
             raise AssertionError(f"a second backward call differs from the first at {label}: {repeat}")
-        if not all(split.values()) or strays or traced_types != [elem]:
+        if not all(t is None or t > 0 for t in split.values()) or strays or traced_types != [elem]:
             raise AssertionError(f"the trace at {label} lacks a kernel of {design} or holds another's, or another "
                                  f"type than {elem}: {traced} in {traced_types}")
         if power_limit_w >= FULL_POWER_W and not row["within_ms_line"]:
@@ -783,32 +834,66 @@ def trace_elem_type(key: str) -> str | None:
     return next((t for t, name in TRACE_TYPE_NAMES.items() if name in key), None)
 
 
-def kernel_ms_from_trace(fn, names, reps: int = 3) -> tuple[dict, list]:
+def kernel_ms_from_trace(fn, names, reps: int = 3, served=(), elem: str | None = None, counter=None,
+                         tries: int = TRACE_TRIES, profiler=None, timer=None) -> tuple[dict, list, str]:
     """Mean device milliseconds per launch of each named kernel in `fn` (each
-    is launched once a call), from a profiler trace, and the element types of
-    the instantiations that ran. The mean is over the launches the trace
-    recorded: on the card it has been seen to drop the records of some calls
-    of a kernel that runs for hundreds of milliseconds."""
+    is launched once a call), from a profiler trace, the element types of
+    the instantiations that ran, and how the row was timed ("trace" or
+    "events"). The mean is over the launches the trace recorded: on the card
+    it has been seen to drop the records of some calls of a kernel that runs
+    for hundreds of milliseconds, and once every record of a row. A trace
+    with no device time for `names` is taken again, up to `tries` times in
+    all; after that the call is run under CUDA events (`timer`, `cuda_ms`)
+    and passes only if `counter` (the wrapper's launch count,
+    `flash_attention` or `flash_attention_backward`) moved once for every
+    call: a kernel that never launched fails the row either way. Such a row
+    has no time per kernel (each kernel of `served` reads None, the row's
+    `ms` being the call's), and its types are `elem`, the inputs'.
+    `profiler` (a context-manager factory with `key_averages()`, default
+    torch's CUDA profiler) and `timer` stand in for the card's off it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    if profiler is None:
+        from torch.profiler import ProfilerActivity, profile
+
+        def profiler():
+            return profile(activities=[ProfilerActivity.CUDA])
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    totals, counts = {n: 0.0 for n in names}, {n: 0 for n in names}
-    types = set()
-    for ev in prof.key_averages():
-        for n in names:
-            if n in ev.key:
-                totals[n] += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
-                counts[n] += ev.count
-                types.add(trace_elem_type(ev.key))
-    if not any(totals.values()):
-        raise AssertionError(f"the profiler trace holds no device time for {names}")
-    return {n: t / 1e3 / max(counts[n], 1) for n, t in totals.items()}, sorted(types, key=str)
+    sync()
+    for attempt in range(tries):
+        with profiler() as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        totals, counts = {n: 0.0 for n in names}, {n: 0 for n in names}
+        types = set()
+        for ev in prof.key_averages():
+            for n in names:
+                if n in ev.key:
+                    totals[n] += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+                    counts[n] += ev.count
+                    types.add(trace_elem_type(ev.key))
+        if any(totals.values()):
+            return {n: t / 1e3 / max(counts[n], 1) for n, t in totals.items()}, sorted(types, key=str), "trace"
+        log(f"the profiler trace holds no device time for {names} (try {attempt + 1} of {tries})")
+    if counter is None or not served:
+        raise AssertionError(f"the profiler trace holds no device time for {names}, and no launch count to time by")
+    calls = 0
+
+    def counted():
+        nonlocal calls
+        calls += 1
+        fn()
+
+    before = counter.launches
+    ms = (timer or cuda_ms)(counted, reps)
+    moved = counter.launches - before
+    if calls == 0 or moved != calls:
+        raise AssertionError(f"the profiler trace holds no device time for {names}, and the launch count moved "
+                             f"{moved} times in {calls} calls: {served} did not launch")
+    log(f"{served} launched once in each of {calls} calls, {ms:.4f} ms a call by events")
+    return {n: None if n in served else 0.0 for n in names}, [elem], "events"
 
 
 def twin_runs(cases: list[tuple], twins: tuple, fp32_twins: tuple = ()) -> list[tuple]:
@@ -1403,10 +1488,21 @@ def expected_loop_launches(steps: int, loop_cfg, vggt_config, flash_min_seq: int
     return total
 
 
-def full_loop(dev, steps: int, seed: int) -> dict:
-    """The full-width 3-segment episode through the entry points; checks
-    launches, shapes and finiteness, and reads stage seconds, peak memory and
-    each memory stack's coverage."""
+def full_loop(dev, steps: int, seed: int, num_segments: int | None = None, offload_params: bool | None = None,
+              keep: int = 2) -> dict:
+    """The full-width episode through the entry points (`LoopConfig()`, 3
+    segments unless `num_segments` says otherwise; VGGT's parameters offloaded
+    to the host between rebuilds unless `offload_params` is False); checks
+    launches, shapes and finiteness, and reads stage seconds, the episode's
+    peak memory, each stage's (every generate and reconstruct call, its
+    peak counted from the memory held as it starts) and each memory stack's
+    coverage. The episode's seconds include a synchronisation before and
+    after each of those calls. Keeps
+    the first rebuild's cloud, the first segment and, on the host, the first
+    `keep` segments and `keep - 1` memories (phase 19(c) holds an episode to
+    another)."""
+    import dataclasses
+
     import torch
 
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
@@ -1418,25 +1514,47 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     from evoworld_tpu_torch.runtime import VGGT_PRESETS, build_pipeline, build_reconstructor
 
     cfg, loop_cfg = PipelineConfig(num_steps=steps), LoopConfig()
+    if num_segments is not None:
+        loop_cfg = dataclasses.replace(loop_cfg, num_segments=num_segments)
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated(dev)  # what the process holds before the episode's models
     t0 = time.perf_counter()
     pipe = build_pipeline(cfg, "full", seed=seed, compute_dtype=torch.bfloat16, device=dev)
-    recon = build_reconstructor("full", seed=seed, compute_dtype=torch.bfloat16, device=dev)
+    recon = build_reconstructor("full", seed=seed, compute_dtype=torch.bfloat16, device=dev,
+                                offload_params=offload_params)
     torch.cuda.synchronize()
+    vggt_bytes = sum(t.numel() * t.element_size() for t in (*recon.model.parameters(), *recon.model.buffers()))
     log(f"full loop built in {time.perf_counter() - t0:.3f} s: VGGT {sum(p.numel() for p in recon.model.parameters())} "
-        f"parameters, pipeline {sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.clip_tower) for p in m.parameters())}")
+        f"parameters ({vggt_bytes} bytes, offloaded {recon.offload}), pipeline "
+        f"{sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.clip_tower) for p in m.parameters())}")
     rows = loop_cfg.num_segments * loop_cfg.num_target_view + loop_cfg.num_frames
     scaled, camera_params = synthetic_path(rows, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     start = torch.rand((cfg.height, cfg.width, 3), generator=g, device=dev) * 2 - 1
-    clouds = []
+    clouds, stage_peaks = [], {"generate": [], "reconstruct": []}
+    episode_peak = 0  # the peak before each call's reset; the episode's is the largest with the last stretch's
+
+    def peaked(stage, fn):
+        def run(*args, **kwargs):
+            nonlocal episode_peak
+            torch.cuda.synchronize(dev)
+            episode_peak = max(episode_peak, torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            stage_peaks[stage].append(torch.cuda.max_memory_allocated(dev))
+            return out
+        return run
 
     def reconstruct(images):  # keeps each rebuild's confidence-filtered cloud on the host (phase 17 exports one)
         preds = recon(images)
-        keep = confidence_mask(preds["conf"], loop_cfg.conf_percentile).reshape(-1)
-        clouds.append({k: preds[k].reshape(-1, 3)[keep].cpu() for k in ("world_points", "colors")})
+        keep_ = confidence_mask(preds["conf"], loop_cfg.conf_percentile).reshape(-1)
+        clouds.append({k: preds[k].reshape(-1, 3)[keep_].cpu() for k in ("world_points", "colors")})
         return preds
 
-    loop = UnifiedLoop(Navigator(pipe, num_frames=loop_cfg.num_frames), reconstruct, loop_cfg)
+    navigator = Navigator(pipe, num_frames=loop_cfg.num_frames)
+    navigator.generate_segment = peaked("generate", navigator.generate_segment)
+    loop = UnifiedLoop(navigator, peaked("reconstruct", reconstruct), loop_cfg)
     expected = expected_loop_launches(steps, loop_cfg, VGGT_PRESETS["full"], FLASH_MIN_SEQ)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1453,7 +1571,10 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     in_range = all(t.min().item() >= 0 and t.max().item() <= 1 for t in out["segments"]) and all(
         t.min().item() >= 0 and t.max().item() <= 1 + 1e-6 for t in out["memories"])
     result = dict(segments=loop_cfg.num_segments, frames=[t.shape[0] for t in out["segments"]], num_steps=steps,
-                  seconds=seconds, stage_seconds=timings, peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                  seconds=seconds, stage_seconds=timings,
+                  peak_memory_bytes=max(episode_peak, torch.cuda.max_memory_allocated(dev)),
+                  stage_peak_bytes=stage_peaks, baseline_bytes=baseline, vggt_bytes=vggt_bytes,
+                  offloaded=recon.offload,
                   memory_coverage=[(m.sum(-1) > 0).float().mean().item() for m in out["memories"]],
                   flash_launches=launches, expected_launches=expected, bwd_launches=bwd_launches,
                   finite=finite, in_range=in_range)
@@ -1468,11 +1589,13 @@ def full_loop(dev, steps: int, seed: int) -> dict:
     if launches != expected or bwd_launches:
         raise AssertionError(f"the episode launched the flash kernels {launches} / {bwd_launches} times, "
                              f"expected {expected} / 0")
-    first_segment = out["segments"][0].cpu()
-    del loop, pipe, recon, out
+    kept = {"segments": [t.cpu() for t in out["segments"][:keep]],
+            "memories": [t.cpu() for t in out["memories"][:keep - 1]]}
+    del loop, navigator, pipe, recon, out
     torch.cuda.empty_cache()
     result["cloud"] = clouds[0]  # the first rebuild's (25 frames); not in the logged line
-    result["first_segment"] = first_segment  # phase 18(c) holds the sharded episode's to it
+    result["first_segment"] = kept["segments"][0]  # phase 18(c) holds the sharded episode's to it
+    result["kept"] = kept  # phase 19(c) holds the episode without offload to these
     return result
 
 
@@ -3098,6 +3221,238 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
     return result
 
 
+def mesh_reproject(dev, workdir: str, overrides: tuple = ()) -> dict:
+    """Phase 19(a): `cli.reproject.main` on W = 2 ranks sharing `dev` (gloo)
+    on a fresh copy of phase 14's episode without its renders, with phase
+    14's flags: VGGT sharded over the ranks (73 frames divide by no W, so
+    only the global attention is, head-sharded). Rank 0's renders against
+    phase 14's one-process ones (decoded PNGs: at most MESH_RENDER_ATOL
+    levels apart and at least MESH_RENDER_EQUAL of the values equal; bit
+    for bit is predicted), the ranks' records equal, rank 0 alone writing,
+    and each rank's flash launches the one-process count."""
+    import numpy as np
+
+    from evoworld_tpu_torch.cli.common import load_frames
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.ops.attention import FLASH_MIN_SEQ
+    from evoworld_tpu_torch.parallel.launch import spawn
+    from evoworld_tpu_torch.runtime import VGGT_PRESETS
+
+    config = apply_overrides(EvoWorldConfig(), list(overrides))
+    loop_cfg, name = config.loop, config.data.reprojection_name
+    src_ep = os.path.join(workdir, "prep", "ep_1")
+    ep = os.path.join(workdir, "prep_mesh", "ep_1")
+    os.makedirs(ep)
+    for entry in os.listdir(src_ep):
+        if entry != name:
+            os.symlink(os.path.join(src_ep, entry), os.path.join(ep, entry))
+    argv = [f"--data.root={ep}", f"--runtime.vggt_checkpoint={workdir}/svd/model.pt",
+            "--runtime.allow_random_weights=false", f"--runtime.skyseg_onnx={workdir}/skyseg.onnx", *overrides]
+    t0 = time.perf_counter()
+    ranks = spawn("evoworld_tpu_torch.parallel.checks:reproject_rank", 2, os.path.join(workdir, "mesh_reproject"),
+                  device=dev.type, args=(argv,), threads=2 if dev.type == "cuda" else 1, timeout=600)
+    wall_s = time.perf_counter() - t0
+
+    def read(d):
+        return np.stack(load_frames([os.path.join(d, n) for n in sorted(os.listdir(d))]))
+
+    got, want = read(os.path.join(ep, name)), read(os.path.join(src_ep, name))
+    levels = np.abs(np.round(got * 255).astype(np.int32) - np.round(want * 255).astype(np.int32))
+    sources = len(os.listdir(os.path.join(ep, "panorama"))) - loop_cfg.num_target_view
+    expected = vggt_launches(sources, (loop_cfg.pers_height, loop_cfg.pers_width),
+                             VGGT_PRESETS["tiny" if config.runtime.vggt_tiny else "full"], FLASH_MIN_SEQ) \
+        if dev.type == "cuda" else 0
+    strip = lambda r: [(os.path.basename(x["episode"]), x["rendered"]) for x in r["records"]]  # noqa: E731
+    result = dict(wall_s=wall_s, renders=len(got), shape=list(got.shape[1:]), max_levels=int(levels.max()),
+                  equal_share=float((levels == 0).mean()), expected_launches=[expected, 0],
+                  ranks=[dict(rank=r["rank"], launches=r["launches"], seconds=r["seconds"], saved=len(r["saved"]),
+                              records=strip(r), peak_memory_bytes=r["peak_memory_bytes"],
+                              stage_seconds=r["records"][0]["stage_seconds"]) for r in ranks])
+    log("mesh reproject " + json.dumps(result))
+    if got.shape != want.shape or result["max_levels"] > MESH_RENDER_ATOL or result["equal_share"] < MESH_RENDER_EQUAL:
+        raise AssertionError(f"the ranks' renders are not phase 14's: {result}")
+    if [r["saved"] for r in result["ranks"]] != [1, 0] or strip(ranks[0]) != strip(ranks[1]):
+        raise AssertionError(f"rank 0 alone must write and every rank return the same records: {result['ranks']}")
+    if any(r["launches"] != [expected, 0] for r in ranks):
+        raise AssertionError(f"the ranks launched {[r['launches'] for r in ranks]}, expected {[expected, 0]}")
+    return result
+
+
+def step_agreement(a: dict, b: dict, lr: float, dev) -> dict:
+    """Two checkpoints' contents (`params`, `opt_state`) after one step from
+    the same state, compared on `dev`: the share of trainable values (those
+    with moments) within 0.1 lr of each other (Adam's update is about
+    lr sign(g) where the gradients dominate the moments, so a value whose
+    gradient changes sign between the two moves up to 2 lr apart), the
+    largest difference in units of lr, and the RMS-relative differences of
+    the first moments (which take the clipped gradients times 1 - b1) and
+    the second."""
+    import torch
+
+    from evoworld_tpu_torch.train.train_step import TRAINABLE_KEYS
+
+    names = list(a["params"])  # the optimizer's parameters: the trainable ones in this order
+    trainable = [n for n in names if any(key in n.lower() for key in TRAINABLE_KEYS)]
+    if [tuple(a["params"][n].shape) for n in trainable] != [tuple(a["opt_state"]["state"][i]["mu"].shape)
+                                                             for i in range(len(trainable))]:
+        raise AssertionError("the checkpoint's moments do not line up with its trainable parameters")
+    close = total = 0
+    worst = 0.0
+    sq = {"mu": [0.0, 0.0], "nu": [0.0, 0.0]}
+    for i, n in enumerate(trainable):
+        d = (a["params"][n].to(dev) - b["params"][n].to(dev)).abs()
+        close += int((d <= 0.1 * lr).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()) / lr)
+        for k in sq:
+            ma, mb = (c["opt_state"]["state"][i][k].to(dev, torch.float64) for c in (a, b))
+            sq[k][0] += float((ma - mb).pow(2).sum())
+            sq[k][1] += float(mb.pow(2).sum())
+    frozen_equal = all(torch.equal(a["params"][n].to(dev), b["params"][n].to(dev)) for n in names
+                       if n not in trainable)
+    return dict(within_tenth_lr=close / total, max_diff_lr=worst, frozen_equal=frozen_equal,
+                **{f"{k}_rel_rms": math.sqrt(v[0] / v[1]) for k, v in sq.items()},
+                counts=[c["opt_state"]["param_groups"][0]["count"] for c in (a, b)])
+
+
+def mesh_train(dev, workdir: str, seed: int, overrides: tuple = (), frames: int = MESH_TRAIN_FRAMES) -> dict:
+    """Phase 19(b): `cli.train.main` on W = 2 ranks sharing `dev` (gloo),
+    per-device batch 1 (global 2), from phase 11's checkpoints and episode,
+    cut to `frames` frames so that two ranks fit on one card: a ZeRO-1 step
+    and its checkpoint, then a ZeRO-2 step resumed at W = 2 from it, and
+    its checkpoint. In this process, at W = 1 and batch 2 (its checkpoints
+    not written, the steps held to the ranks' in memory): a fresh step 1,
+    which makes the global batch's draws from the same seed, against the
+    ranks' ZeRO-1 step; and a resume from the ranks' step-1 checkpoint,
+    which brings the loss generator's state, so that its step 2 takes the
+    ranks' batch and draws, against their ZeRO-2 step. Checks each rank's
+    launches a step (`expected_train_launches`), that rank 0 alone wrote
+    under the run's directory, and each step against the one-process one:
+    loss and gradient norm within MESH_TRAIN_RTOL, the masters and moments
+    by `step_agreement` (at least MESH_TRAIN_WITHIN_LR of the masters
+    within 0.1 lr, the first moments within MESH_TRAIN_MU_RMS)."""
+    import shutil
+
+    import torch
+
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.parallel.checks import probed_train_cli
+    from evoworld_tpu_torch.parallel.launch import spawn
+    from evoworld_tpu_torch.runtime import PRESETS
+    from evoworld_tpu_torch.train import trainer
+
+    on_card = dev.type == "cuda"
+    out, one_out = os.path.join(workdir, "train_mesh"), os.path.join(workdir, "train_mesh_one")
+    base = [f"--data.root={os.path.join(workdir, 'episode_000')}", f"--runtime.checkpoint_dir={workdir}/svd",
+            "--runtime.allow_random_weights=false", f"--runtime.seed={seed}", "--train.warmup_steps=0",
+            "--trainer.log_steps=1", *overrides, f"--data.sequence_length={frames}"]
+    runs = [[*base, f"--runtime.save_dir={out}", "--train.total_steps=1"],
+            [*base, f"--runtime.save_dir={out}", "--train.total_steps=2", "--train.zero_stage=2"]]
+    config = apply_overrides(EvoWorldConfig(), runs[0])
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn("evoworld_tpu_torch.parallel.checks:train_cli_rank", 2, os.path.join(workdir, "mesh_train"),
+                  device=dev.type, args=(runs, out), threads=2 if on_card else 1, timeout=900)
+    ranks_s = time.perf_counter() - t0
+
+    os.makedirs(os.path.join(one_out, "checkpoints"))
+    os.link(os.path.join(out, "checkpoints", "1.pt"), os.path.join(one_out, "checkpoints", "1.pt"))
+    agreement, one_runs = {}, {}
+    save = trainer.CheckpointManager.save
+    trainer.CheckpointManager.save = lambda *args, **kwargs: None  # a check's runs, compared in memory
+    try:
+        for zero, step, save_dir in (("zero1", 1, os.path.join(workdir, "train_mesh_fresh")), ("zero2", 2, one_out)):
+            one_runs[zero], one_state = probed_train_cli(
+                [*base, f"--runtime.save_dir={save_dir}", f"--train.total_steps={step}",
+                 "--trainer.per_device_batch_size=2"], dev)
+            t1 = time.perf_counter()
+            agreement[zero] = step_agreement(
+                torch.load(os.path.join(out, "checkpoints", f"{step}.pt"), map_location="cpu", weights_only=True,
+                           mmap=True),
+                {"params": one_state.unet.state_dict(), "opt_state": one_state.optimizer.state_dict()},
+                config.train.learning_rate, dev)
+            agreement[zero]["seconds"] = time.perf_counter() - t1
+            del one_state
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        trainer.CheckpointManager.save = save
+
+    with open(os.path.join(out, "train_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ones = [one_runs[z]["steps"][0] if one_runs[z]["steps"] else {} for z in ("zero1", "zero2")]
+    layers = PRESETS[config.runtime.model_preset][0].layers_per_block
+    expected = list(expected_train_launches(frames, config.train.vae_encode_chunk, layers)) if on_card else [0, 0]
+    rank0_files = sorted({path for _, path in ranks[0]["writes"]})
+    result = dict(
+        ranks_s=ranks_s, frames=frames, expected_step_launches=expected,
+        ranks=[dict(rank=r["rank"], runs=r["runs"], writes=len(r["writes"])) for r in ranks],
+        rank0_files=rank0_files, tracked=[{k: r[k] for k in ("step", "train_loss", "grad_norm", "sec_per_step")}
+                                          for r in rows],
+        one_process=one_runs, step_agreement=agreement,
+        loss_rel=[abs(r["train_loss"] - o.get("loss", math.nan)) / abs(r["train_loss"]) for r, o in zip(rows, ones)],
+        grad_norm_rel=[abs(r["grad_norm"] - o.get("grad_norm", math.nan)) / abs(r["grad_norm"])
+                       for r, o in zip(rows, ones)])
+    log("mesh train " + json.dumps(result))
+    steps_seen = [[st for x in r["runs"] for st in x["steps"]] for r in ranks]
+    if [x["step"] for x in ranks[0]["runs"]] != [1, 2] or [r["step"] for r in rows] != [1, 2] \
+            or [(one_runs[z]["step"], len(one_runs[z]["steps"])) for z in ("zero1", "zero2")] != [(1, 1), (2, 1)]:
+        raise AssertionError(f"the mesh runs ended at {[x['step'] for x in ranks[0]['runs']]}, logged "
+                             f"{[r['step'] for r in rows]}, the W = 1 runs at "
+                             f"{[one_runs[z]['step'] for z in ('zero1', 'zero2')]}")
+    if any(list(st["launches"]) != expected for seen in steps_seen for st in seen) or \
+            any(len(seen) != 2 for seen in steps_seen):
+        raise AssertionError(f"each rank's step must launch {expected}: "
+                             f"{[[st['launches'] for st in seen] for seen in steps_seen]}")
+    if ranks[1]["writes"] or not {"checkpoints/1.pt", "checkpoints/2.pt", "train_metrics.jsonl"} <= set(rank0_files):
+        raise AssertionError(f"rank 1 wrote {ranks[1]['writes']}; rank 0 {rank0_files}")
+    if not all(math.isfinite(r[k]) for r in rows for k in ("train_loss", "grad_norm")):
+        raise AssertionError(f"the mesh runs logged {rows}")
+    for i, zero in enumerate(("zero1", "zero2")):
+        a = agreement[zero]
+        if not (result["loss_rel"][i] <= MESH_TRAIN_RTOL and result["grad_norm_rel"][i] <= MESH_TRAIN_RTOL
+                and a["within_tenth_lr"] >= MESH_TRAIN_WITHIN_LR and a["mu_rel_rms"] <= MESH_TRAIN_MU_RMS
+                and a["frozen_equal"] and a["counts"] == [i + 1, i + 1]):
+            raise AssertionError(f"step {i + 1} ({zero}) on two ranks is not the one-process step: {result}")
+    for d in (out, one_out):  # ~7 GB a checkpoint at full width, read by nothing after this phase
+        shutil.rmtree(os.path.join(d, "checkpoints"))
+    return result
+
+
+def offload_episode(dev, steps: int, seed: int, offloaded: dict) -> dict:
+    """Phase 19(c): phase 10's episode again with VGGT's parameters kept on
+    the card (`offload_params=False`), cut to its first two segments (one
+    rebuild), against phase 10's run with them offloaded (the default):
+    outputs bit for bit, each stage's peak memory over what the process
+    held before the episode was built, and the seconds of the stages both
+    runs have."""
+    import torch
+
+    kept = full_loop(dev, steps, seed, num_segments=2, offload_params=False)
+    on, off = offloaded, kept
+    equal = all(torch.equal(a, b) for k in ("segments", "memories") for a, b in zip(on["kept"][k], off["kept"][k]))
+
+    def two_segments(run):  # the stages both runs have: two clips, one rebuild
+        return sum(v for k, v in run["stage_seconds"].items() if k in off["stage_seconds"])
+
+    def over_baseline(run, stage, n):
+        return [b - run["baseline_bytes"] for b in run["stage_peak_bytes"][stage][:n]]
+
+    result = dict(
+        vggt_bytes=on["vggt_bytes"], offloaded=[on["offloaded"], off["offloaded"]], outputs_equal=equal,
+        launches=off["flash_launches"], baseline_bytes=dict(on=on["baseline_bytes"], off=off["baseline_bytes"]),
+        generate_peak_bytes=dict(on=over_baseline(on, "generate", 2), off=over_baseline(off, "generate", 2)),
+        reconstruct_peak_bytes=dict(on=over_baseline(on, "reconstruct", 1), off=over_baseline(off, "reconstruct", 1)),
+        two_segments_s=dict(on=two_segments(on), off=two_segments(off)),
+        reconstruct_s=dict(on=on["stage_seconds"]["reconstruct_s0"], off=off["stage_seconds"]["reconstruct_s0"]),
+        episode_s=dict(on_three_segments=on["seconds"], off_two_segments=off["seconds"]))
+    log("offload " + json.dumps(result))
+    if not (equal and result["offloaded"] == [True, False]):
+        raise AssertionError(f"the episode with VGGT's parameters on the card is not the offloaded one's: {result}")
+    return result
+
+
 def full_clips(dev, steps: int, seed: int) -> list[dict]:
     """Two full-width clips (cold, warm); checks launch counts and outputs."""
     import torch
@@ -3193,7 +3548,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_loop_against_cpu(dev, SEED)
     loop_run = full_loop(dev, STEPS, SEED)
-    cloud, first_segment = loop_run.pop("cloud"), loop_run.pop("first_segment")
+    cloud, first_segment, loop_kept = loop_run.pop("cloud"), loop_run.pop("first_segment"), loop_run.pop("kept")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:  # phases 11-14 share it
         t0 = time.perf_counter()
         cli_run = full_cli(dev, STEPS, SEED, workdir=workdir)
@@ -3222,6 +3577,16 @@ def main() -> int:
         mesh_run = full_mesh(dev, STEPS, SEED, workdir, first_segment)
         del first_segment
         log(f"mesh phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        mesh_prep_run = mesh_reproject(dev, workdir)
+        log(f"mesh reproject phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        mesh_train_run = mesh_train(dev, workdir, SEED)
+        log(f"mesh train phase wall seconds {time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    offload_run = offload_episode(dev, STEPS, SEED, dict(loop_run, kept=loop_kept))
+    del loop_kept
+    log(f"offload phase wall seconds {time.perf_counter() - t0:.3f}")
     torch.cuda.empty_cache()
     check_level0_transformer(dev)
     check_small_train_step_against_cpu(dev, SEED)
@@ -3256,8 +3621,16 @@ def main() -> int:
                   **{f"mesh_{run['ranks'][0]['route']}": sum(r["launches"][0] for r in run["ranks"])
                      for run in mesh_run["routes"]},
                   "mesh_episode": sum(r["launches"][0] for r in mesh_run["episode"]["ranks"])}
-    if not all(mesh_paths.values()):
-        raise AssertionError(f"a forward kernel was not launched on phase 17's or 18's paths: {mesh_paths}")
+    # Phase 19: each path's launches summed over its ranks (and steps), each read with its counts set to 0.
+    train_steps_19 = [st for r in mesh_train_run["ranks"] for x in r["runs"] for st in x["steps"]] + \
+        [st for run in mesh_train_run["one_process"].values() for st in run["steps"]]
+    mesh_paths.update(mesh_reproject=sum(r["launches"][0] for r in mesh_prep_run["ranks"]),
+                      mesh_train=sum(st["launches"][0] for st in train_steps_19),
+                      loop_without_offload=offload_run["launches"])
+    mesh_bwd_paths = {"mesh_train": sum(st["launches"][1] for st in train_steps_19)}
+    if not all(mesh_paths.values()) or not all(mesh_bwd_paths.values()):
+        raise AssertionError(f"a kernel was not launched on phase 17's, 18's or 19's paths: {mesh_paths}, "
+                             f"{mesh_bwd_paths}")
     fp32_fwd_paths["mesh_gate"] = sum(r[0] for r in mesh_run["gate"]["launches"])
     kernels = [{
         "name": "flash_attn_fwd",
@@ -3304,7 +3677,8 @@ def main() -> int:
                              "cli_train": cli_train[1], "eval": eval_run["launches"][1],
                              "reproject": prep_run["launches"][1],
                              "fp16_single_segment": fp16_run["single"]["launches"][1],
-                             "fp16_train": fp16_train[1], "fp16_reproject": fp16_run["reproject"]["launches"][1]},
+                             "fp16_train": fp16_train[1], "fp16_reproject": fp16_run["reproject"]["launches"][1],
+                             **mesh_bwd_paths},
         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd["shapes"]),
         "ms": bwd_row["ms"],
         "design": bwd_row["design"],

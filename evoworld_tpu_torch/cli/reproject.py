@@ -14,12 +14,19 @@ percentile splatted at the last `loop.num_target_view` poses into
 `data.root`; an episode whose output holds `loop.num_target_view` files is
 skipped, and VGGT is built only where a selected episode needs it.
 
-Usage (on the card):
+Usage (on the card; on W cards, one process each):
   python -m evoworld_tpu_torch.cli.reproject --data.root=<dataset or episode> \\
       [--loop.conf_percentile=30] [--runtime.vggt_checkpoint=<model.pt>] \\
       [--runtime.skyseg_onnx=<skyseg.onnx>]
+  torchrun --nproc-per-node W -m evoworld_tpu_torch.cli.reproject <the same flags>
 
-From Python, `main(argv, device="cpu")` runs on the CPU.
+With WORLD_SIZE > 1 the ranks shard VGGT over the mesh (`runtime.inference_setup`;
+`--runtime.vggt_mesh=false` keeps it whole on every rank): its frames where W
+divides their count, its global attention on the head-sharded route (or the
+ring). Every rank returns the same records; rank 0 alone writes the renders.
+One process on one card keeps VGGT's parameters in host memory between
+episodes. From Python, `main(argv, device="cpu")` runs on the CPU (ranks on
+the CPU: `parallel/launch.py`).
 """
 
 from __future__ import annotations
@@ -28,18 +35,18 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed
 
 from evoworld_tpu_torch.cli.common import load_frames, logger, parse_config, save_frames
 from evoworld_tpu_torch.config import compute_dtype
 from evoworld_tpu_torch.data.dataset import load_camera_poses
-from evoworld_tpu_torch.device import resolve_device
 from evoworld_tpu_torch.geometry.alignment import similarity_from_point_pairs
 from evoworld_tpu_torch.geometry.pose import invert_pose, pose_to_matrix
 from evoworld_tpu_torch.loop.unified import StageClock
 from evoworld_tpu_torch.memory.pointcloud import confidence_mask
 from evoworld_tpu_torch.memory.render import render_memory_panoramas
 from evoworld_tpu_torch.memory.skyseg import SkySegmentation
-from evoworld_tpu_torch.runtime import build_reconstructor, check_compute_dtype
+from evoworld_tpu_torch.runtime import build_reconstructor, check_compute_dtype, inference_setup
 
 
 def sky_segmentation(config, device) -> SkySegmentation:
@@ -65,10 +72,11 @@ def _rendered(ep_dir: str, config) -> bool:
     return os.path.isdir(out_dir) and len(os.listdir(out_dir)) >= config.loop.num_target_view
 
 
-def process_episode(ep_dir: str, reconstructor, config, device, timings: dict | None = None) -> bool:
-    """Render one episode's memory panoramas; False where it is skipped.
-    `timings`, if given, gets the seconds of reconstruct, sky_mask and render,
-    the device synchronised around each."""
+def process_episode(ep_dir: str, reconstructor, config, device, timings: dict | None = None,
+                    writes: bool = True) -> bool:
+    """Render one episode's memory panoramas (written where `writes`); False
+    where it is skipped. `timings`, if given, gets the seconds of
+    reconstruct, sky_mask and render, the device synchronised around each."""
     cfg = config.loop
     if _rendered(ep_dir, config):
         logger.info(f"skip {ep_dir} (already rendered)")
@@ -102,8 +110,10 @@ def process_episode(ep_dir: str, reconstructor, config, device, timings: dict | 
                                        torch.cat([new_rot, new_t[:, :, None]], dim=-1),
                                        config.pipeline.height, config.pipeline.width)
 
-    save_frames(clock("render", render), _out_dir(ep_dir, config), 0, "{:02d}.png")
-    logger.info(f"rendered {cfg.num_target_view} memory panoramas for {ep_dir}")
+    renders = clock("render", render)
+    if writes:
+        save_frames(renders, _out_dir(ep_dir, config), 0, "{:02d}.png")
+        logger.info(f"rendered {cfg.num_target_view} memory panoramas for {ep_dir}")
     return True
 
 
@@ -114,7 +124,8 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
     rt = config.runtime
     dtype = compute_dtype(rt)
     check_compute_dtype(device, dtype)
-    dev = resolve_device(device)
+    dev, mesh = inference_setup(device, rt.mesh_data, rt.mesh_model)
+    writes = mesh is None or mesh.rank == 0
     root = config.data.root
     if os.path.isdir(os.path.join(root, "panorama")):
         episodes = [root]
@@ -127,11 +138,14 @@ def main(argv=None, device: str | torch.device = "cuda") -> list[dict]:
     if any(os.path.isdir(_pers_dir(ep)) and not _rendered(ep, config) for ep in episodes):
         reconstructor = build_reconstructor("tiny" if rt.vggt_tiny else "full", rt.seed, dtype, dev,
                                             vggt_checkpoint=rt.vggt_checkpoint,
-                                            allow_random_weights=rt.allow_random_weights)
+                                            allow_random_weights=rt.allow_random_weights,
+                                            mesh=mesh if rt.vggt_mesh else None)
     records = []
     for ep in episodes:
         timings: dict = {}
-        rendered = process_episode(ep, reconstructor, config, dev, timings)
+        rendered = process_episode(ep, reconstructor, config, dev, timings, writes)
+        if mesh is not None:  # the renders are on disk before any rank looks at the next episode's or returns
+            torch.distributed.barrier()
         records.append(dict(episode=ep, rendered=rendered, stage_seconds=timings))
     return records
 

@@ -11,13 +11,22 @@ steps renders one clip of the first episode with the EMA parameters: a
 GT | generated side-by-side GIF `validation_{step:06d}.gif` in
 `runtime.save_dir`, its PSNR and SSIM in `validation_metrics.jsonl`.
 
-Usage (on the card):
+Usage (on the card; on W cards, one process each):
   python -m evoworld_tpu_torch.cli.train --data.root=<dataset root> \\
       --data.single_episode=false --train.total_steps=30000 \\
       [--runtime.checkpoint_dir=<diffusers pipeline dir>] [--runtime.save_dir=outputs]
+  torchrun --nproc-per-node W -m evoworld_tpu_torch.cli.train <the same flags> \\
+      [--train.zero_stage=2] [--runtime.mesh_model=1]
 
-From Python, `main(argv, device="cpu")` runs on the CPU. The batch is
-`trainer.per_device_batch_size` (one card). The validation clip draws from
+With WORLD_SIZE > 1 the process group comes up (`runtime.inference_setup`)
+over `runtime.mesh_data` x `runtime.mesh_model` ranks, and the global batch
+is `trainer.per_device_batch_size` times the data axis; ranks on the model
+axis compute their data peer's rows (no tensor parallelism, as in the JAX
+CLI). The step is data-parallel at `train.zero_stage` 1 (Adam's moments
+sharded) or 2 (the gradients too); rank 0 writes the checkpoints (the
+one-process format: a run resumes at any rank count), the tracker and the
+validation files. From Python, `main(argv, device="cpu")` runs on the CPU
+(ranks on the CPU: `parallel/launch.py`). The validation clip draws from
 `torch.Generator(device).manual_seed(runtime.seed)`, so its frames are not
 the JAX CLI's (which draws from jax.random).
 """
@@ -35,11 +44,10 @@ import torch.nn as nn
 from evoworld_tpu_torch.cli.common import logger, parse_config
 from evoworld_tpu_torch.config import compute_dtype
 from evoworld_tpu_torch.data.dataset import EpisodeDataset
-from evoworld_tpu_torch.device import resolve_device
 from evoworld_tpu_torch.diffusion.pipeline import PanoDiffusionPipeline
 from evoworld_tpu_torch.eval.metrics import batch_video_metrics
 from evoworld_tpu_torch.loop.navigator import Navigator
-from evoworld_tpu_torch.runtime import build_trainer, check_compute_dtype
+from evoworld_tpu_torch.runtime import build_trainer, check_compute_dtype, inference_setup
 from evoworld_tpu_torch.train.trainer import TrainerConfig, train
 from evoworld_tpu_torch.utils.trackers import JSONLTracker
 from evoworld_tpu_torch.utils.video import export_gif, side_by_side
@@ -77,7 +85,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
     trainer_config = dataclasses.replace(config.trainer, output_dir=rt.save_dir, max_steps=config.train.total_steps)
     dtype = compute_dtype(rt)
     check_compute_dtype(device, dtype)
-    dev = resolve_device(device)
+    dev, mesh = inference_setup(device, rt.mesh_data, rt.mesh_model)
 
     dataset = EpisodeDataset(
         data.root,
@@ -95,8 +103,8 @@ def main(argv=None, device: str | torch.device = "cuda"):
                                     checkpoint_dir=rt.checkpoint_dir or rt.svd_checkpoint,
                                     allow_random_weights=rt.allow_random_weights)
 
-    # Created once: a tracker made per call would reset its clock.
-    val_tracker = JSONLTracker(rt.save_dir, run_name="validation")
+    # Created once (a tracker made per call would reset its clock), by the rank that validates.
+    val_tracker = JSONLTracker(rt.save_dir, run_name="validation") if mesh is None or mesh.rank == 0 else None
 
     def validation_fn(state, step):
         logger.info(f"validation at step {step}")
@@ -120,9 +128,9 @@ def main(argv=None, device: str | torch.device = "cuda"):
         logger.info(f"validation gif: {out} (psnr {scores['psnr']:.3f}, ssim {scores['ssim']:.4f}, "
                     f"{time.perf_counter() - t0:.3f} s)")
 
-    state = train(unet, vae, clip, dataset, config.train, trainer_config,
-                  batch_size=trainer_config.per_device_batch_size, compute_dtype=dtype,
-                  validation_fn=validation_fn)
+    batch_size = trainer_config.per_device_batch_size * (mesh.data if mesh is not None else 1)
+    state = train(unet, vae, clip, dataset, config.train, trainer_config, batch_size=batch_size,
+                  compute_dtype=dtype, validation_fn=validation_fn, mesh=mesh)
     logger.info(f"training done at step {state.step}")
     return state
 

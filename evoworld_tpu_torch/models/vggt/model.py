@@ -12,14 +12,19 @@ every rank given the same crops), the per-frame work (patch encoder, frame
 attention, depth head) is split over the ranks when their count divides the
 frame count, the global attention takes the mesh routes (head-sharded, or
 the ring where the heads do not divide), and every rank returns the whole
-result. The JAX module's parameter host offload (a single-device memory
-tactic) is not ported.
+result. On one CUDA device without a mesh the reconstructor parks the
+model's parameters and buffers in pinned host memory between calls, as the
+JAX module's host offload does (`offload_params`, on by default there): VGGT
+idles while the loop's clips denoise, and its ~2.5 GB in bf16 leave the card
+meanwhile. Each call copies them in (non-blocking, from pinned memory),
+runs, and drops the device copies. A pin or copy that fails raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -109,6 +114,17 @@ def load_and_preprocess_images(images: torch.Tensor | np.ndarray, target_width: 
     return resize_half_pixel(arr, (new_h, target_width), "bilinear")[None]
 
 
+def resolve_offload(device: torch.device, mesh=None, offload_params: Optional[bool] = None) -> bool:
+    """Whether a reconstructor on `device` offloads its parameters: by
+    default on one CUDA device without a mesh (skipped on meshes, as in the
+    JAX package); asked for on the CPU, ValueError."""
+    if offload_params and torch.device(device).type != "cuda":
+        raise ValueError(f"offload_params=True needs a CUDA device (host offload has no meaning on {device})")
+    if offload_params is None:
+        offload_params = torch.device(device).type == "cuda"
+    return offload_params and mesh is None
+
+
 class Reconstructor:
     """The loop's reconstructor: (S, Hp, Wp, 3) crops in [0, 1] -> dict with
     world_points (S, h, w, 3), conf (S, h, w), extrinsic (S, 3, 4) w2c and
@@ -116,17 +132,48 @@ class Reconstructor:
     384 x 512 crops), by depth unprojection (the upstream loop's
     "depth_unproject" mode). The model is expected on one device in
     `compute_dtype` (its norms and LayerScales may stay fp32). `mesh`: an
-    optional `parallel.mesh.Mesh` to shard over."""
+    optional `parallel.mesh.Mesh` to shard over. `offload_params`: see
+    `resolve_offload`; when on, the model's tensors move to pinned host
+    memory here and come to the device for each call only."""
 
-    def __init__(self, model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8, mesh=None):
+    def __init__(self, model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8, mesh=None,
+                 offload_params: Optional[bool] = None):
         self.model = model.eval()
         self.compute_dtype = compute_dtype
         self.head_chunk = head_chunk
         self.mesh = mesh
         self.device = next(model.parameters()).device
+        self.offload = resolve_offload(self.device, mesh, offload_params)
+        self._host = None
+        if self.offload:
+            self._host = [(t, torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t.data))
+                          for t in self._tensors()]
+            for t, host in self._host:
+                t.data = host
+
+    def _tensors(self) -> list[torch.Tensor]:
+        return [*self.model.parameters(), *self.model.buffers()]
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """The model's tensors on the device inside (copied from pinned host memory when offloaded)."""
+        if not self.offload:
+            yield
+            return
+        for t, host in self._host:
+            t.data = host.to(self.device, non_blocking=True)
+        try:
+            yield
+        finally:
+            for t, host in self._host:
+                t.data = host
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with self._on_device():
+            return self._reconstruct(images)
+
+    def _reconstruct(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         model = self.model
         batch = load_and_preprocess_images(torch.as_tensor(images).to(self.device))
         x = batch.to(self.compute_dtype)
@@ -151,7 +198,8 @@ class Reconstructor:
         return {"world_points": points, "conf": conf, "extrinsic": extrinsic, "colors": batch[0]}
 
 
-def make_reconstructor(model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8, mesh=None
-                       ) -> Reconstructor:
-    """Wrap a VGGT model as the `UnifiedLoop` reconstructor (sharded over `mesh` when given)."""
-    return Reconstructor(model, compute_dtype, head_chunk, mesh)
+def make_reconstructor(model: VGGT, compute_dtype: torch.dtype = torch.bfloat16, head_chunk: int = 8, mesh=None,
+                       offload_params: Optional[bool] = None) -> Reconstructor:
+    """Wrap a VGGT model as the `UnifiedLoop` reconstructor (sharded over
+    `mesh` when given; its parameters offloaded to the host per `resolve_offload`)."""
+    return Reconstructor(model, compute_dtype, head_chunk, mesh, offload_params)

@@ -17,6 +17,8 @@ The rank functions take the rank's `parallel.mesh.Mesh` first, as
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -279,10 +281,150 @@ def episode_rank(mesh, steps: int, num_segments: int, seed: int, scaled, camera_
                          for kind, t in outputs])
 
 
-
 def cli_rank(mesh, module: str, argv: list) -> list:
     """`evoworld_tpu_torch.cli.<module>.main(argv)` on this rank's device,
     as `torchrun --nproc-per-node W -m evoworld_tpu_torch.cli.<module>` runs it."""
     import importlib
 
     return importlib.import_module(f"evoworld_tpu_torch.cli.{module}").main(argv, device=str(mesh.device))
+
+
+def train_step_rank(mesh, models: dict, config: dict, micro_batches: list, draws: list,
+                    zero_min_size: int = 1 << 16) -> dict:
+    """One data-parallel `train_step` over `mesh` from the given models
+    (`models`: {"unet" | "vae" | "clip": (config, state dict)}, fp32) on the
+    global `micro_batches` with their global `draws` (numpy), the
+    `TrainConfig` fields `config` and the ZeRO rule from `zero_min_size`
+    elements. Returns the loss and gradient norm, the
+    gradients the optimizer was given (a sharded leaf's: this rank's piece
+    at ZeRO-2), which leaves the ZeRO rule shards, the updated trainable
+    parameters and the optimizer's `state_dict()` (moments gathered)."""
+    from evoworld_tpu_torch.models.clip import CLIPVisionTower
+    from evoworld_tpu_torch.models.unet import UNetSpatioTemporal
+    from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal
+    from evoworld_tpu_torch.train.train_step import TrainConfig, make_train_state, train_step
+
+    built = {}
+    for name, cls in (("unet", UNetSpatioTemporal), ("vae", AutoencoderKLTemporal), ("clip", CLIPVisionTower)):
+        cfg, state = models[name]
+        built[name] = cls(cfg)
+        built[name].load_state_dict(state)
+    cfg = TrainConfig(**config)
+    state = make_train_state(cfg, built["unet"], torch.float32, mesh, zero_min_size)
+    names = [n for n, p in built["unet"].named_parameters() if p.requires_grad]
+    given = {}
+    step = state.optimizer.step
+
+    def recording_step(grads=None):
+        params = state.optimizer.param_groups[0]["params"]
+        if grads is None:  # one process: the accumulated .grad (a missing one counts as zeros)
+            grads_ = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        given.update(zip(names, [g.clone() for g in (grads if grads is not None else grads_)]))
+        return step(grads)
+
+    state.optimizer.step = recording_step
+    as_torch = [{k: torch.as_tensor(v) for k, v in tree.items()} for tree in micro_batches]
+    metrics = train_step(state, built["vae"].requires_grad_(False), built["clip"].requires_grad_(False), as_torch,
+                         cfg, torch.float32, draws=[{k: torch.as_tensor(v) for k, v in d.items()} for d in draws],
+                         mesh=mesh)
+    params = dict(built["unet"].named_parameters())
+    return dict(metrics, grads=given, sharded=[n for n, s in zip(names, state.optimizer.sharded) if s],
+                params={n: params[n].detach().clone() for n in names}, opt_state=state.optimizer.state_dict())
+
+
+def probed_train_cli(argv: list, dev: torch.device) -> tuple[dict, object]:
+    """`cli.train.main(argv)` on `dev` with each step probed: (its final
+    step, seconds and, per step, the seconds, flash launches (forward,
+    backward) and peak memory (CUDA); the final TrainState)."""
+    import time
+
+    from evoworld_tpu_torch.cli import train as train_cli
+    from evoworld_tpu_torch.train import trainer
+
+    step_fn, steps, on_card = trainer.train_step, [], dev.type == "cuda"
+
+    def probed(*args, **kwargs):
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out = step_fn(*args, **kwargs)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        steps.append(dict(out, seconds=time.perf_counter() - t0, launches=_launch_counts(),
+                          peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if on_card else None))
+        return out
+
+    trainer.train_step = probed
+    try:
+        t0 = time.perf_counter()
+        state = train_cli.main(argv, device=str(dev))
+    finally:
+        trainer.train_step = step_fn
+    return dict(step=state.step, seconds=time.perf_counter() - t0, steps=steps), state
+
+
+def train_cli_rank(mesh, runs: list, watch: str) -> dict:
+    """`probed_train_cli` for each argv of `runs` in turn on this rank's
+    device, as `torchrun` runs `cli.train`; and every file or directory this
+    rank opened for writing, created, renamed or removed under `watch`
+    (Python's audit events: a writer in C goes unseen)."""
+    import sys
+
+    import torch.distributed as dist
+
+    root = os.path.abspath(watch)
+    writes = []
+
+    def audit(event, args):
+        if event == "open" and args[1] is not None and any(c in str(args[1]) for c in "wax+"):
+            paths = [args[0]]
+        elif event in ("os.mkdir", "os.remove", "os.rmdir", "os.rename", "os.replace"):
+            paths = list(args[:2]) if event in ("os.rename", "os.replace") else [args[0]]
+        else:
+            return
+        for path in paths:
+            if isinstance(path, (str, bytes, os.PathLike)) and os.path.abspath(os.fsdecode(path)).startswith(root):
+                writes.append((event, os.path.relpath(os.fsdecode(path), root)))
+
+    sys.addaudithook(audit)
+    results = []
+    for argv in runs:
+        results.append(probed_train_cli(argv, mesh.device)[0])
+        dist.barrier()
+    return dict(rank=mesh.rank, runs=results, writes=writes)
+
+
+def reproject_rank(mesh, argv: list) -> dict:
+    """`cli.reproject.main(argv)` on this rank's device, as `torchrun` runs it:
+    its records, flash launches, seconds, peak memory (CUDA), and how many
+    times this rank wrote an episode's renders."""
+    import time
+
+    from evoworld_tpu_torch.cli import reproject
+
+    dev, save, saved = mesh.device, reproject.save_frames, []
+
+    def counting(*args, **kwargs):
+        saved.append(args[1])
+        return save(*args, **kwargs)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    reproject.save_frames = counting
+    try:
+        t0 = time.perf_counter()
+        records = reproject.main(argv, device=str(dev))
+        seconds = time.perf_counter() - t0
+    finally:
+        reproject.save_frames = save
+    return dict(rank=mesh.rank, records=records, launches=_launch_counts(), seconds=seconds, saved=saved,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+
+
+def several_rank(mesh, calls: list) -> list:
+    """The rank functions of this module named in `calls`, each (name, args)
+    run in turn on this rank: several checks from one spawn."""
+    return [globals()[name](mesh, *args) for name, args in calls]

@@ -89,8 +89,7 @@ def _run_rank(workdir: str, rank: int) -> None:
     torch.set_num_threads(job["threads"])
     try:
         dev = init_distributed(job["device"], init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
-                               world_size=job["world_size"], rank=rank, local_rank=rank,
-                               local_world_size=job["world_size"])
+                               world_size=job["world_size"], rank=rank, local_rank=rank)
         mesh = make_mesh(dev, model=job["mesh_model"])
         result = _resolve(job["target"])(mesh, *job["args"])
         torch.save(result, os.path.join(workdir, f"result.{rank}.pt"))

@@ -12,18 +12,26 @@ rank on the data axis). Every serving route of the JAX package flattens the
 two axes, and so does the port: a `Mesh` of data x model ranks shards over
 all of them.
 
-The backend follows the devices, never an error: NCCL when every rank of a
-host has a card of its own, gloo when ranks share a card (NCCL refuses two
-ranks on one device) or run on the CPU. Gloo takes CUDA tensors only for
-broadcast and all-reduce, so `parallel/collectives.py` stages its
-all-gathers and ring exchanges through pinned host memory there.
+The backend follows the devices, never an error: NCCL when no two ranks
+hold the same physical card, gloo when ranks share one (NCCL refuses two
+ranks on one device) or run on the CPU. The ranks tell their cards apart by
+UUID, exchanged through the rendezvous store before the group comes up, so a
+launcher that shows each rank one card (`CUDA_VISIBLE_DEVICES` per task)
+gets NCCL too. Gloo takes CUDA tensors only for broadcast and all-reduce, so
+`parallel/collectives.py` stages its other collectives through pinned host
+memory there.
+
+The training step's ZeRO rule (`zero_sharded`, the JAX package's
+`zero_shard_specs`): a tensor of at least `min_size` elements whose dim 0
+divides the data axis is split on dim 0 over the data ranks, every model
+rank of a data rank holding the same piece; everything else is replicated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -43,12 +51,39 @@ class Mesh:
     def size(self) -> int:
         return self.data * self.model
 
+    @property
+    def data_rank(self) -> int:
+        """This rank's place on the data axis (ranks run model-fastest, as the JAX mesh's devices)."""
+        return self.rank // self.model
 
-def backend_for(device: torch.device, local_world_size: int) -> str:
-    """NCCL when each of the host's ranks has a CUDA device of its own, else gloo."""
-    if device.type == "cuda" and torch.cuda.device_count() >= local_world_size:
+
+#: The JAX package's `zero_shard_specs` threshold: smaller tensors replicate.
+ZERO_MIN_SIZE = 1 << 16
+
+
+def zero_sharded(x: torch.Tensor, mesh: Optional[Mesh], min_size: int = ZERO_MIN_SIZE) -> bool:
+    """Whether the ZeRO rule splits `x` on dim 0 over the data ranks of `mesh`."""
+    return (mesh is not None and mesh.data > 1 and x.dim() >= 1 and x.numel() >= min_size
+            and x.shape[0] % mesh.data == 0)
+
+
+def backend_for(device: torch.device, uuids: Sequence[str]) -> str:
+    """NCCL when the ranks' CUDA devices (`uuids`, one a rank) are all different cards, else gloo."""
+    if device.type == "cuda" and len(set(uuids)) == len(uuids):
         return "nccl"
     return "gloo"
+
+
+def device_uuid(device: torch.device) -> str:
+    """The physical card behind `device` (the same whatever the rank's `CUDA_VISIBLE_DEVICES`)."""
+    return str(torch.cuda.get_device_properties(device).uuid)
+
+
+def exchange(store, rank: int, world_size: int, value: str) -> list[str]:
+    """Every rank's `value` in rank order, through the rendezvous `store`
+    (each rank sets its own, then waits for the others')."""
+    store.set(f"evoworld_device_uuid/{rank}", value)
+    return [store.get(f"evoworld_device_uuid/{r}").decode() for r in range(world_size)]
 
 
 def rank_device(device: str | torch.device, local_rank: int) -> torch.device:
@@ -70,26 +105,28 @@ def init_distributed(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     local_rank: Optional[int] = None,
-    local_world_size: Optional[int] = None,
 ) -> torch.device:
     """Bring up the default process group; returns this rank's device.
 
     Under `torchrun` every argument comes from the environment (`env://`,
-    WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE); a caller that spawns
-    its own ranks passes them (e.g. `init_method="file://<path>"`). The
-    backend is `backend_for` this rank's device and the host's rank count.
-    A group that does not come up raises: nothing runs unsharded instead.
+    WORLD_SIZE, RANK, LOCAL_RANK); a caller that spawns its own ranks passes
+    them (e.g. `init_method="file://<path>"`). The ranks meet at the
+    rendezvous store first and swap their cards' UUIDs there; the backend is
+    `backend_for` this rank's device and those UUIDs. A group that does not
+    come up raises: nothing runs unsharded instead.
     """
     env = os.environ
     world_size = int(env["WORLD_SIZE"]) if world_size is None else world_size
     rank = int(env["RANK"]) if rank is None else rank
     local_rank = int(env.get("LOCAL_RANK", rank)) if local_rank is None else local_rank
-    local_world_size = int(env.get("LOCAL_WORLD_SIZE", world_size)) if local_world_size is None else local_world_size
     dev = rank_device(device, local_rank)
+    store, rank, world_size = next(dist.rendezvous(init_method or "env://", rank, world_size))
+    uuids = []
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    backend = backend_for(dev, local_world_size)
-    dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size, rank=rank)
+        uuids = exchange(store, rank, world_size, device_uuid(dev))
+    backend = backend_for(dev, uuids)
+    dist.init_process_group(backend, store=dist.PrefixStore("default_pg", store), world_size=world_size, rank=rank)
     return dev
 
 
@@ -107,18 +144,26 @@ def make_mesh(device: str | torch.device, data: Optional[int] = None, model: int
     return Mesh(data, model, rank, torch.device(device), backend)
 
 
-def shard_bounds(n: int, mesh: Mesh) -> tuple[int, int, int]:
+def shard_bounds(n: int, mesh: Mesh, over_data: bool = False) -> tuple[int, int, int]:
     """(start, stop, per-rank count) of this rank's contiguous share of `n`
-    items, `n` padded up to a multiple of the mesh size (stop may pass `n`)."""
-    per = -(-n // mesh.size)
-    return mesh.rank * per, (mesh.rank + 1) * per, per
+    items, `n` padded up to a multiple of the mesh size (stop may pass `n`).
+    `over_data`: the share of this rank's place on the data axis instead,
+    which must divide `n` (model ranks take their data peer's share)."""
+    ranks, rank = (mesh.data, mesh.data_rank) if over_data else (mesh.size, mesh.rank)
+    if over_data and n % ranks:
+        raise ValueError(f"{n} rows do not split over {ranks} data ranks")
+    per = -(-n // ranks)
+    return rank * per, (rank + 1) * per, per
 
 
-def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's share of the leading axis, padded by repeating the last
-    row up to a multiple of the mesh size (the JAX `P("data")` batch spec)."""
-    start, stop, _ = shard_bounds(x.shape[0], mesh)
+def shard_batch(x: torch.Tensor, mesh: Mesh, over_data: bool = False) -> torch.Tensor:
+    """This rank's share of the leading axis (`shard_bounds`), padded by
+    repeating the last row up to a multiple of the mesh size (the JAX
+    `P("data")` batch spec, as the render's poses are split). `over_data`:
+    this data rank's rows, which the data axis must divide, as a view: a
+    training batch's (model ranks taking their data peer's rows, as the JAX
+    package's replicated params do) or a `zero_sharded` tensor's piece."""
+    start, stop, _ = shard_bounds(x.shape[0], mesh, over_data)
     if stop > x.shape[0]:
         x = torch.cat([x, x[-1:].expand(stop - x.shape[0], *x.shape[1:])])
     return x[start:stop]
-

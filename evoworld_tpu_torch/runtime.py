@@ -19,12 +19,17 @@ dispatch never falls back to plain attention on the card. Any other dtype
 (float64) raises ValueError there before any weight is drawn; the CPU takes
 any dtype.
 
-A multi-GPU serving run is one process per rank under `torchrun`:
+A multi-GPU run is one process per rank under `torchrun`:
 `inference_setup` brings the process group up (WORLD_SIZE > 1 in the
 environment), gives each rank `cuda:LOCAL_RANK % device_count` and returns
 the mesh (`runtime.mesh_data` x `runtime.mesh_model` ranks, the JAX
 package's `_inference_mesh`), which `build_pipeline` and
-`build_reconstructor` shard over.
+`build_reconstructor` shard over and the training CLI's data-parallel step
+runs on.
+
+On one CUDA device without a mesh, `build_reconstructor` parks VGGT's
+parameters in pinned host memory between calls (`offload_params`, the JAX
+package's default host offload).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from evoworld_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
 from evoworld_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
 from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
 from evoworld_tpu_torch.models.vggt.aggregator import AggregatorConfig
-from evoworld_tpu_torch.models.vggt.model import VGGT, Reconstructor, VGGTConfig, make_reconstructor
+from evoworld_tpu_torch.models.vggt.model import VGGT, Reconstructor, VGGTConfig, make_reconstructor, resolve_offload
 from evoworld_tpu_torch.models.weights import (
     checkpoint_mismatches,
     init_random_,
@@ -97,7 +102,7 @@ def check_compute_dtype(device: str | torch.device, compute_dtype: torch.dtype) 
 
 
 def inference_setup(device: str | torch.device = "cuda", mesh_data: int = 0, mesh_model: int = 1):
-    """(this rank's device, the serving mesh or None).
+    """(this rank's device, the mesh or None), for the serving and training CLIs.
 
     With WORLD_SIZE > 1 in the environment (`torchrun --nproc-per-node W`)
     the process group comes up (`parallel/mesh.py::init_distributed`: NCCL
@@ -238,6 +243,7 @@ def build_reconstructor(
     vggt_checkpoint: str | None = None,
     allow_random_weights: bool = True,
     mesh=None,
+    offload_params: bool | None = None,
 ) -> Reconstructor:
     """The loop's VGGT reconstructor, from a checkpoint or with deterministic
     random weights; sharded over `mesh` when given (frames, and the global
@@ -253,11 +259,16 @@ def build_reconstructor(
     False raises FileNotFoundError. Norm affines, LayerScales and the camera
     head's pose seed stay fp32 (the JAX package's `cast_compute_leaves`),
     every other leaf is cast to `compute_dtype`. The depth head runs in
-    chunks of 8 frames. Runs on CUDA unless `device="cpu"` is passed; raises
-    RuntimeError when CUDA is asked for and absent, ValueError for a compute
-    dtype other than bfloat16, float16 or float32 on CUDA.
+    chunks of 8 frames. `offload_params` (None: on for one CUDA device
+    without a mesh, off otherwise; True on the CPU raises ValueError) keeps
+    the parameters in pinned host memory between calls
+    (`models/vggt/model.py::Reconstructor`). Runs on CUDA unless
+    `device="cpu"` is passed; raises RuntimeError when CUDA is asked for and
+    absent, ValueError for a compute dtype other than bfloat16, float16 or
+    float32 on CUDA.
     """
     check_compute_dtype(device, compute_dtype)
+    resolve_offload(torch.device(device), mesh, offload_params)  # refused on the CPU before any weight is drawn
     dev = resolve_device(device)
     config = _preset(VGGT_PRESETS, model_preset)
     with torch.device("meta"):
@@ -283,4 +294,4 @@ def build_reconstructor(
     for name, p in model.named_parameters():
         if not _keep_fp32(name):
             p.data = p.data.to(compute_dtype)
-    return make_reconstructor(model.requires_grad_(False), compute_dtype, mesh=mesh)
+    return make_reconstructor(model.requires_grad_(False), compute_dtype, mesh=mesh, offload_params=offload_params)

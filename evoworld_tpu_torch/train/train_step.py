@@ -22,8 +22,16 @@ compute dtype while the norms keep fp32 statistics. The VAE and CLIP are
 frozen and run without grad. Torch and JAX draw different random numbers, so
 `edm_loss` takes each draw as an optional input (`draws`).
 
-The JAX package's mesh options (data and frame sharding, ZeRO stages) are not
-part of this single-card port.
+Data-parallel (`train_step(..., mesh=...)`, the JAX package's
+`make_sharded_train_step(mesh, zero_stage)`): every rank is given the same
+global micro-batches and draws and runs its data rank's rows; the trainable
+gradients then become the global mean, all-reduced (ZeRO-1) or, at
+`zero_stage` >= 2, reduce-scattered to the ZeRO rule's dim-0 pieces
+(`parallel/mesh.py::zero_sharded`) with the rest all-reduced. The optimizer
+keeps Adam's moments only for this rank's piece of each sharded leaf (both
+stages), updates that piece and all-gathers the updated masters, so that
+every rank holds the whole UNet. The frame-sharded step and tensor
+parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -35,9 +43,11 @@ from typing import Callable, Mapping, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from evoworld_tpu_torch.diffusion.scheduler import edm_loss_weight, edm_precondition, rand_log_normal
+from evoworld_tpu_torch.diffusion.scheduler import edm_loss_weight, edm_precondition
 from evoworld_tpu_torch.models.clip import clip_preprocess
 from evoworld_tpu_torch.ops.resize import resize_antialiased
+from evoworld_tpu_torch.parallel.collectives import all_gather, all_reduce_mean, reduce_scatter_mean
+from evoworld_tpu_torch.parallel.mesh import ZERO_MIN_SIZE, Mesh, shard_batch, zero_sharded
 
 #: A parameter trains when its name contains one of these (lower-cased), the
 #: reference's partial unfreeze.
@@ -66,8 +76,9 @@ class TrainConfig:
     # Frames per VAE-encoder call inside the loss (0 = all at once); chunking
     # is exact because frames encode independently.
     vae_encode_chunk: int = 8
-    # ZeRO stage of the JAX package's data-parallel step; one card shards
-    # nothing, so it is accepted and changes nothing until multi-GPU (ROADMAP item 20).
+    # ZeRO stage of the data-parallel step (`train_step(mesh=...)`): 1 shards
+    # the Adam moments over the data ranks, >= 2 the gradients too. No mesh
+    # shards nothing.
     zero_stage: int = 1
 
 
@@ -113,62 +124,136 @@ class AdamW(torch.optim.Optimizer):
     p -= lr(count) * update with the count before the step (so the warmup's
     first update has lr 0). A missing gradient counts as zeros. The update
     count lives in the param group and travels with `state_dict()`.
+
+    With a `mesh` (ZeRO-1), a parameter under the ZeRO rule keeps moments
+    for this data rank's dim-0 piece only and `step` updates that piece, then
+    all-gathers the pieces into every rank's parameter (one collective for
+    all of them). `state_dict()` gathers the moments whole, the one-process
+    format (a collective: every rank calls it), and `load_state_dict` keeps
+    this rank's pieces of whole moments.
     """
 
     def __init__(self, params, schedule: Callable[[int], float], b1: float, b2: float, eps: float,
-                 weight_decay: float, max_grad_norm: float):
+                 weight_decay: float, max_grad_norm: float, mesh: Optional[Mesh] = None,
+                 zero_min_size: int = ZERO_MIN_SIZE):
         super().__init__(list(params), dict(count=0))
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.sharded = [zero_sharded(p, self.mesh, zero_min_size) for p in self.param_groups[0]["params"]]
+
+    def _piece(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Parameter i's piece of `x` (its whole shape) where it is sharded, else `x`."""
+        return shard_batch(x, self.mesh, over_data=True) if self.sharded[i] else x
+
+    def _global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The norm over every trainable gradient: a sharded leaf's piece (the
+        gradients at ZeRO-2) adds its squares across the data ranks, and a
+        whole gradient counts once."""
+        norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+        pieces = [i for i, (p, g) in enumerate(zip(self.param_groups[0]["params"], grads)) if g.shape != p.shape]
+        if not pieces:
+            return torch.linalg.vector_norm(norms)
+        squares = norms.square()
+        # the mean over every rank (model ranks repeating their data peer's pieces) times D: the sum over data ranks
+        squares[pieces] = all_reduce_mean(squares[pieces], self.mesh) * self.mesh.data
+        return squares.sum().sqrt()
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """Apply one update; returns the global norm of the gradients before clipping."""
+    def step(self, grads: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Apply one update from `grads` (default: each parameter's .grad;
+        a sharded leaf's may be its piece); returns the global norm of the
+        gradients before clipping."""
         group = self.param_groups[0]
         params = group["params"]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        if grads is None:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        norm = self._global_norm(grads)
         clip = not bool(norm < self.max_grad_norm)
         lr = self.schedule(group["count"])
         group["count"] += 1
         bc1, bc2 = 1.0 - self.b1 ** group["count"], 1.0 - self.b2 ** group["count"]
-        for p, g in zip(params, grads):
+        for i, (p, g) in enumerate(zip(params, grads)):
+            target = self._piece(i, p)
+            if g.shape != target.shape:
+                g = self._piece(i, g)
             if clip:
                 g = g / norm * self.max_grad_norm
             state = self.state[p]
             if not state:
-                state["mu"], state["nu"] = torch.zeros_like(p), torch.zeros_like(p)
+                state["mu"], state["nu"] = torch.zeros_like(target), torch.zeros_like(target)
             mu, nu = state["mu"], state["nu"]
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p
-            p.add_(update, alpha=-lr)
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * target
+            target.add_(update, alpha=-lr)
+        if any(self.sharded):
+            shared = [p for p, s in zip(params, self.sharded) if s]
+            for p, whole in zip(shared, self._gather([shard_batch(p, self.mesh, over_data=True) for p in shared])):
+                p.copy_(whole)
         return norm
 
+    def _gather(self, pieces: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """Every data rank's pieces of the sharded leaves, joined whole (one all-gather)."""
+        mesh = self.mesh
+        flat = torch.cat([t.reshape(-1) for t in pieces])
+        rows = all_gather(flat, mesh).view(mesh.data, mesh.model, -1)[:, 0]  # model ranks repeat their data peer
+        out, start = [], 0
+        for t in pieces:
+            out.append(rows[:, start:start + t.numel()].reshape(mesh.data * t.shape[0], *t.shape[1:]))
+            start += t.numel()
+        return out
 
-def make_optimizer(config: TrainConfig, unet: nn.Module) -> AdamW:
-    """AdamW with clipping over the trainable parameters only; frozen ones get no state."""
+    def state_dict(self) -> dict:
+        sd = super().state_dict()
+        if any(self.sharded):
+            index = [i for i, s in enumerate(self.sharded) if s and i in sd["state"]]
+            if index:
+                moments = self._gather([sd["state"][i][k] for i in index for k in ("mu", "nu")])
+                for j, i in enumerate(index):
+                    sd["state"][i] = dict(sd["state"][i], mu=moments[2 * j], nu=moments[2 * j + 1])
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        for i, p in enumerate(self.param_groups[0]["params"]):
+            if self.sharded[i] and p in self.state:
+                for k in ("mu", "nu"):
+                    self.state[p][k] = self._piece(i, self.state[p][k]).clone()
+
+
+def make_optimizer(config: TrainConfig, unet: nn.Module, mesh: Optional[Mesh] = None,
+                   zero_min_size: int = ZERO_MIN_SIZE) -> AdamW:
+    """AdamW with clipping over the trainable parameters only; frozen ones
+    get no state. With a `mesh` its moments follow the ZeRO rule (tensors of
+    at least `zero_min_size` elements)."""
     mask = trainable_mask(unet)
     return AdamW(
         [p for name, p in unet.named_parameters() if mask[name]],
         make_lr_schedule(config), config.adam_b1, config.adam_b2, config.adam_eps,
-        config.weight_decay, config.max_grad_norm,
+        config.weight_decay, config.max_grad_norm, mesh, zero_min_size,
     )
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The UNet (its parameters are the trained state), its optimizer and the step count."""
+    """The UNet (its parameters are the trained state), its optimizer, the
+    step count and, where the loop draws from one, the loss's generator
+    (checkpointed, so that a resumed run draws what the uninterrupted one would)."""
 
     unet: nn.Module
     optimizer: AdamW
     step: int = 0
+    generator: Optional[torch.Generator] = None
 
 
-def make_train_state(config: TrainConfig, unet: nn.Module, compute_dtype: torch.dtype = torch.bfloat16) -> TrainState:
+def make_train_state(config: TrainConfig, unet: nn.Module, compute_dtype: torch.dtype = torch.bfloat16,
+                     mesh: Optional[Mesh] = None, zero_min_size: int = ZERO_MIN_SIZE) -> TrainState:
+    """The state of `unet` cast to the master-weight policy; with a `mesh`,
+    its optimizer shards the moments (`train_step` then takes the same mesh)."""
     freeze_master_cast(unet, compute_dtype)
-    return TrainState(unet, make_optimizer(config, unet), 0)
+    return TrainState(unet, make_optimizer(config, unet, mesh, zero_min_size), 0)
 
 
 def edm_loss(
@@ -187,8 +272,9 @@ def edm_loss(
       pixel_values: (B, F, H, W, 3) in [-1, 1]
       memory_values: (B, F, H, W, 3) in [-1, 1]
       plucker: (B, F, h, w, 6)
-    draws: optional fp32 random inputs; each one missing is drawn from
-      `generator` on the UNet's device. Names and shapes (h, w the latent size):
+    draws: the fp32 random inputs, all of them, or None to draw them from
+      `generator` on the UNet's device (`loss_draws`). Names and shapes (h, w
+      the latent size):
       latent_eps (B*F, h, w, 4) and cond_latent_eps (B*(1+F), h, w, 4) normal:
         the VAE posterior samples of the frames and of the conditioning frames;
       cond_sigma_eps (B,) normal: sigma_aug = exp(-3 + 0.5 * eps);
@@ -203,19 +289,16 @@ def edm_loss(
     plucker = batch["plucker"].to(dev, torch.float32).permute(0, 1, 4, 2, 3)   # (B, F, 6, h, w)
     b, f = px.shape[:2]
     lh, lw = plucker.shape[-2:]
-    draws = draws or {}
+    if draws is None:
+        draws = loss_draws(batch, generator, dev)
 
-    def draw(name, shape, uniform=False):
-        t = draws.get(name)
-        if t is None:
-            return (torch.rand if uniform else torch.randn)(shape, generator=generator, device=dev)
+    def draw(name, shape):
+        t = draws[name]
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"draw {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         return t.to(dev, torch.float32)
 
     def log_normal(name, loc, scale):  # (B,) exp(loc + scale * eps)
-        if draws.get(name) is None:
-            return rand_log_normal((b,), loc, scale, generator, dev)
         return torch.exp(loc + scale * draw(name, (b,)))
 
     def sample_latents(images, name):  # (B, N, H, W, 3) -> (B, N, 4, h, w) fp32
@@ -238,7 +321,7 @@ def edm_loss(
         context = clip_tower(clip_in.to(compute_dtype)).float()[:, None, :]     # (B, 1, D)
 
         p = config.conditioning_dropout_prob
-        rand = draw("drop", (b,), uniform=True)
+        rand = draw("drop", (b,))
         img_keep, mem_keep = (rand >= p).float(), (rand >= 2.0 * p).float()
         context = context * img_keep.view(b, 1, 1)
         first_lat = first_lat * img_keep.view(b, 1, 1, 1, 1)
@@ -257,6 +340,64 @@ def edm_loss(
     return torch.mean(edm_loss_weight(sig) * (denoised - latents) ** 2)
 
 
+def loss_draws(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
+               device: torch.device) -> dict[str, torch.Tensor]:
+    """Every random input of `edm_loss` for `batch` (see its `draws`), drawn
+    from `generator` on `device`: normal but `drop`, uniform."""
+    b, f, height, width = batch["pixel_values"].shape[:4]
+    lh, lw = batch["plucker"].shape[2:4]
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    draws = {"latent_eps": normal(b * f, lh, lw, 4), "cond_sigma_eps": normal(b),
+             "cond_noise": normal(b, 1 + f, height, width, 3), "cond_latent_eps": normal(b * (1 + f), lh, lw, 4)}
+    draws["drop"] = torch.rand((b,), generator=generator, device=device)
+    draws["sigma_eps"], draws["noise"] = normal(b), normal(b, f, lh, lw, 4)
+    return draws
+
+
+def _rows(tree: Mapping[str, torch.Tensor], b: int, mesh: Mesh) -> dict[str, torch.Tensor]:
+    """This data rank's rows of a batch or of its draws: the leading axis is
+    the batch `b`, or `b` x frames flattened batch-major (the posterior draws)."""
+    out = {}
+    for k, v in tree.items():
+        if v.shape[0] == b:
+            out[k] = shard_batch(v, mesh, over_data=True)
+        else:
+            out[k] = shard_batch(v.reshape(b, -1, *v.shape[1:]), mesh, over_data=True).flatten(0, 1)
+    return out
+
+
+def _reduce_gradients(optimizer: AdamW, mesh: Mesh, zero_stage: int) -> list[torch.Tensor]:
+    """The trainable gradients as the global mean: each sharded leaf's piece
+    (reduce-scattered) at `zero_stage` >= 2, every other gradient whole
+    (all-reduced); one collective of each kind. The `.grad`s are released."""
+    params = optimizer.param_groups[0]["params"]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    for p in params:
+        p.grad = None
+    out: list = [None] * len(params)
+    scatter = [zero_stage >= 2 and s for s in optimizer.sharded]
+    whole = [i for i, s in enumerate(scatter) if not s]
+    pieces = [i for i, s in enumerate(scatter) if s]
+    if whole:
+        flat = torch.cat([grads[i].reshape(-1) for i in whole])
+        for i in whole:
+            grads[i] = None
+        all_reduce_mean(flat, mesh)
+        for i, g in zip(whole, flat.split([params[i].numel() for i in whole])):
+            out[i] = g.view(params[i].shape)
+    if pieces:
+        rows = torch.cat([grads[i].reshape(mesh.data, -1) for i in pieces], dim=1)
+        del grads
+        row = reduce_scatter_mean(rows, mesh)
+        del rows
+        for i, g in zip(pieces, row.split([params[i].numel() // mesh.data for i in pieces])):
+            out[i] = g.view(params[i].shape[0] // mesh.data, *params[i].shape[1:])
+    return out
+
+
 def train_step(
     state: TrainState,
     vae: nn.Module,
@@ -266,6 +407,7 @@ def train_step(
     compute_dtype: torch.dtype = torch.bfloat16,
     draws: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> dict[str, float]:
     """One optimizer update over `micro_batches` (gradient accumulation).
 
@@ -274,12 +416,30 @@ def train_step(
     `state.step` advances. `draws[i]` are micro-batch i's random inputs (see
     `edm_loss`). Returns the mean loss and the gradients' global norm before
     clipping.
+
+    With a `mesh` (the one the state was made with), every rank passes the
+    same global micro-batches, whose rows the data axis must divide, and the
+    same draws (or the same `generator`: the whole micro-batch's are drawn,
+    `loss_draws`, then this rank's rows taken, so that the step is the
+    one-process step's). The gradients become the global mean as
+    `config.zero_stage` says, and every rank returns the global loss and
+    norm and holds the updated UNet.
     """
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if (mesh is None) != (state.optimizer.mesh is None):
+        raise ValueError("train_step's mesh must be the one its state was made with (make_train_state(mesh=...))")
     state.optimizer.zero_grad(set_to_none=True)
-    loss_sum = 0.0
+    dev = next(state.unet.parameters()).device
+    loss_sum = torch.zeros((), device=dev)
     for i, batch in enumerate(micro_batches):
-        loss = edm_loss(state.unet, vae, clip_tower, batch, config, compute_dtype,
-                        draws[i] if draws is not None else None, generator)
+        micro_draws = draws[i] if draws is not None else None
+        if mesh is not None:
+            if micro_draws is None:
+                micro_draws = loss_draws(batch, generator, dev)
+            b = batch["pixel_values"].shape[0]
+            batch, micro_draws = _rows(batch, b, mesh), _rows(micro_draws, b, mesh)
+        loss = edm_loss(state.unet, vae, clip_tower, batch, config, compute_dtype, micro_draws, generator)
         loss.backward()
         loss_sum += loss.detach()
     n = len(micro_batches)
@@ -287,6 +447,10 @@ def train_step(
         for p in state.optimizer.param_groups[0]["params"]:
             if p.grad is not None:
                 p.grad.div_(n)
-    grad_norm = state.optimizer.step()
+    grads = None
+    if mesh is not None:
+        grads = _reduce_gradients(state.optimizer, mesh, config.zero_stage)
+        all_reduce_mean(loss_sum, mesh)
+    grad_norm = state.optimizer.step(grads)
     state.step += 1
     return {"loss": float(loss_sum / n), "grad_norm": float(grad_norm)}

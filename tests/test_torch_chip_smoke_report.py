@@ -3,7 +3,8 @@ report, on a log shaped like nvcc's, with each kernel's bf16 and fp16
 instantiations paired and the fp32 source's entries found, the fp16 rows'
 pairing with their bf16 twins and the fp32 rows' with their fp16 twins,
 each type's limits, its CLI, training-CLI, evaluation, data-preparation,
-fp16 and fp32 phases at tiny size, and its GIF block parser.
+fp16, fp32, tools and multi-GPU training phases at tiny size, its GIF block
+parser, and its kernel timing when the profiler drops a row's records.
 
 ptxas prints its warning that it serialized an entry's wgmma before the
 entries' own lines, naming the function; the report must attach it to that
@@ -227,6 +228,69 @@ def test_every_kernel_the_smoke_run_names_is_a_global_function():
     assert not set(chip_smoke.RETIRED_BWD_KERNELS) & defined
 
 
+class _Trace:
+    """A profiler run whose `key_averages()` are the given rows."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        return self.rows
+
+
+def _profiler(device_us: float, calls: list):
+    """A profiler factory whose traces name flash_fwd_wgmma with `device_us` of device time in 3 records."""
+    import types
+
+    def profiler():
+        calls.append(1)
+        return _Trace([types.SimpleNamespace(key="void flash_fwd_wgmma<64, __nv_bfloat16>(Params)", count=3,
+                                             device_time_total=device_us)])
+    return profiler
+
+
+def _timer(fn, reps):  # cuda_ms's calls (a warm-up, then reps), and a time
+    for _ in range(reps + 1):
+        fn()
+    return 2.5
+
+
+@pytest.mark.parametrize("launches_per_call, device_us, timed_by", [(1, 3000.0, "trace"), (1, 0.0, "events"),
+                                                                      (0, 0.0, None)])
+def test_kernel_time_survives_an_empty_trace_only_where_the_kernel_launched(launches_per_call, device_us, timed_by):
+    """A trace with device time times the row from its records; one with every
+    record dropped is taken again TRACE_TRIES times in all, then the call is
+    run under events and passes if the kernel's launch count moved once a
+    call, with no time per kernel (the row's own time is the call's), and
+    the row fails if it did not."""
+    import types
+
+    counter, traces = types.SimpleNamespace(launches=0), []
+
+    def fn():
+        counter.launches += launches_per_call
+
+    args = dict(served=("flash_fwd_wgmma",), elem="bf16", counter=counter, profiler=_profiler(device_us, traces),
+                timer=_timer)
+    names = ["flash_fwd_wgmma", "flash_fwd_wide"]
+    if timed_by is None:
+        with pytest.raises(AssertionError, match="did not launch"):
+            chip_smoke.kernel_ms_from_trace(fn, names, **args)
+        assert len(traces) == chip_smoke.TRACE_TRIES
+        return
+    ms, kinds, how = chip_smoke.kernel_ms_from_trace(fn, names, **args)
+    assert how == timed_by and kinds == ["bf16"]
+    assert ms == ({"flash_fwd_wgmma": 1.0, "flash_fwd_wide": 0.0} if timed_by == "trace"
+                  else {"flash_fwd_wgmma": None, "flash_fwd_wide": 0.0})
+    assert len(traces) == (1 if timed_by == "trace" else chip_smoke.TRACE_TRIES)
+
+
 TINY = ("--runtime.model_preset=tiny", "--runtime.vggt_tiny=true", "--runtime.compute_dtype=float32",
         "--pipeline.height=64", "--pipeline.width=128", "--pipeline.num_frames=5", "--loop.num_frames=5",
         "--loop.num_target_view=4", "--loop.num_segments=2", "--loop.pers_height=16", "--loop.pers_width=512",
@@ -266,7 +330,7 @@ def test_train_cli_and_eval_phases_run_at_tiny_size_on_the_cpu(tmp_path):
     train = chip_smoke.full_train_cli(dev, 2, 0, str(tmp_path), overrides=TINY)
     assert [r["final_step"] for r in train["runs"]] == [2, 3] and train["resumed_from"] == [2]
     assert train["gif"]["frames"] == 5 and train["gif"]["screen"] == (256, 64)
-    assert [s["step"] for s in train["saves"]] == [2, 2, 3]
+    assert [s["step"] for s in train["saves"]] == [2, 3]  # step 2's checkpoint is the first run's last
     evaluation = chip_smoke.full_eval(dev, str(tmp_path), cli["out_dir"], train.pop("clip"), overrides=TINY)
     assert evaluation["videos"] == [3, 4, 64, 128, 3] and evaluation["launches"] == [0, 0]
     assert set(evaluation["metric_seconds"]) == {"ssim", "psnr", "lpips", "latent_mse", "loop_closure_latent_mse"}
@@ -402,6 +466,25 @@ def test_tools_phase_runs_at_tiny_size_on_the_cpu(prepped):
     assert runs["own_frames"]["launches"] == [0, 0] and result["expected_launches"] == [0, 0]
     assert result["export"]["cloud.ply"]["first_lines"][0] == "element vertex 70000\n"
     assert result["export"]["cloud.obj"]["bytes"] > result["export"]["cloud.ply"]["bytes"] > 70000 * 12
+
+
+def test_mesh_train_phase_runs_at_tiny_size_on_the_cpu(prepped):
+    """Phase 19(b) on phase 11's files at the tiny presets, on two CPU ranks
+    (2 frames): a ZeRO-1 step and a ZeRO-2 step resumed from its checkpoint
+    on the ranks, rank 1 writing nothing, and at W = 1 a fresh step 1 and a
+    resume from the step-1 checkpoint, whose steps meet the ranks' ZeRO-1
+    and ZeRO-2 steps within the card's limits (on the CPU, in fp32, far
+    within)."""
+    import torch
+
+    result = chip_smoke.mesh_train(torch.device("cpu"), prepped[0], 0, overrides=TINY, frames=2)
+    assert [x["step"] for x in result["ranks"][0]["runs"]] == [1, 2]
+    assert [result["one_process"][z]["step"] for z in ("zero1", "zero2")] == [1, 2]
+    assert result["ranks"][1]["writes"] == 0 and "checkpoints/2.pt" in result["rank0_files"]
+    for i, zero in enumerate(("zero1", "zero2")):
+        agreement = result["step_agreement"][zero]
+        assert agreement["frozen_equal"] and agreement["counts"] == [i + 1, i + 1]
+        assert result["loss_rel"][i] < 1e-5 and agreement["mu_rel_rms"] < 1e-4
 
 
 def test_sharded_clip_launches_follow_the_chunks():

@@ -15,8 +15,8 @@ at once; the JAX references run meanwhile on the forced 8-device CPU mesh
   package's own ring tests'.
 - The view-sharded render (`memory/render.py`) at W = 2 and 3: bit for bit
   the port's unsharded render.
-- The mesh's shape rules (`make_mesh`), the backend rule (`backend_for`)
-  and `shard_batch`.
+- The mesh's shape rules (`make_mesh`), the backend rule (`backend_for`
+  on the ranks' card UUIDs) and `shard_batch`.
 """
 
 import jax
@@ -116,10 +116,12 @@ def test_ranks_form_the_mesh_they_were_given(ranks, w, model):
 @pytest.mark.parametrize("count, local_world, expected", [(1, 2, "gloo"), (2, 2, "nccl"), (4, 2, "nccl"),
                                                           (2, 3, "gloo")])
 def test_backend_follows_the_devices(monkeypatch, count, local_world, expected):
-    """NCCL only where each of a host's ranks has a card of its own; the CPU always gloo."""
+    """NCCL only where no two ranks hold the same card (`local_world` ranks on
+    `cuda:rank % count` of `count` cards, told apart by UUID); the CPU always gloo."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
-    assert tmesh.backend_for(torch.device("cuda", 0), local_world) == expected
-    assert tmesh.backend_for(torch.device("cpu"), local_world) == "gloo"
+    uuids = [f"GPU-{rank % count}" for rank in range(local_world)]
+    assert tmesh.backend_for(torch.device("cuda", 0), uuids) == expected
+    assert tmesh.backend_for(torch.device("cpu"), uuids) == "gloo"
 
 
 def test_one_process_mesh_and_shard_batch():
@@ -132,6 +134,19 @@ def test_one_process_mesh_and_shard_batch():
     x = torch.arange(5)
     shares = [tmesh.shard_batch(x, tmesh.Mesh(3, 1, r, torch.device("cpu"), "gloo")).tolist() for r in range(3)]
     assert shares == [[0, 1], [2, 3], [4, 4]]
+
+
+def test_shard_batch_over_the_data_axis():
+    """Over the data axis a 2 x 2 mesh splits a batch in two halves, each
+    model rank taking its data peer's rows as a view, and a batch the data
+    axis does not divide is refused rather than padded."""
+    x = torch.arange(6)
+    meshes = [tmesh.Mesh(2, 2, r, torch.device("cpu"), "gloo") for r in range(4)]
+    shares = [tmesh.shard_batch(x, m, over_data=True) for m in meshes]
+    assert [t.tolist() for t in shares] == [[0, 1, 2], [0, 1, 2], [3, 4, 5], [3, 4, 5]]
+    assert all(t.data_ptr() == x[3 * (m.rank // 2)].data_ptr() for t, m in zip(shares, meshes))
+    with pytest.raises(ValueError, match="5 rows do not split over 2 data ranks"):
+        tmesh.shard_batch(torch.arange(5), meshes[0], over_data=True)
 
 
 def test_a_one_rank_mesh_runs_the_flash_forward_on_every_head():
@@ -147,3 +162,34 @@ def test_a_one_rank_mesh_runs_the_flash_forward_on_every_head():
     with jax.default_matmul_precision("highest"):
         ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.25))
     np.testing.assert_allclose(out.numpy(), ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("count, uuids, expected", [
+    (1, ["GPU-a", "GPU-a"], "gloo"),   # one card shared by two ranks
+    (2, ["GPU-a", "GPU-b"], "nccl"),   # two cards, each rank on its own
+    (1, ["GPU-a", "GPU-b"], "nccl"),   # one visible card a rank (CUDA_VISIBLE_DEVICES per task), two cards
+])
+def test_ranks_pick_the_backend_from_their_cards(monkeypatch, count, uuids, expected):
+    """`init_distributed`'s rule with the device queries patched: each rank
+    (a thread here) sets its card's UUID in a shared rendezvous store and
+    reads the others'; the device count plays no part."""
+    import threading
+    import types
+
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(uuid=uuids[int(threading.current_thread().name)]))
+    store, backends = dist.HashStore(), [None] * len(uuids)
+
+    def rank(r):
+        dev = torch.device("cuda", r % count)
+        backends[r] = tmesh.backend_for(dev, tmesh.exchange(store, r, len(uuids), tmesh.device_uuid(dev)))
+
+    threads = [threading.Thread(target=rank, args=(r,), name=str(r)) for r in range(len(uuids))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert backends == [expected] * len(uuids)
