@@ -22,7 +22,7 @@ Phases, each fatal on failure:
   4. a small clip on the card against the same clip on the CPU (tiny widths,
      fp32), the port's own reference check;
   5. two full-width clips (1024x576, 25 frames, bf16, random weights from
-     seed 0, N = 4 denoise steps), cold then warm, through `build_pipeline`
+     seed 0, N = STEPS denoise steps), cold then warm, through `build_pipeline`
      and the pipeline's `__call__`; the kernel launch counts are reset just
      before each clip and must equal 5*N + 18 after it.
 The training slice (EDM fine-tuning) adds:
@@ -66,13 +66,13 @@ The loop slice (the evolving-memory loop) adds:
      memory rebuild) held against the same stage on the CPU given the card's
      inputs (tiny pipeline and VGGT, 64x128 panoramas, 16x512 crops, the
      same weights and draws), within the CPU parity test's tolerances;
-  10. the full-width loop: 3 segments of 25 frames at 1024x576, N = 4 denoise
+  10. the full-width loop: 3 segments of 25 frames at 1024x576, N = STEPS denoise
      steps, bf16, random weights from seed 0, 384x512 crops, through
      `build_pipeline`, `build_reconstructor("full")`, `Navigator` and
      `UnifiedLoop.run_episode` on a synthetic camera path; per-stage seconds,
      peak memory and each memory stack's coverage; every frame and memory
      finite, and the flash launches, reset just before the episode, equal to
-     `expected_loop_launches` (3 (5N + 18) + 2 x 24 = 162 at N = 4).
+     `expected_loop_launches` (3 (5N + 18) + 2 x 24 = 117 at N = 1).
 The CLI slice (checkpoints, image IO, the production CLIs) adds:
   3c. torch.autograd through one full-width VAE mid-block attention (512
      channels, one head of 512, 9216 tokens, bf16) on the card: the kernels
@@ -82,7 +82,7 @@ The CLI slice (checkpoints, image IO, the production CLIs) adds:
      with the port's PNG writer, full-width random checkpoints (UNet, VAE and
      CLIP safetensors with conv_in cut to 8 channels, a VGGT model.pt) in a
      temporary directory, then `cli.run_single_segment.main` and
-     `cli.run_unified.main` at N = 4 on the card from them; the loaded
+     `cli.run_unified.main` at N = STEPS on the card from them; the loaded
      parameters must equal the written ones, the PNGs' counts and sizes the
      episode's, the flash launches 5N + 18 and 162, and the writer's encode
      must overlap the compute; it prints the write, load, generate,
@@ -106,7 +106,7 @@ The wide-backward slice (the D = 512 backward redesigned) adds:
 The training-CLI and evaluation slice adds, on phase 11's files:
   12. `cli.train.main` at full width from phase 11's checkpoint directories
      and episode (the last 25 frames, bf16, EMA on): 2 steps with a
-     checkpoint and a validation clip (N = 4) at step 2, then a resume to
+     checkpoint and a validation clip (N = STEPS) at step 2, then a resume to
      step 3; the flash launches of every step (`expected_train_launches`)
      and of the validation clip (5N + 18), finite losses and gradient norms,
      the loaded models equal to the files, the validation GIF's blocks (25
@@ -203,13 +203,15 @@ mesh routes, the sharded clip, VGGT, render and loop) adds:
      directories, model.pt and episode (N = STEPS, `--parity.dry_run`):
      against phase 11's own single-segment frames the gate must pass, against
      them perturbed it must exit with code 1 (the JAX CLI's), each run 5N + 18
-     launches; then phase 10's cloud written as PLY and OBJ by
-     `memory/export.py` in one process, seconds and bytes;
+     launches; then phase 10's cloud (its first EXPORT_POINTS points)
+     written as PLY and OBJ by `memory/export.py` in one process, seconds
+     and bytes;
   18. the multi-GPU serving path on the one card, W ranks spawned by
-     `parallel/launch.py` sharing cuda:0 over gloo: VGGT's 51,009-token global
-     attention in bf16 on the head-sharded route at W = 2 and the ring at
-     W = 3, each rank within the bf16 limits of the plain fp32 version and
-     its launches counted (1, and W ring blocks); the composed loop gate at
+     `parallel/launch.py` sharing cuda:0 over gloo: (a) VGGT's 51,009-token
+     global attention in bf16 on the head-sharded route at W = 2 and the
+     ring at W = 3, each rank within the bf16 limits of the plain fp32
+     version and its launches counted (1, and W ring blocks; run in phase
+     20(a)'s ranks, before their gradient); the composed loop gate at
      W = 2 against the same episode on one rank in this process (fp32),
      teacher-forced at the memory, with the free-running differences and a
      reading of their cause (`memory_flip_reading`; the one-rank episode
@@ -220,7 +222,8 @@ mesh routes, the sharded clip, VGGT, render and loop) adds:
      rolled by a decode chunk must fail it), each rank's launches
      `sharded_clip_launches` a clip and 24 a rebuild (steps, then segments,
      cut where two ranks run the card out of memory, and the cut
-     reported). Two ranks on one card measure nothing of multi-GPU speed.
+     reported; MESH_EPISODE_SEGMENTS segments, cut for the run's time
+     limit). Two ranks on one card measure nothing of multi-GPU speed.
 The multi-GPU training slice (the data-parallel step with ZeRO-1 and ZeRO-2,
 rank-0 checkpoints, reproject under torchrun, VGGT's host parameter offload) adds:
   3, 3b. a row whose profiler trace holds no device time is traced again, up
@@ -246,6 +249,23 @@ rank-0 checkpoints, reproject under torchrun, VGGT's host parameter offload) add
      each stage's peak memory, seconds. Each sub-phase prints its seconds
      and every rank's peak memory. Ranks sharing a card measure nothing of
      multi-GPU speed.
+The model-parallel half of training (the routes' gradients, the
+frame-sharded step, tensor-parallel weights) adds:
+  20. on phase 11's checkpoints, ranks sharing cuda:0 over gloo: (a) the
+     gradient of VGGT's 51,009-token global attention (bf16) through the
+     head-sharded route at W = 2 and the ring at W = 3, rank 0's dq, dk, dv
+     within the bf16 limits of the plain fp32 backward (which the same
+     gradients with one ring block's dK and dV short of a query shard's part
+     must fail), every rank's equal, launches a rank [1, 1] and [3, 3]; (b)
+     one full-width bf16 step with the frames sharded over W = 2 (25 frames
+     if both ranks fit, else the first of FRAME_STEP_FRAMES that does, the
+     cut and its reason printed) and (c) one on a 1 x 2 tensor-parallel mesh
+     at TP_STEP_FRAMES, each against the same step in this process at the
+     same frames, batch and draws (MESH_TRAIN_RTOL, MESH_TRAIN_WITHIN_LR,
+     MESH_TRAIN_MU_RMS), each rank's launches `expected_train_launches` at
+     its frame count, each rank's peak memory and state bytes beside the
+     one-process step's. Ranks sharing a card measure nothing of multi-GPU
+     speed.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card, so that both sides hold the same weights.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -301,7 +321,7 @@ LSE_ATOL = 1e-3
 # up to 3.8e-6; a torch logsumexp of fp32 scores at a scale of 0.125 and D =
 # 512, 1.3e-5).
 FP32_LSE_ATOL = 1e-4
-STEPS = 4  # denoise steps per full-width clip (production: 25), cut for the time limit
+STEPS = 1  # denoise steps per full-width clip (production: 25), cut for the time limit (4 until phase 20 came)
 SEED = 0
 TRAIN_STEPS = 3  # full-width training steps, the first cold
 # Phase 16's training frames, tried in turn while the card runs out of
@@ -421,6 +441,9 @@ PREP_MASK_MAX_FLIPPED = 0.01
 CUBE_MAX_FLIPPED = 1e-3
 CUBE_FACE = 1024  # a capture's face size
 CUBE_PANO = (1000, 2000)  # the panoramas' size, the upstream converter's
+# Phase 17 exports the first this many points of phase 10's cloud (of its ~2.5
+# million; cut for the run's time limit once phase 20 came).
+EXPORT_POINTS = 1 << 20
 # Phase 19: two ranks sharing the card. Renders of reproject at W = 2 against
 # one process: at most this many levels of 255 apart, and at least this share
 # equal (bit for bit is predicted). The data-parallel training step: frames a
@@ -430,8 +453,20 @@ CUBE_PANO = (1000, 2000)  # the panoramas' size, the upstream converter's
 # gradient left out of the mean moves the first moments by a large share of
 # their size and the masters by up to 2 lr in a quarter or more of them).
 MESH_RENDER_ATOL, MESH_RENDER_EQUAL = 1, 0.999
-MESH_TRAIN_FRAMES = 8
+MESH_TRAIN_FRAMES = 4  # 8 before phase 20 came; cut for the run's time limit
 MESH_TRAIN_RTOL, MESH_TRAIN_WITHIN_LR, MESH_TRAIN_MU_RMS = 1e-2, 0.95, 0.1
+# Phase 20: the routes' gradients at VGGT's 51,009-token global attention
+# (head-sharded at W = 2, the ring at W = 3); the frame-sharded step's frame
+# counts, tried in turn while two ranks run the card out of memory (25, the
+# reference's, first); the tensor-parallel step's frames (cut for the time
+# limit: at 8 frames, 19(b)'s cut, a step took 81.6 s a rank, every split
+# layer's output gathered through host memory on gloo; 23.2-23.8 s at 2).
+ROUTE_GRAD_SHAPE = (1, 51009, 16, 64)
+FRAME_STEP_FRAMES = (25, 21, 17, 13)
+TP_STEP_FRAMES = 1
+# Phase 18(c)'s episode at W = 2: `LoopConfig()`'s 3 segments cut to 2 (one
+# rebuild) for the run's time limit once phase 20 came.
+MESH_EPISODE_SEGMENTS = 2
 
 
 def log(msg: str) -> None:
@@ -841,9 +876,11 @@ def kernel_ms_from_trace(fn, names, reps: int = 3, served=(), elem: str | None =
     the instantiations that ran, and how the row was timed ("trace" or
     "events"). The mean is over the launches the trace recorded: on the card
     it has been seen to drop the records of some calls of a kernel that runs
-    for hundreds of milliseconds, and once every record of a row. A trace
-    with no device time for `names` is taken again, up to `tries` times in
-    all; after that the call is run under CUDA events (`timer`, `cuda_ms`)
+    for hundreds of milliseconds, once every record of a row, and once every
+    record of one of a backward call's kernels. A trace with no device time
+    for `names`, or (given `served`) for one of the `served` kernels, is
+    taken again, up to `tries` times in all; after that the call is run
+    under CUDA events (`timer`, `cuda_ms`)
     and passes only if `counter` (the wrapper's launch count,
     `flash_attention` or `flash_attention_backward`) moved once for every
     call: a kernel that never launched fails the row either way. Such a row
@@ -874,9 +911,9 @@ def kernel_ms_from_trace(fn, names, reps: int = 3, served=(), elem: str | None =
                     totals[n] += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
                     counts[n] += ev.count
                     types.add(trace_elem_type(ev.key))
-        if any(totals.values()):
+        if all(totals[n] for n in served) if served else any(totals.values()):
             return {n: t / 1e3 / max(counts[n], 1) for n, t in totals.items()}, sorted(types, key=str), "trace"
-        log(f"the profiler trace holds no device time for {names} (try {attempt + 1} of {tries})")
+        log(f"the profiler trace holds no device time for {served or names} (try {attempt + 1} of {tries})")
     if counter is None or not served:
         raise AssertionError(f"the profiler trace holds no device time for {names}, and no launch count to time by")
     calls = 0
@@ -2865,7 +2902,8 @@ def full_tools(dev, steps: int, seed: int, workdir: str, cloud: dict, overrides:
     on random LPIPS features, `--parity.dry_run`) against phase 11's own
     single-segment frames (the gate must pass, 5N + 18 launches) and against
     them perturbed (it must exit with code 1, the JAX CLI's); then the cloud
-    written by `memory/export.py` as PLY and OBJ, each file's seconds and
+    (its first EXPORT_POINTS points) written by `memory/export.py` as PLY
+    and OBJ, each file's seconds and
     bytes, and its header and first line read back."""
     import os
 
@@ -2901,7 +2939,7 @@ def full_tools(dev, steps: int, seed: int, workdir: str, cloud: dict, overrides:
                            launches=[flash_attention.launches, flash_attention_backward.launches],
                            scores=gate and {k: gate[k] for k in ("ours", "theirs")})
     expected = [5 * steps + 18 if on_card else 0, 0]
-    points, colors = cloud["world_points"], cloud["colors"]
+    points, colors = cloud["world_points"][:EXPORT_POINTS], cloud["colors"][:EXPORT_POINTS]
     files = {}
     for name, write in (("cloud.ply", save_ply), ("cloud.obj", save_obj)):
         path = os.path.join(workdir, name)
@@ -3132,11 +3170,9 @@ def mesh_gate(dev, workdir: str) -> dict:
 def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
     """Phase 18, the multi-GPU serving path on the one card: W ranks spawned
     by `parallel/launch.py` sharing cuda:0 over gloo (NCCL refuses two ranks
-    on one device). (a) VGGT's 51,009-token global attention in bf16 through
-    the head-sharded route at W = 2 (8 heads a rank) and the ring at W = 3
-    (16 % 3 != 0): each rank's output within the bf16 limits of the plain
-    version in fp32 and against the one-process kernel, the flash launches
-    of the routed call (1 head-sharded, W ring blocks). (b) The composed loop
+    on one device). (a) The routes' forward at VGGT's 51,009 tokens
+    (`parallel/checks.py::route_rank`) runs in phase 20(a)'s ranks
+    (`route_gradients`). (b) The composed loop
     gate at W = 2 against the same episode on one rank in this process (fp32,
     the same routes), teacher-forced at the memory: the one-rank run renders
     its own memory from its own frames (held to the ranks' by the gate's
@@ -3147,7 +3183,8 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
     the one-rank and the ranks' free runs disagree on, and the one-rank
     episode fed its own memory with only those pixels taken from the ranks',
     which must pass the gate against the ranks. (c) A full-width episode at
-    W = 2 (`LoopConfig()`, 1024x576, VGGT-1B, N steps, bf16): every output
+    W = 2 (`LoopConfig()` cut to MESH_EPISODE_SEGMENTS segments, 1024x576,
+    VGGT-1B, N steps, bf16): every output
     finite, both ranks' outputs equal (SHA-256), each rank's launches
     `sharded_clip_launches` a clip and 24 a rebuild, and its first segment
     held to `first_segment`, phase 10's (one process, the same seed, start
@@ -3157,6 +3194,8 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
     reported, and a cut episode is not compared with phase 10's. VGGT's
     frames are split only where W divides their count: the 25 and 49 frames
     here do not, so the frame-sharded VGGT runs in the CPU gate alone."""
+    import dataclasses
+
     import torch
 
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
@@ -3164,23 +3203,9 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
     from evoworld_tpu_torch.parallel.launch import spawn
 
     torch.cuda.empty_cache()
-    result = {}
-    routes = []
-    for world in (2, 3):
-        t0 = time.perf_counter()
-        ranks = spawn("evoworld_tpu_torch.parallel.checks:route_rank", world, os.path.join(workdir, f"route{world}"),
-                      device="cuda", args=((1, 51009, 16, 64), "bfloat16", seed), threads=2, timeout=600)
-        routes.append(dict(wall_s=time.perf_counter() - t0, ranks=ranks))
-    result["routes"] = routes
-    log("mesh routes " + json.dumps(routes))
-    for r in (rank for run in routes for rank in run["ranks"]):
-        want = [1 if r["route"] == "head_sharded" else r["world_size"], 0]
-        if not (within_limits(r) and r["finite"] and r["launches"] == want):
-            raise AssertionError(f"the {r['route']} route on rank {r['rank']} of {r['world_size']}: {r}")
+    result = {"gate": mesh_gate(dev, workdir)}
 
-    result["gate"] = mesh_gate(dev, workdir)
-
-    loop_cfg = LoopConfig()
+    loop_cfg = dataclasses.replace(LoopConfig(), num_segments=MESH_EPISODE_SEGMENTS)
     cuts = []
     for steps_, segments in ((steps, loop_cfg.num_segments), (max(1, steps // 2), loop_cfg.num_segments), (1, 2)):
         scaled, camera_params = synthetic_path(segments * loop_cfg.num_target_view + loop_cfg.num_frames, seed)
@@ -3420,6 +3445,203 @@ def mesh_train(dev, workdir: str, seed: int, overrides: tuple = (), frames: int 
     return result
 
 
+def route_gradients(dev, workdir: str, seed: int, shape: tuple = ROUTE_GRAD_SHAPE, min_seq=None) -> dict:
+    """Phase 20(a): the gradient of sum(out * cotangent) through the mesh
+    routes at `shape` in bf16, the head-sharded route at W = 2 and the ring
+    at W = 3 (H must split over 2 and not over 3), on ranks sharing `dev`
+    (gloo; routed from `min_seq` tokens): rank 0's dq, dk and dv
+    against the plain fp32 backward (the plain forward's output and
+    log-sum-exp, the bf16 cotangent) within the bf16 limits, every rank's
+    gradients equal to rank 0's (SHA-256), and each rank's launches of the
+    routed forward and backward: [1, 1] head-sharded (8 heads a rank),
+    [W, W] on the ring (a block each of 17,003 rows). The limits must fail
+    the plain gradients with one ring block's dK and dV left without one
+    query shard's part (a block that did not come home whole). On the card
+    each rank first runs phase 18(a)'s forward check of its route
+    (`route_rank`: within the bf16 limits of the plain fp32 forward, its
+    launches [1, 0] or [W, 0], its milliseconds). Runs on the CPU too (no
+    launches there: the plain versions; no forward check)."""
+    import torch
+
+    from evoworld_tpu_torch.ops.flash_attention import _plain_forward, flash_attention_backward_plain
+    from evoworld_tpu_torch.parallel.checks import route_inputs
+    from evoworld_tpu_torch.parallel.launch import spawn
+
+    runs = []
+    for world in (2, 3):
+        t0 = time.perf_counter()
+        ranks = spawn("evoworld_tpu_torch.parallel.checks:route_grad_rank", world,
+                      os.path.join(workdir, f"route_grad{world}"), device=dev.type,
+                      args=(shape, "bfloat16", seed, min_seq),
+                      threads=2 if dev.type == "cuda" else 1, timeout=600)
+        runs.append(dict(wall_s=time.perf_counter() - t0, ranks=ranks))
+    q, k, v, cot = route_inputs(shape, "bfloat16", seed, dev)
+    scale = 1.0 / shape[-1] ** 0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), cot.to(torch.bfloat16).float()
+    del q, k, v, cot
+    o, lse = _plain_forward(qf, kf, vf, scale, shape[1], False)
+    ref = flash_attention_backward_plain(qf, kf, vf, o, dof, lse, scale)
+    n = -(-shape[1] // 3)  # the ring's rows a rank at W = 3; block 1 without query shard 0's part
+    _, gk, gv = flash_attention_backward_plain(qf[:, :n], kf[:, n:2 * n], vf[:, n:2 * n], o[:, :n], dof[:, :n],
+                                               lse[:, :, :n].contiguous(), scale)
+    cut = [ref[0], ref[1].clone(), ref[2].clone()]
+    cut[1][:, n:2 * n] -= gk
+    cut[2][:, n:2 * n] -= gv
+    del qf, kf, vf, dof, o, lse, gk, gv
+    cut_errs = {name: errors(a, r) for name, a, r in zip(("dq", "dk", "dv"), cut, ref)}
+    del cut
+    result = dict(shape=list(shape), dropped_block_errors=cut_errs, routes=[])
+    for run in runs:
+        first = run["ranks"][0]
+        errs = {name: errors(a.to(dev), r) for name, a, r in zip(("dq", "dk", "dv"), first["grads"], ref)}
+        world = first["world_size"]
+        want = [1, 1] if first["route"] == "head_sharded" else [world, world]
+        result["routes"].append(dict(
+            expected_launches=want if dev.type == "cuda" else [0, 0],
+            route=first["route"], world_size=world, wall_s=run["wall_s"], errors=errs,
+            ranks=[{k: r[k] for k in ("rank", "launches", "seconds", "finite")} for r in run["ranks"]],
+            forward=[r["forward"] for r in run["ranks"] if r["forward"] is not None],
+            ranks_equal=all(r["sha256"] == first["sha256"] for r in run["ranks"])))
+    del ref
+    log("route gradients " + json.dumps(result))
+    check_route_gradients(result)
+    return result
+
+
+def check_route_gradients(result: dict) -> None:
+    """Phase 20(a)'s gate: every route's gradients within the bf16 limits,
+    equal on every rank, finite, with the expected launches on each rank;
+    and the limits catching the short ring block."""
+    if all(within_limits(e) for e in result["dropped_block_errors"].values()):
+        raise AssertionError(f"the limits do not catch a ring block's dK / dV left short: "
+                             f"{result['dropped_block_errors']}")
+    for r in result["routes"]:
+        if not (all(within_limits(e) for e in r["errors"].values()) and r["ranks_equal"]
+                and all(x["finite"] and x["launches"] == r["expected_launches"] for x in r["ranks"])):
+            raise AssertionError(f"the {r['route']} route's gradients at W = {r['world_size']}: {r}")
+        for f in r["forward"]:  # phase 18(a): the forward alone
+            if not (within_limits(f) and f["finite"] and f["launches"] == [r["expected_launches"][0], 0]):
+                raise AssertionError(f"the {f['route']} route on rank {f['rank']} of {f['world_size']}: {f}")
+
+
+def model_parallel_step(dev, workdir: str, seed: int, target: str, frame_counts: tuple, mesh_model: int,
+                        overlap: bool = False) -> dict:
+    """Phase 20(b) or (c): one full-width bf16 step (`parallel/checks.py::
+    _card_step`, ZeRO-1) from phase 11's checkpoints on two ranks sharing
+    `dev` (gloo), `target` the rank function (`frame_step_rank`: frames over
+    the data axis; `tp_step_rank`: a 1 x 2 tensor-parallel mesh), at the
+    first of `frame_counts` at which the two ranks fit on the card (each cut
+    reported with its reason); then the same step in this process at the same
+    frames, batch and draws (with `overlap`, while the ranks run: where the
+    three fit on the card together). The ranks' step against it: loss and gradient
+    norm within MESH_TRAIN_RTOL, the masters and moments by `step_agreement`
+    (MESH_TRAIN_WITHIN_LR, MESH_TRAIN_MU_RMS); each rank's launches those of a
+    step at its frame count (`expected_train_launches`)."""
+    import torch
+
+    from evoworld_tpu_torch.parallel.checks import _card_step
+    from evoworld_tpu_torch.parallel.launch import Ranks
+    from evoworld_tpu_torch.parallel.mesh import split_sizes
+    from evoworld_tpu_torch.train.train_step import TrainConfig
+
+    ckpt = os.path.join(workdir, "svd")
+    cuts = []
+    torch.cuda.empty_cache()
+    for frames in frame_counts:
+        save = os.path.join(workdir, f"{target}_{frames}.pt")
+        t0 = time.perf_counter()
+        job = Ranks(f"evoworld_tpu_torch.parallel.checks:{target}", 2, os.path.join(workdir, f"{target}{frames}"),
+                    device="cuda", args=(ckpt, frames, seed, save), mesh_model=mesh_model, threads=2, timeout=600)
+        one, one_s = None, None
+        if overlap:
+            t1 = time.perf_counter()
+            one = _card_step(None, ckpt, frames, seed, None, shard_frames=False)
+            one_s = time.perf_counter() - t1
+        try:
+            ranks = job.results()
+            break
+        except RuntimeError as e:  # only out of memory makes a cut
+            if "OutOfMemoryError" not in str(e) and "out of memory" not in str(e):
+                raise
+            cuts.append(dict(frames=frames, reason="two ranks ran the card out of memory"))
+            log(f"{target} at {frames} frames: two ranks ran the card out of memory, cutting")
+    else:
+        raise AssertionError(f"{target} ran out of memory at every frame count: {cuts}")
+    ranks_s = time.perf_counter() - t0
+    if one is None:
+        t1 = time.perf_counter()
+        one = _card_step(None, ckpt, frames, seed, None, shard_frames=False)
+        one_s = time.perf_counter() - t1
+    lr = TrainConfig(warmup_steps=0).learning_rate
+    agreement = step_agreement(torch.load(save, map_location="cpu", weights_only=True, mmap=True), one.pop("state"),
+                               lr, dev)
+    os.remove(save)
+    torch.cuda.empty_cache()
+    local = split_sizes(frames, 2) if target == "frame_step_rank" else [frames, frames]
+    expected = [list(expected_train_launches(f, 8, 2)) for f in local]
+    result = dict(target=target, frames=frames, cuts=cuts, ranks_s=ranks_s, one_process_s=one_s,
+                  expected_launches=expected, ranks=ranks, one_process=one, step_agreement=agreement,
+                  loss_rel=[abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in ranks],
+                  grad_norm_rel=[abs(r["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"]) for r in ranks])
+    result["expected_one_process_launches"] = list(expected_train_launches(frames, 8, 2))
+    log(f"{target} " + json.dumps(result))
+    check_model_parallel_step(result)
+    return result
+
+
+def check_model_parallel_step(result: dict) -> None:
+    """Phase 20(b) and (c)'s gate: each rank's and the one-process step's
+    launches as expected, and the ranks' step the one-process step's (loss
+    and norm within MESH_TRAIN_RTOL, masters and moments by `step_agreement`
+    within MESH_TRAIN_WITHIN_LR and MESH_TRAIN_MU_RMS, one update each)."""
+    ranks, one, a = result["ranks"], result["one_process"], result["step_agreement"]
+    if [r["launches"] for r in ranks] != result["expected_launches"] \
+            or one["launches"] != result["expected_one_process_launches"]:
+        raise AssertionError(f"{result['target']}: the ranks launched {[r['launches'] for r in ranks]} (expected "
+                             f"{result['expected_launches']}), one process {one['launches']}")
+    if not (max(result["loss_rel"] + result["grad_norm_rel"]) <= MESH_TRAIN_RTOL
+            and a["within_tenth_lr"] >= MESH_TRAIN_WITHIN_LR and a["mu_rel_rms"] <= MESH_TRAIN_MU_RMS
+            and a["counts"] == [1, 1] and all(math.isfinite(r["loss"]) for r in ranks)):
+        raise AssertionError(f"{result['target']} on two ranks is not the one-process step: {result}")
+
+
+def mesh_model_parallel(dev, workdir: str, seed: int) -> dict:
+    """Phase 20, the model-parallel half of training on ranks sharing `dev`
+    over gloo: (a) `route_gradients`; (b) the frame-sharded step at W = 2
+    (`frame_step_rank`, FRAME_STEP_FRAMES) and (c) the tensor-parallel step on
+    a 1 x 2 mesh at TP_STEP_FRAMES (`tp_step_rank`), each against the
+    one-process step (`model_parallel_step`; (c)'s run while its ranks
+    run); each rank's peak memory beside
+    the one-process step's, (c) each rank's bytes of parameters and moments
+    beside the one-process state's. Ranks sharing a card measure nothing of
+    multi-GPU speed."""
+    out = {}
+    for name, fn in (("route_gradients", lambda: route_gradients(dev, workdir, seed)),
+                     ("frame_step", lambda: model_parallel_step(dev, workdir, seed, "frame_step_rank",
+                                                                FRAME_STEP_FRAMES, 1)),
+                     ("tp_step", lambda: model_parallel_step(dev, workdir, seed, "tp_step_rank",
+                                                             (TP_STEP_FRAMES,), 2, overlap=True))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+    summary = dict(
+        seconds={k: v["seconds"] for k, v in out.items()},
+        route_launches={f"{r['route']}_w{r['world_size']}": [x["launches"] for x in r["ranks"]]
+                        for r in out["route_gradients"]["routes"]},
+        **{k: dict(frames=out[k]["frames"], cuts=out[k]["cuts"],
+                   peak_memory_bytes=dict(ranks=[r["peak_memory_bytes"] for r in out[k]["ranks"]],
+                                          one_process=out[k]["one_process"]["peak_memory_bytes"]),
+                   state_bytes=dict(ranks=[r["param_bytes"] + r["moment_bytes"] for r in out[k]["ranks"]],
+                                    one_process=out[k]["one_process"]["param_bytes"]
+                                    + out[k]["one_process"]["moment_bytes"]),
+                   launches=[r["launches"] for r in out[k]["ranks"]],
+                   step_seconds=dict(ranks=[r["seconds"] for r in out[k]["ranks"]],
+                                     one_process=out[k]["one_process"]["seconds"]))
+           for k in ("frame_step", "tp_step")})
+    log("model parallel " + json.dumps(summary))
+    return out
+
+
 def offload_episode(dev, steps: int, seed: int, offloaded: dict) -> dict:
     """Phase 19(c): phase 10's episode again with VGGT's parameters kept on
     the card (`offload_params=False`), cut to its first two segments (one
@@ -3583,6 +3805,9 @@ def main() -> int:
         t0 = time.perf_counter()
         mesh_train_run = mesh_train(dev, workdir, SEED)
         log(f"mesh train phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        mp_run = mesh_model_parallel(dev, workdir, SEED)
+        log(f"model parallel phase wall seconds {time.perf_counter() - t0:.3f}")
     t0 = time.perf_counter()
     offload_run = offload_episode(dev, STEPS, SEED, dict(loop_run, kept=loop_kept))
     del loop_kept
@@ -3618,8 +3843,8 @@ def main() -> int:
     fp32_keys = twin_keys + ("split_bound_ms", "kernel_ms", "max_rel_err", "mean_rel_err")
     # Phases 17 and 18: launches summed over the runs and ranks of each path, each read with its counts set to 0.
     mesh_paths = {"validate_parity": sum(r["launches"][0] for r in tools_run["validate_parity"].values()),
-                  **{f"mesh_{run['ranks'][0]['route']}": sum(r["launches"][0] for r in run["ranks"])
-                     for run in mesh_run["routes"]},
+                  **{f"mesh_{run['route']}": sum(f["launches"][0] for f in run["forward"])
+                     for run in mp_run["route_gradients"]["routes"]},
                   "mesh_episode": sum(r["launches"][0] for r in mesh_run["episode"]["ranks"])}
     # Phase 19: each path's launches summed over its ranks (and steps), each read with its counts set to 0.
     train_steps_19 = [st for r in mesh_train_run["ranks"] for x in r["runs"] for st in x["steps"]] + \
@@ -3628,8 +3853,16 @@ def main() -> int:
                       mesh_train=sum(st["launches"][0] for st in train_steps_19),
                       loop_without_offload=offload_run["launches"])
     mesh_bwd_paths = {"mesh_train": sum(st["launches"][1] for st in train_steps_19)}
+    # Phase 20: each path's launches summed over its ranks, each read with its counts set to 0.
+    for r in mp_run["route_gradients"]["routes"]:
+        key = f"route_grad_{r['route']}_w{r['world_size']}"
+        mesh_paths[key] = sum(x["launches"][0] for x in r["ranks"])
+        mesh_bwd_paths[key] = sum(x["launches"][1] for x in r["ranks"])
+    for k in ("frame_step", "tp_step"):
+        mesh_paths[k] = sum(r["launches"][0] for r in mp_run[k]["ranks"])
+        mesh_bwd_paths[k] = sum(r["launches"][1] for r in mp_run[k]["ranks"])
     if not all(mesh_paths.values()) or not all(mesh_bwd_paths.values()):
-        raise AssertionError(f"a kernel was not launched on phase 17's, 18's or 19's paths: {mesh_paths}, "
+        raise AssertionError(f"a kernel was not launched on phase 17's, 18's, 19's or 20's paths: {mesh_paths}, "
                              f"{mesh_bwd_paths}")
     fp32_fwd_paths["mesh_gate"] = sum(r[0] for r in mesh_run["gate"]["launches"])
     kernels = [{

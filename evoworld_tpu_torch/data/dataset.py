@@ -56,6 +56,45 @@ def load_camera_poses(path: str, unity_to_opencv: bool = True) -> np.ndarray:
     return poses
 
 
+def dump_trajectories(root: str, episodes=None) -> dict:
+    """Cache every episode's raw pose rows in `<root>/camera_trajectories.json`
+    and return the mapping: {episode: {frame id: [x, y, z, rotx, roty,
+    rotz]}}, the Unity rows unconverted under their frame-id strings (a
+    consumer applies UNITY_TO_OPENCV itself). The JAX package's and the
+    reference repo's schema, so the caches are exchangeable. `episodes`
+    (default: every directory under `root` with a camera_poses.txt, sorted)."""
+    import json
+
+    if episodes is None:
+        episodes = sorted(e for e in os.listdir(root) if os.path.isfile(os.path.join(root, e, "camera_poses.txt")))
+    cache: dict = {}
+    for e in episodes:
+        poses: dict = {}
+        with open(os.path.join(root, e, "camera_poses.txt")) as f:
+            for line in f.readlines()[1:]:
+                values = [v.strip() for v in line.strip().split(",")]
+                if len(values) >= 7:
+                    poses[values[0]] = [float(x) for x in values[1:7]]
+        cache[e] = poses
+    with open(os.path.join(root, "camera_trajectories.json"), "w") as f:
+        json.dump(cache, f, indent=4)
+    return cache
+
+
+def load_trajectory_file(traj_file: str) -> dict:
+    """A camera_trajectories.json cache -> {episode: {frame id: [pose row]}}."""
+    import json
+
+    with open(traj_file) as f:
+        return json.load(f)
+
+
+def trajectory_to_array(episode_poses: dict) -> np.ndarray:
+    """{frame id: [pose]} -> (N, 6) float32 rows ordered by numeric frame id."""
+    keys = sorted(episode_poses, key=lambda k: float(k))
+    return np.asarray([episode_poses[k] for k in keys], np.float32)
+
+
 def _resolve(path: str) -> str:
     if not os.path.exists(path):
         alt = os.path.splitext(path)[0] + ".jpg"

@@ -65,3 +65,10 @@ def invert_pose(mat34: torch.Tensor) -> torch.Tensor:
     rot_inv = mat34[..., :3, :3].transpose(-1, -2)
     t_inv = -torch.einsum("...ij,...jk->...ik", rot_inv, mat34[..., :3, 3:])
     return torch.cat([rot_inv, t_inv], dim=-1)
+
+
+def compose_poses(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose (..., 3, 4) rigid transforms: result = a @ b (as 4x4s)."""
+    rot = torch.einsum("...ij,...jk->...ik", a[..., :3, :3], b[..., :3, :3])
+    t = torch.einsum("...ij,...jk->...ik", a[..., :3, :3], b[..., :3, 3:]) + a[..., :3, 3:]
+    return torch.cat([rot, t], dim=-1)

@@ -52,3 +52,13 @@ def pinhole_ray_grid(
     y = ys[:, None].expand(height, width) / fx
     d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
     return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
+def pinhole_intrinsics(height: int, width: int, fov_x_deg: float = 90.0,
+                       device: str | torch.device = "cpu") -> torch.Tensor:
+    """The (3, 3) fp32 intrinsic matrix matching `pinhole_ray_grid`: focal
+    length in pixels from the horizontal field of view, the principal point
+    at the pixel centres' middle."""
+    fx = (width / 2.0) / math.tan(math.radians(fov_x_deg) / 2.0)
+    return torch.tensor([[fx, 0.0, (width - 1) / 2.0], [0.0, fx, (height - 1) / 2.0], [0.0, 0.0, 1.0]],
+                        dtype=torch.float32, device=device)

@@ -5,6 +5,22 @@ channels-first (B*F, C, H, W) activations, temporal tensors (B, C, F, H, W),
 and diffusers' parameter names (conv1/norm1/time_emb_proj/to_out.0/ff.net.0.proj
 ...) so a diffusers state dict loads as it is. Norms keep fp32 statistics;
 everything else computes in the activations' dtype.
+
+Over a frame shard (`frames=`, a `parallel/mesh.py::FrameShard`: this rank
+holds frames [start, stop) of every batch row, the frame-sharded training
+step), everything per frame runs on the rank's frames alone, and the three
+operations that cross frames do what the JAX package's GSPMD partitioning
+of the same layers does:
+  - `TemporalResnetBlock`: its GroupNorms take their statistics over
+    (C / G, F, H, W) summed over the ranks (the mean, then the centred
+    squares); its (3, 1, 1) convolutions take one frame of halo from each
+    neighbour, zeros only at the clip's two ends;
+  - `TemporalBasicTransformerBlock`: an all-to-all moves the frame shard to
+    a shard of tokens with every frame, the block runs there, and a second
+    all-to-all moves it back (each rank's activations about 1 / W of the
+    whole);
+  - `TransformerSpatioTemporalModel`: the frames' positional embedding takes
+    their global indices.
 """
 
 from __future__ import annotations
@@ -17,6 +33,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from evoworld_tpu_torch.ops.attention import multi_head_attention
+from evoworld_tpu_torch.parallel.collectives import frames_to_tokens, halo, sum_over, tokens_to_frames
+from evoworld_tpu_torch.parallel.mesh import FrameShard, split_sizes
 
 
 def sinusoidal_time_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
@@ -44,14 +62,25 @@ class TimestepEmbedding(nn.Module):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm over the channel axis (dim 1) with fp32 statistics."""
+    """GroupNorm over the channel axis (dim 1) with fp32 statistics; over a
+    frame shard of (B, C, F, H, W), statistics of the whole clip."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5, num_groups: int = 32):
         super().__init__(num_groups, num_channels, eps=eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(), self.eps)
-        return out.to(x.dtype)
+    def forward(self, x: torch.Tensor, frames: Optional[FrameShard] = None) -> torch.Tensor:
+        if frames is None:
+            out = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(), self.eps)
+            return out.to(x.dtype)
+        b, c = x.shape[:2]
+        xg = x.float().reshape(b, self.num_groups, -1)
+        count = xg.shape[-1] // frames.count * frames.total  # (C / G) * H * W of every frame
+        mean = sum_over(xg.sum(-1), frames.axis)[..., None] / count
+        centred = xg - mean
+        var = sum_over(centred.square().sum(-1), frames.axis)[..., None] / count
+        out = (centred * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        affine = (1, c) + (1,) * (x.dim() - 2)
+        return (out * self.weight.float().view(affine) + self.bias.float().view(affine)).to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -147,13 +176,23 @@ class TemporalResnetBlock(nn.Module):
         self.norm2 = GroupNorm(channels, eps)
         self.conv2 = nn.Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
 
-    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                frames: Optional[FrameShard] = None) -> torch.Tensor:
+        h = _frame_conv(self.conv1, F.silu(self.norm1(x, frames)), frames)
         if temb is not None:
             # temb: (B, F, C_t) -> (B, C, F, 1, 1), added per frame.
             h = h + self.time_emb_proj(F.silu(temb)).permute(0, 2, 1)[:, :, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = _frame_conv(self.conv2, F.silu(self.norm2(h, frames)), frames)
         return x + h
+
+
+def _frame_conv(conv: nn.Conv3d, x: torch.Tensor, frames: Optional[FrameShard]) -> torch.Tensor:
+    """A (3, 1, 1) convolution over (B, C, F, H, W); over a frame shard, on
+    the rank's frames between their neighbours' halo frames."""
+    if frames is None:
+        return conv(x)
+    prev, nxt = halo(x, frames, dim=2)
+    return F.conv3d(torch.cat([prev, x, nxt], dim=2), conv.weight, conv.bias)
 
 
 class AlphaBlender(nn.Module):
@@ -208,13 +247,14 @@ class SpatioTemporalResBlock(nn.Module):
         temb: Optional[torch.Tensor],
         num_frames: int,
         image_only_indicator: Optional[torch.Tensor] = None,
+        frames: Optional[FrameShard] = None,
     ) -> torch.Tensor:
         h = self.spatial_res_block(x, temb)
         bf, ch, height, width = h.shape
         batch = bf // num_frames
         h5 = h.view(batch, num_frames, ch, height, width).permute(0, 2, 1, 3, 4)
         temb5 = temb.view(batch, num_frames, -1) if temb is not None else None
-        ht = self.temporal_res_block(h5, temb5)
+        ht = self.temporal_res_block(h5, temb5, frames)
         ind = image_only_indicator[:, None, :, None, None] if image_only_indicator is not None else None
         mixed = self.time_mixer(h5, ht, ind)
         return mixed.permute(0, 2, 1, 3, 4).reshape(bf, ch, height, width)
@@ -241,7 +281,9 @@ class BasicTransformerBlock(nn.Module):
 class TemporalBasicTransformerBlock(nn.Module):
     """Temporal transformer block: attends across frames for each spatial token.
 
-    (B*F, S, C) in and out; internally (B*S, F, C).
+    (B*F, S, C) in and out; internally (B*S, F, C). Over a frame shard, (B*F_local,
+    S, C) in and out and (B*S_local, F, C) inside; `context` then has
+    B*S_local rows.
     """
 
     def __init__(self, dim: int, heads: int, head_dim: int, cross_dim: Optional[int]):
@@ -255,16 +297,24 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, num_frames: int, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, num_frames: int, context: Optional[torch.Tensor] = None,
+                frames: Optional[FrameShard] = None) -> torch.Tensor:
         bf, seq, ch = x.shape
         batch = bf // num_frames
-        h = x.view(batch, num_frames, seq, ch).permute(0, 2, 1, 3).reshape(batch * seq, num_frames, ch)
+        h = x.view(batch, num_frames, seq, ch)
+        if frames is not None:
+            h = frames_to_tokens(h, frames)
+        f_all, tokens = h.shape[1:3]
+        h = h.permute(0, 2, 1, 3).reshape(batch * tokens, f_all, ch)
         h = h + self.ff_in(self.norm_in(h))
         h = h + self.attn1(self.norm1(h))
         if context is not None:
             h = h + self.attn2(self.norm2(h), context)
         h = h + self.ff(self.norm3(h))
-        return h.view(batch, seq, num_frames, ch).permute(0, 2, 1, 3).reshape(bf, seq, ch)
+        h = h.view(batch, tokens, f_all, ch).permute(0, 2, 1, 3)
+        if frames is not None:
+            h = tokens_to_frames(h, frames, seq)
+        return h.reshape(bf, seq, ch)
 
 
 class TransformerSpatioTemporalModel(nn.Module):
@@ -296,27 +346,31 @@ class TransformerSpatioTemporalModel(nn.Module):
         context: torch.Tensor,
         num_frames: int,
         image_only_indicator: Optional[torch.Tensor] = None,
+        frames: Optional[FrameShard] = None,
     ) -> torch.Tensor:
         bf, ch, height, width = x.shape
         batch = bf // num_frames
         seq = height * width
         residual = x
 
-        # Temporal cross-attention context: the first frame's, for every token.
+        # Temporal cross-attention context: the first frame's (every frame's is the same), for every token
+        # (over a frame shard, for this rank's tokens).
+        tokens = seq if frames is None else split_sizes(seq, frames.axis.size)[frames.axis.rank]
         ctx_first = context.view(batch, num_frames, -1, context.shape[-1])[:, 0]
-        time_context = ctx_first[:, None].expand(batch, seq, *ctx_first.shape[1:])
-        time_context = time_context.reshape(batch * seq, *ctx_first.shape[1:])
+        time_context = ctx_first[:, None].expand(batch, tokens, *ctx_first.shape[1:])
+        time_context = time_context.reshape(batch * tokens, *ctx_first.shape[1:])
 
         h = self.norm(x).permute(0, 2, 3, 1).reshape(bf, seq, ch)
         h = self.proj_in(h)
 
-        frame_idx = torch.arange(num_frames, dtype=torch.float32, device=x.device).repeat(batch)
+        first = 0 if frames is None else frames.start  # the global index of the first frame held
+        frame_idx = torch.arange(first, first + num_frames, dtype=torch.float32, device=x.device).repeat(batch)
         emb = self.time_pos_embed(sinusoidal_time_embedding(frame_idx, self.inner).to(x.dtype))[:, None, :]
 
         ind = image_only_indicator[:, :, None, None] if image_only_indicator is not None else None
         for block, tblock in zip(self.transformer_blocks, self.temporal_transformer_blocks):
             h = block(h, context)
-            h_mix = tblock(h + emb, num_frames, time_context)
+            h_mix = tblock(h + emb, num_frames, time_context, frames)
             h = self.time_mixer(
                 h.view(batch, num_frames, seq, self.inner),
                 h_mix.view(batch, num_frames, seq, self.inner),

@@ -4,6 +4,12 @@ Counterpart of `evoworld_tpu/models/unet.py`, with diffusers'
 `UNetSpatioTemporalConditionModel` parameter names: conv_in, time/added-time
 embeddings, 4 down blocks (cross, cross, cross, plain), mid block, 4 up
 blocks, conv_norm_out/conv_out. Activations are (B*F, C, H, W).
+
+`forward(..., frames=FrameShard)` runs the UNet over this rank's frames of
+every batch row (the frame-sharded training step): every block takes the
+shard and the cross-frame layers of `models/layers.py` reach the other
+ranks. Under block remat the recomputation repeats those collectives in the
+backward, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from evoworld_tpu_torch.models.layers import (
     Upsample2D,
     sinusoidal_time_embedding,
 )
+from evoworld_tpu_torch.parallel.mesh import FrameShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +76,12 @@ class DownBlock(nn.Module):
             ])
         self.downsamplers = nn.ModuleList([Downsample2D(out_ch)]) if add_downsample else None
 
-    def forward(self, x, temb, context, num_frames, indicator):
+    def forward(self, x, temb, context, num_frames, indicator, frames=None):
         skips = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb, num_frames, indicator)
+            x = resnet(x, temb, num_frames, indicator, frames)
             if self.attentions is not None:
-                x = self.attentions[i](x, context, num_frames, indicator)
+                x = self.attentions[i](x, context, num_frames, indicator, frames)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -97,13 +104,13 @@ class UpBlock(nn.Module):
             ])
         self.upsamplers = nn.ModuleList([Upsample2D(out_ch)]) if add_upsample else None
 
-    def forward(self, x, skips, temb, context, num_frames, indicator):
+    def forward(self, x, skips, temb, context, num_frames, indicator, frames=None):
         """`skips`: this block's skip activations, the last consumed first."""
         for i, resnet in enumerate(self.resnets):
             x = torch.cat([x, skips[-1 - i]], dim=1)
-            x = resnet(x, temb, num_frames, indicator)
+            x = resnet(x, temb, num_frames, indicator, frames)
             if self.attentions is not None:
-                x = self.attentions[i](x, context, num_frames, indicator)
+                x = self.attentions[i](x, context, num_frames, indicator, frames)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
@@ -119,17 +126,19 @@ class MidBlock(nn.Module):
             [TransformerSpatioTemporalModel(heads, ch // heads, ch, cross_dim, transformer_layers)]
         )
 
-    def forward(self, x, temb, context, num_frames, indicator):
-        x = self.resnets[0](x, temb, num_frames, indicator)
-        x = self.attentions[0](x, context, num_frames, indicator)
-        return self.resnets[1](x, temb, num_frames, indicator)
+    def forward(self, x, temb, context, num_frames, indicator, frames=None):
+        x = self.resnets[0](x, temb, num_frames, indicator, frames)
+        x = self.attentions[0](x, context, num_frames, indicator, frames)
+        return self.resnets[1](x, temb, num_frames, indicator, frames)
 
 
 class UNetSpatioTemporal(nn.Module):
     """The full UNet.
 
     forward(sample (B, F, C_in, H, W), timestep (scalar or (B,)), context
-    (B, 1, cross_dim), added_time_ids (B, 3)) -> (B, F, out_channels, H, W).
+    (B, 1, cross_dim), added_time_ids (B, 3)) -> (B, F, out_channels, H, W);
+    with `frames`, F is this rank's frame count and `image_only_indicator`
+    (if given) holds this rank's frames.
     """
 
     def __init__(self, config: UNetConfig = UNetConfig()):
@@ -181,9 +190,14 @@ class UNetSpatioTemporal(nn.Module):
         context: torch.Tensor,
         added_time_ids: torch.Tensor,
         image_only_indicator: Optional[torch.Tensor] = None,
+        frames: Optional[FrameShard] = None,
     ) -> torch.Tensor:
         cfg = self.config
         batch, num_frames = sample.shape[:2]
+        if frames is not None and frames.count != num_frames:
+            raise ValueError(f"the sample holds {num_frames} frames, the frame shard {frames.count}")
+        if frames is not None and frames.axis.size == 1:
+            frames = None
         dtype = sample.dtype
         ch0 = cfg.block_out_channels[0]
 
@@ -206,12 +220,12 @@ class UNetSpatioTemporal(nn.Module):
         x = self.conv_in(sample.flatten(0, 1))
         skips = [x]
         for block in self.down_blocks:
-            x, s = run(block, x, emb, context, num_frames, image_only_indicator)
+            x, s = run(block, x, emb, context, num_frames, image_only_indicator, frames)
             skips.extend(s)
-        x = run(self.mid_block, x, emb, context, num_frames, image_only_indicator)
+        x = run(self.mid_block, x, emb, context, num_frames, image_only_indicator, frames)
         for block in self.up_blocks:
             n = len(block.resnets)
-            x = run(block, x, skips[-n:], emb, context, num_frames, image_only_indicator)
+            x = run(block, x, skips[-n:], emb, context, num_frames, image_only_indicator, frames)
             del skips[-n:]
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))

@@ -20,8 +20,13 @@ the whole output:
   - heads divisible by the mesh size: each rank runs the flash forward on its
     slice of heads and an all-gather joins them;
   - otherwise: ring attention over sequence shards (`ops/ring_attention.py`).
-Both are forward only (the JAX package's `_head_sharded` and
-`seq_sharded_ring`); under grad they raise.
+Both differentiate as the JAX package's `_head_sharded` and
+`seq_sharded_ring` do, and every rank gets the whole dq, dk and dv: the
+head-sharded route's backward runs the flash backward on this rank's heads
+(from the output and log-sum-exp its forward kept) and all-gathers the
+three gradients over heads; the ring's is its own backward
+(`ops/ring_attention.py`). The gradient of the output must be the same on
+every rank, as it is where every rank computes the same loss from it.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import math
 
 import torch
 
-from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_forward
+from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward, flash_attention_forward
 
 FLASH_MIN_SEQ = 4096
 _HEAD_SHARD = (None, None)  # (mesh, min_seq) of the innermost `head_sharded_attention`
@@ -59,20 +64,51 @@ def head_sharded_attention(mesh, min_seq: int | None = None):
         _HEAD_SHARD = prev
 
 
-def head_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, mesh) -> torch.Tensor:
-    """Each rank's slice of H / W heads through the flash forward, joined by an all-gather."""
+class _HeadSharded(torch.autograd.Function):
+    """Each rank's slice of H / W heads through the flash forward, joined by an
+    all-gather; the backward runs the flash backward on the same heads and
+    all-gathers dq, dk and dv (one collective)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, mesh):
+        heads = _heads(q.shape[2], mesh)
+        grad = any(ctx.needs_input_grad[:3])
+        out, lse = flash_attention_forward(q[:, :, heads], k[:, :, heads], v[:, :, heads], scale, k.shape[1],
+                                           with_lse=grad)
+        if grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.scale, ctx.mesh = scale, mesh
+        return _join_heads(out, mesh)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        heads = _heads(q.shape[2], ctx.mesh)
+        grads = flash_attention_backward(q[:, :, heads], k[:, :, heads], v[:, :, heads], out, do[:, :, heads], lse,
+                                         ctx.scale, k.shape[1])
+        full = _join_heads(torch.stack(grads, dim=-2), ctx.mesh)                 # (B, S, H, 3, D)
+        return full[..., 0, :], full[..., 1, :], full[..., 2, :], None, None
+
+
+def _heads(h: int, mesh) -> slice:
+    hl = h // mesh.size
+    return slice(mesh.rank * hl, (mesh.rank + 1) * hl)
+
+
+def _join_heads(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's (B, S, H / W, ...) joined along heads, in rank order."""
     from evoworld_tpu_torch.parallel.collectives import all_gather
 
-    hl = q.shape[2] // mesh.size
-    heads = slice(mesh.rank * hl, (mesh.rank + 1) * hl)
-    out, _ = flash_attention_forward(q[:, :, heads], k[:, :, heads], v[:, :, heads], scale, k.shape[1])
-    full = all_gather(out.permute(2, 0, 1, 3).contiguous(), mesh)       # (H, B, S, D)
-    return full.permute(1, 2, 0, 3)
+    return all_gather(x.movedim(2, 0).contiguous(), mesh).movedim(0, 2)
+
+
+def head_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, mesh) -> torch.Tensor:
+    """Each rank's slice of H / W heads through the flash forward, joined by
+    an all-gather; differentiable (`_HeadSharded`)."""
+    return _HeadSharded.apply(q, k, v, scale, mesh)
 
 
 def _mesh_route(q, k, v, scale, mesh):
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("the mesh attention routes are forward only; run them under torch.no_grad()")
     if q.shape[2] % mesh.size == 0:
         return head_sharded(q, k, v, scale, mesh)
     from evoworld_tpu_torch.ops.ring_attention import seq_sharded_ring

@@ -290,15 +290,20 @@ def cli_rank(mesh, module: str, argv: list) -> list:
 
 
 def train_step_rank(mesh, models: dict, config: dict, micro_batches: list, draws: list,
-                    zero_min_size: int = 1 << 16) -> dict:
-    """One data-parallel `train_step` over `mesh` from the given models
-    (`models`: {"unet" | "vae" | "clip": (config, state dict)}, fp32) on the
-    global `micro_batches` with their global `draws` (numpy), the
-    `TrainConfig` fields `config` and the ZeRO rule from `zero_min_size`
-    elements. Returns the loss and gradient norm, the
-    gradients the optimizer was given (a sharded leaf's: this rank's piece
-    at ZeRO-2), which leaves the ZeRO rule shards, the updated trainable
-    parameters and the optimizer's `state_dict()` (moments gathered)."""
+                    zero_min_size: int = 1 << 16, shard_frames: bool = False, tp_min_size: int = 1 << 16) -> dict:
+    """One sharded `train_step` over `mesh` (None: one process) from the given
+    models (`models`: {"unet" | "vae" | "clip": (config, state dict)}, fp32)
+    on the global `micro_batches` with their global `draws` (numpy), the
+    `TrainConfig` fields `config`, the ZeRO rule from `zero_min_size`
+    elements, frames sharded where `shard_frames`, and on a model axis of
+    more than 1 the tensor-parallel rule from `tp_min_size` elements.
+    Returns the loss and gradient norm, the gradients the optimizer was
+    given (a sharded leaf's: this rank's piece at ZeRO-2, a split one's:
+    this model rank's slice), which leaves the ZeRO rule shards, which the
+    tensor-parallel rule splits, the updated trainable parameters (split
+    ones: the slice), the optimizer's `state_dict()` (moments gathered over
+    the data ranks) and what this rank stores: each UNet parameter's shape
+    and each trainable one's moment's."""
     from evoworld_tpu_torch.models.clip import CLIPVisionTower
     from evoworld_tpu_torch.models.unet import UNetSpatioTemporal
     from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal
@@ -310,7 +315,7 @@ def train_step_rank(mesh, models: dict, config: dict, micro_batches: list, draws
         built[name] = cls(cfg)
         built[name].load_state_dict(state)
     cfg = TrainConfig(**config)
-    state = make_train_state(cfg, built["unet"], torch.float32, mesh, zero_min_size)
+    state = make_train_state(cfg, built["unet"], torch.float32, mesh, zero_min_size, tp_min_size)
     names = [n for n, p in built["unet"].named_parameters() if p.requires_grad]
     given = {}
     step = state.optimizer.step
@@ -326,10 +331,13 @@ def train_step_rank(mesh, models: dict, config: dict, micro_batches: list, draws
     as_torch = [{k: torch.as_tensor(v) for k, v in tree.items()} for tree in micro_batches]
     metrics = train_step(state, built["vae"].requires_grad_(False), built["clip"].requires_grad_(False), as_torch,
                          cfg, torch.float32, draws=[{k: torch.as_tensor(v) for k, v in d.items()} for d in draws],
-                         mesh=mesh)
+                         mesh=mesh, shard_frames=shard_frames)
     params = dict(built["unet"].named_parameters())
+    moments = {n: tuple(state.optimizer.state[params[n]]["mu"].shape) for n in names}
     return dict(metrics, grads=given, sharded=[n for n, s in zip(names, state.optimizer.sharded) if s],
-                params={n: params[n].detach().clone() for n in names}, opt_state=state.optimizer.state_dict())
+                split=[n for n, d in (state.split or {}).items() if d is not None],
+                params={n: params[n].detach().clone() for n in names}, opt_state=state.optimizer.state_dict(),
+                stored={n: tuple(p.shape) for n, p in params.items()}, moments=moments)
 
 
 def probed_train_cli(argv: list, dev: torch.device) -> tuple[dict, object]:
@@ -422,6 +430,182 @@ def reproject_rank(mesh, argv: list) -> dict:
         reproject.save_frames = save
     return dict(rank=mesh.rank, records=records, launches=_launch_counts(), seconds=seconds, saved=saved,
                 peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+
+
+def route_inputs(shape: tuple, dtype: str, seed: int, device) -> list:
+    """q, k, v (in `dtype`) and the output's cotangent (fp32) of a routed
+    attention's gradient check: normal draws in fp32 from `seed` on `device`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    drawn = [torch.randn(shape, generator=g, device=device) for _ in range(4)]
+    return [t.to(getattr(torch, dtype)) for t in drawn[:3]] + [drawn[3]]
+
+
+def route_grad_rank(mesh, shape: tuple, dtype: str, seed: int, min_seq=None) -> dict:
+    """The gradient of sum(out * cotangent) through the mesh route of
+    `multi_head_attention` (`head_sharded_attention(mesh, min_seq)`) on
+    `route_inputs` (the same on every rank), on this rank's device: the flash
+    launches of the forward and backward (counted from 0 around them), their
+    seconds (between barriers), each gradient's SHA-256 and finiteness, and
+    on rank 0 dq, dk and dv on the CPU. On a card, first `route_rank`'s
+    check of the route's forward alone ("forward")."""
+    import hashlib
+    import time
+
+    import torch.distributed as dist
+
+    from evoworld_tpu_torch.ops.attention import head_sharded_attention, multi_head_attention
+
+    dev = mesh.device
+    fwd = route_rank(mesh, shape, dtype, seed) if dev.type == "cuda" else None
+    *qkv, cot = route_inputs(shape, dtype, seed, dev)
+    qkv = [t.requires_grad_(True) for t in qkv]
+    dist.barrier()
+    with head_sharded_attention(mesh, min_seq):
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out = multi_head_attention(*qkv)
+        (out.float() * cot).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+    grads = [t.grad for t in qkv]
+    return dict(route="head_sharded" if shape[2] % mesh.size == 0 else "ring", world_size=mesh.size,
+                rank=mesh.rank, shape=list(shape), dtype=dtype, launches=launches, seconds=seconds,
+                sha256=[hashlib.sha256(g.float().cpu().numpy().tobytes()).hexdigest() for g in grads],
+                finite=all(bool(torch.isfinite(g).all()) for g in grads),
+                grads=[g.cpu() for g in grads] if mesh.rank == 0 else None, forward=fwd)
+
+
+def _frame_layer(name: str, seed: int):
+    """(module, call(module, inputs, frames) -> output, each input's frame
+    dim (None: every rank takes it whole), the output's) of the per-layer
+    frame-sharding checks, random from
+    `seed`, fp32 on the CPU: a temporal ResNet (GroupNorm statistics and the
+    (3, 1, 1) convolutions' halo) and a spatio-temporal transformer (the
+    all-to-all of its temporal block, the frames' global indices)."""
+    from evoworld_tpu_torch.models.layers import TemporalResnetBlock, TransformerSpatioTemporalModel
+
+    torch.manual_seed(seed)
+    if name == "temporal_resnet":
+        module = TemporalResnetBlock(64, 16)
+
+        def call(m, x, frames):
+            return m(x["x"], x["temb"], frames)
+
+        return module, call, {"x": 2, "temb": 1}, 2
+    module = TransformerSpatioTemporalModel(2, 16, 32, cross_dim=24)
+    with torch.no_grad():  # a blend that leans on the temporal branch
+        module.time_mixer.mix_factor.fill_(-1.0)
+
+    def call(m, x, frames):  # the context repeated over the frames, as the UNet repeats it
+        b, f = x["x"].shape[:2]
+        context = x["context"].expand(b, f, *x["context"].shape[2:])
+        out = m(x["x"].flatten(0, 1), context.flatten(0, 1), f, None, frames)
+        return out.view(b, f, *out.shape[1:])
+
+    return module, call, {"x": 1, "context": None}, 1
+
+
+def frame_layer_rank(mesh, cases: list) -> dict:
+    """Each case (name, seed, inputs, cotangent: numpy, frames whole) through
+    `_frame_layer`'s layer over this rank's frames (a `FrameShard` of the
+    data axis; `mesh` None: one process, every frame): {name: (output,
+    {input: gradient}, {parameter: gradient})}, this rank's frames of the
+    output and of a frame-sharded input's gradient, and its parts of a whole
+    input's and of the parameters' gradients."""
+    from evoworld_tpu_torch.parallel.mesh import FrameShard, axes
+
+    out = {}
+    for name, seed, inputs, cot in cases:
+        module, call, dims, out_dim = _frame_layer(name, seed)
+        total = inputs["x"].shape[dims["x"]]
+        frames = FrameShard(axes(mesh)[0], total) if mesh is not None and mesh.size > 1 else None
+        start, count = (frames.start, frames.count) if frames is not None else (0, total)
+        local = {k: (torch.as_tensor(v) if dims[k] is None else torch.as_tensor(v).narrow(dims[k], start, count))
+                 .clone().requires_grad_(True) for k, v in inputs.items()}
+        y = call(module, local, frames)
+        (y * torch.as_tensor(cot).narrow(out_dim, start, count)).sum().backward()
+        out[name] = (y.detach(), {k: t.grad for k, t in local.items()},
+                     {n: p.grad for n, p in module.named_parameters()})
+    return out
+
+
+def _card_step(mesh, checkpoint_dir: str, frames: int, seed: int, save: str, shard_frames: bool) -> dict:
+    """One full-width bf16 `train_step` (batch 1, 1024x576, `frames` frames,
+    ZeRO-1, warmup 0) from the checkpoints in `checkpoint_dir`, on a batch and
+    draws made from `seed` on the device, over `mesh` (None: one process)
+    with frames sharded where `shard_frames`: its loss, norm, seconds, peak
+    memory, flash launches and the bytes of the UNet's parameters and of
+    the moments this rank stores. Where `save` is given the updated
+    trainable masters and moments (split slices gathered) are written there
+    by rank 0 in `torch.save`'s format, `{"params", "opt_state"}`; without
+    it they are returned."""
+    import time
+
+    import numpy as np
+
+    from evoworld_tpu_torch.parallel.collectives import all_gather
+    from evoworld_tpu_torch.parallel.mesh import axes, split_sizes
+    from evoworld_tpu_torch.runtime import build_trainer
+    from evoworld_tpu_torch.train.train_step import TrainConfig, loss_draws, make_train_state, train_step
+
+    dev = mesh.device if mesh is not None else torch.device("cuda", 0)
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    unet, vae, clip = build_trainer("full", seed=seed, compute_dtype=torch.bfloat16, device=dev,
+                                    checkpoint_dir=checkpoint_dir, allow_random_weights=False)
+    cfg = TrainConfig(warmup_steps=0)
+    state = make_train_state(cfg, unet, torch.bfloat16, mesh)
+    rng = np.random.default_rng(seed)
+    h, w = 576, 1024
+    batch = {"pixel_values": rng.random((1, frames, h, w, 3), dtype=np.float32) * 2 - 1,
+             "memory_values": rng.random((1, frames, h, w, 3), dtype=np.float32) * 2 - 1,
+             "plucker": rng.standard_normal((1, frames, h // 8, w // 8, 6), dtype=np.float32)}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    draws = loss_draws(batch, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = train_step(state, vae.requires_grad_(False), clip.requires_grad_(False), [batch], cfg, torch.bfloat16,
+                         draws=[draws], mesh=mesh, shard_frames=shard_frames)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    opt = state.optimizer
+    param_bytes = sum(p.numel() * p.element_size() for p in unet.parameters())
+    moment_bytes = sum(t.numel() * t.element_size() for st in opt.state.values() for t in (st["mu"], st["nu"]))
+    named = [(n, p) for n, p in unet.named_parameters() if p.requires_grad]
+    sd = opt.state_dict()
+    model_axis = axes(mesh)[1] if mesh is not None else None
+
+    def whole(name, t):  # a split slice gathered over the model ranks
+        return all_gather(t.contiguous(), model_axis) if state.split and state.split[name] is not None else t
+
+    kept = {"params": {n: whole(n, p.detach()).cpu() for n, p in named},
+            "opt_state": {"state": {i: {k: whole(n, sd["state"][i][k]).cpu() for k in ("mu", "nu")}
+                                    for i, (n, _) in enumerate(named)},
+                          "param_groups": [{"count": sd["param_groups"][0]["count"]}]}}
+    result = dict(metrics, rank=mesh.rank if mesh is not None else 0, world_size=mesh.size if mesh else 1,
+                  frames=frames, local_frames=split_sizes(frames, mesh.size)[mesh.rank] if shard_frames and mesh else frames,
+                  seconds=seconds, peak_memory_bytes=peak, launches=launches, param_bytes=param_bytes,
+                  moment_bytes=moment_bytes, split=sum(d is not None for d in (state.split or {}).values()))
+    if save is None:
+        result["state"] = kept
+    elif mesh is None or mesh.rank == 0:
+        torch.save(kept, save)
+    return result
+
+
+def frame_step_rank(mesh, checkpoint_dir: str, frames: int, seed: int, save: str) -> dict:
+    """`_card_step` with the frames sharded over `mesh`'s data axis."""
+    return _card_step(mesh, checkpoint_dir, frames, seed, save, shard_frames=True)
+
+
+def tp_step_rank(mesh, checkpoint_dir: str, frames: int, seed: int, save: str) -> dict:
+    """`_card_step` on a tensor-parallel `mesh` (its model axis over 1)."""
+    return _card_step(mesh, checkpoint_dir, frames, seed, save, shard_frames=False)
 
 
 def several_rank(mesh, calls: list) -> list:

@@ -1,26 +1,48 @@
 """The collectives of the port's sharded paths, over the default process
-group: `all_gather` (joined along the leading axis), `RingExchange` (send to
-the next rank, receive from the previous), and the training step's
-`all_reduce_mean` and `reduce_scatter_mean` (the mean over the ranks, whole
-or this data rank's dim-0 piece of it).
+group (a `Mesh`: every rank) or one axis of the mesh (an `Axis`, from
+`parallel/mesh.py::axes`): `all_gather` (joined along the leading axis),
+`RingExchange` (send to the next rank, receive from the previous), and the
+training step's `all_reduce_mean`, `all_reduce_sum` and `reduce_scatter`
+(the mean or sum over the ranks, whole or this rank's row of it).
+
+The model-parallel half of training differentiates through collectives,
+each a `torch.autograd.Function` over the ones above:
+  - `gather_along(x, axis, dim)`: every rank's `x` joined along `dim`
+    (contiguous, as a kernel downstream takes it); its backward takes this
+    rank's slice of the gradient;
+  - `copy_to(x, axis)`: the identity, whose backward sums the gradient over
+    the axis (the input of a layer whose output features are split);
+  - `sum_over(x, axis)`: the sum over the axis, whose backward sums too;
+  - `frames_to_tokens` / `tokens_to_frames`: an all-to-all between a
+    (B, F_local, S, C) frame shard and a (B, F, S_local, C) token shard, the
+    splits uneven where the counts do not divide;
+  - `halo`: the previous rank's last frame and the next rank's first, zeros
+    at the clip's two ends; its backward sends each halo's gradient back to
+    the rank that owns the frame.
 
 On NCCL, CUDA tensors pass straight through. On gloo, which takes CUDA
 tensors only for broadcast and all-reduce, a CUDA tensor is staged through
-pinned host memory and the result copied back to its device. The gathers and
-the ring move bytes, so any dtype goes (bf16 included); the reductions take
-floating tensors. There is no fallback: a collective that fails raises.
+pinned host memory and the result copied back to its device. The gathers,
+the exchanges and the ring move bytes, so any dtype goes (bf16 included);
+the reductions take floating tensors. There is no fallback: a collective
+that fails raises.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.distributed as dist
 
-from evoworld_tpu_torch.parallel.mesh import Mesh
+from evoworld_tpu_torch.parallel.mesh import Axis, FrameShard, Mesh, split_sizes
+
+def _group(ranks: Mesh | Axis):
+    return getattr(ranks, "group", None)
 
 
-def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
-    return mesh.backend != "nccl" and x.is_cuda
+def _staged(ranks: Mesh | Axis, x: torch.Tensor) -> bool:
+    return ranks.backend != "nccl" and x.is_cuda
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -33,23 +55,24 @@ def _host_copy(x: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def all_gather(x: torch.Tensor, ranks: Mesh | Axis) -> torch.Tensor:
     """Every rank's `x` (one shape on all ranks), joined along dim 0 in rank order."""
-    if mesh.size == 1:
+    if ranks.size == 1:
         return x
-    src = _host_copy(_bytes(x)) if _staged(mesh, x) else _bytes(x)
-    out = torch.empty((mesh.size, src.numel()), dtype=torch.uint8, device=src.device)
-    if mesh.backend == "nccl":
-        dist.all_gather_into_tensor(out, src)
+    src = _host_copy(_bytes(x)) if _staged(ranks, x) else _bytes(x)
+    out = torch.empty((ranks.size, src.numel()), dtype=torch.uint8, device=src.device)
+    if ranks.backend == "nccl":
+        dist.all_gather_into_tensor(out, src, group=_group(ranks))
     else:
-        dist.all_gather(list(out.unbind(0)), src)
-    out = out.view(x.dtype).reshape(mesh.size * x.shape[0], *x.shape[1:])
+        dist.all_gather(list(out.unbind(0)), src, group=_group(ranks))
+    out = out.view(x.dtype).reshape(ranks.size * x.shape[0], *x.shape[1:])
     return out.to(x.device, non_blocking=True) if out.device != x.device else out
 
 
 class RingExchange:
-    """`x` sent to rank + 1 and the same shape received from rank - 1, begun
-    at construction (the caller computes meanwhile) and finished by `wait()`."""
+    """`x` sent to rank + 1 and the same shape received from rank - 1 of the
+    default group, begun at construction (the caller computes meanwhile) and
+    finished by `wait()`."""
 
     def __init__(self, x: torch.Tensor, mesh: Mesh):
         self.device, self.dtype, self.shape = x.device, x.dtype, x.shape
@@ -69,31 +92,154 @@ class RingExchange:
         return out.to(self.device, non_blocking=True) if out.device != self.device else out
 
 
-
-def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """In place: `x` becomes the mean of every rank's `x`; returns it. Model
-    ranks hold their data peer's values, so this is the mean over the data
-    axis too. Gloo sums CUDA tensors itself (through host memory)."""
-    if mesh.size > 1:
-        dist.all_reduce(x)
-        x.div_(mesh.size)
+def all_reduce_sum(x: torch.Tensor, ranks: Mesh | Axis) -> torch.Tensor:
+    """In place: `x` becomes the sum of every rank's `x`; returns it. Gloo
+    sums CUDA tensors itself (through host memory)."""
+    if ranks.size > 1:
+        dist.all_reduce(x, group=_group(ranks))
     return x
 
 
-def reduce_scatter_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This data rank's row of the mean of every rank's `x` (D, n), D the
-    data axis: NCCL's reduce-scatter where every rank is a data rank. On
-    gloo, which has no reduce-scatter of CUDA tensors, and where model ranks
-    repeat a data rank, `x` is summed whole (staged through pinned host
-    memory on gloo) and the row taken: the same values, D times the traffic."""
-    if x.shape[0] != mesh.data:
-        raise ValueError(f"reduce_scatter_mean takes ({mesh.data}, n) rows, got {tuple(x.shape)}")
-    if mesh.size == 1:
+def all_reduce_mean(x: torch.Tensor, ranks: Mesh | Axis) -> torch.Tensor:
+    """In place: `x` becomes the mean of every rank's `x`; returns it."""
+    if ranks.size > 1:
+        all_reduce_sum(x, ranks).div_(ranks.size)
+    return x
+
+
+def reduce_scatter(x: torch.Tensor, axis: Axis, mean: bool = True) -> torch.Tensor:
+    """This rank's row of the mean (or with `mean` False the sum) over `axis`
+    of every rank's `x` (size, n): NCCL's reduce-scatter. On gloo, which has
+    no reduce-scatter of CUDA tensors, `x` is summed whole (staged through
+    pinned host memory) and the row taken: the same values, `size` times the
+    traffic."""
+    if x.shape[0] != axis.size:
+        raise ValueError(f"reduce_scatter takes ({axis.size}, n) rows, got {tuple(x.shape)}")
+    if axis.size == 1:
         return x[0]
-    if mesh.backend == "nccl" and mesh.model == 1:
+    if axis.backend == "nccl":
         out = torch.empty_like(x[0])
-        dist.reduce_scatter_tensor(out, x.contiguous())
-        return out.div_(mesh.size)
-    src = _host_copy(x) if _staged(mesh, x) else x.clone()
-    dist.all_reduce(src)
-    return src[mesh.data_rank].to(x.device, non_blocking=True).div_(mesh.size)
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=_group(axis))
+    else:
+        src = _host_copy(x) if _staged(axis, x) else x.clone()
+        dist.all_reduce(src, group=_group(axis))
+        out = src[axis.rank].to(x.device, non_blocking=True)
+    return out.div_(axis.size) if mean else out
+
+
+def exchange(pieces: Sequence[torch.Tensor], recv_shapes: Sequence[tuple], axis: Axis) -> list[torch.Tensor]:
+    """All-to-all: `pieces[r]` goes to rank r, and the piece rank r sends
+    here arrives shaped `recv_shapes[r]` (any of them empty); every piece of
+    one dtype. One `all_to_all_single` of bytes."""
+    dtype, device = pieces[0].dtype, pieces[0].device
+    size = pieces[0].element_size()
+    send = torch.cat([_bytes(p) for p in pieces])
+    recv_counts = [size * int(torch.Size(s).numel()) for s in recv_shapes]
+    if _staged(axis, send):
+        send = _host_copy(send)
+    out = torch.empty(sum(recv_counts), dtype=torch.uint8, device=send.device)
+    dist.all_to_all_single(out, send, recv_counts, [p.numel() * size for p in pieces], group=_group(axis))
+    if out.device != device:
+        out = out.to(device, non_blocking=True)
+    return [b.view(dtype).reshape(s) for b, s in zip(out.split(recv_counts), recv_shapes)]
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x.movedim(dim, 0), axis).movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.axis.size, ctx.dim)[ctx.axis.rank], None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous().clone(), ctx.axis), None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_reduce_sum(x.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous().clone(), ctx.axis), None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, recv_shapes, *pieces):
+        ctx.axis, ctx.send_shapes, ctx.recv_shapes = axis, [p.shape for p in pieces], recv_shapes
+        return tuple(exchange(pieces, recv_shapes, axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like = next(g for g in grads if g is not None)
+        grads = [g if g is not None else like.new_zeros(s) for g, s in zip(grads, ctx.recv_shapes)]
+        return (None, None, *exchange(grads, ctx.send_shapes, ctx.axis))
+
+
+def gather_along(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Every rank's `x` (one shape on all) joined along `dim` in rank order;
+    the gradient of this rank's slice is its part of the output's gradient."""
+    return x if axis.size == 1 else _Gather.apply(x, axis, dim)
+
+
+def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """`x`, whose gradient is summed over `axis` (each rank's is partial)."""
+    return x if axis.size == 1 else _Copy.apply(x, axis)
+
+
+def sum_over(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of every rank's `x` over `axis`, differentiable."""
+    return x if axis.size == 1 else _Sum.apply(x, axis)
+
+
+def frames_to_tokens(x: torch.Tensor, frames: FrameShard) -> torch.Tensor:
+    """(B, F_local, S, C), this rank's frames, to (B, F, S_local, C), every
+    frame of this rank's run of tokens (`split_sizes` of S over the ranks)."""
+    b, f_loc, s, c = x.shape
+    tokens = split_sizes(s, frames.axis.size)
+    r = frames.axis.rank
+    pieces = list(x.split(tokens, dim=2))
+    recv = [(b, n, tokens[r], c) for n in frames.sizes]
+    return torch.cat(_Exchange.apply(frames.axis, recv, *pieces), dim=1)
+
+
+def tokens_to_frames(x: torch.Tensor, frames: FrameShard, seq: int) -> torch.Tensor:
+    """The inverse of `frames_to_tokens`: (B, F, S_local, C) to (B, F_local, S, C)."""
+    b, _, _, c = x.shape
+    tokens = split_sizes(seq, frames.axis.size)
+    pieces = list(x.split(frames.sizes, dim=1))
+    recv = [(b, frames.count, n, c) for n in tokens]
+    return torch.cat(_Exchange.apply(frames.axis, recv, *pieces), dim=2)
+
+
+def halo(x: torch.Tensor, frames: FrameShard, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the previous rank's last frame, the next rank's first frame) of `x`,
+    this rank's frames along `dim`, each one frame wide; zeros where this
+    rank holds the clip's first or last frame."""
+    r, size = frames.axis.rank, frames.axis.size
+    one, none = list(x.shape), list(x.shape)
+    one[dim], none[dim] = 1, 0
+    pieces = [x.new_empty(none)] * size
+    recv = [tuple(none)] * size
+    if r > 0:
+        pieces[r - 1], recv[r - 1] = x.narrow(dim, 0, 1), tuple(one)
+    if r < size - 1:
+        pieces[r + 1], recv[r + 1] = x.narrow(dim, x.shape[dim] - 1, 1), tuple(one)
+    got = _Exchange.apply(frames.axis, recv, *pieces)
+    prev = got[r - 1] if r > 0 else x.new_zeros(one)
+    nxt = got[r + 1] if r < size - 1 else x.new_zeros(one)
+    return prev, nxt

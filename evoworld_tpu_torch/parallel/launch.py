@@ -33,10 +33,12 @@ def _resolve(target: str):
 
 
 class Ranks:
-    """`world_size` rank processes of `target`, started at construction;
-    `results()` waits for them (the caller may compute meanwhile)."""
+    """`world_size` rank processes of `target` on `device` ("cuda" or "cpu":
+    no default, so that a rank runs on the CPU only where the caller says so),
+    started at construction; `results()` waits for them (the caller may
+    compute meanwhile)."""
 
-    def __init__(self, target: str, world_size: int, workdir: str, device: str = "cpu", args: tuple = (),
+    def __init__(self, target: str, world_size: int, workdir: str, device: str, args: tuple = (),
                  mesh_model: int = 1, threads: int = 1, timeout: float = 900.0):
         os.makedirs(workdir, exist_ok=True)
         self.workdir, self.world_size, self.timeout = workdir, world_size, timeout
@@ -75,7 +77,7 @@ class Ranks:
                 for r in range(self.world_size)]
 
 
-def spawn(target: str, world_size: int, workdir: str, device: str = "cpu", args: tuple = (), **kwargs) -> list:
+def spawn(target: str, world_size: int, workdir: str, device: str, args: tuple = (), **kwargs) -> list:
     """Run `target(mesh, *args)` on `world_size` ranks; returns their results in rank order."""
     return Ranks(target, world_size, workdir, device, args, **kwargs).results()
 

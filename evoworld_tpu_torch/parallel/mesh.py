@@ -25,6 +25,18 @@ The training step's ZeRO rule (`zero_sharded`, the JAX package's
 `zero_shard_specs`): a tensor of at least `min_size` elements whose dim 0
 divides the data axis is split on dim 0 over the data ranks, every model
 rank of a data rank holding the same piece; everything else is replicated.
+
+The model-parallel half of training works on the mesh's two axes as groups
+of ranks (`axes`: the data ranks of this rank's model index, the model
+ranks of this rank's data index; `Axis`). Its rules:
+  - `FrameShard`: the frames of a clip split over an axis in contiguous,
+    possibly uneven runs (`split_sizes`: 13 + 12 for 25 frames over 2), the
+    frame-sharded training step's layout (the JAX package constrains the
+    frame axis to "data");
+  - `shard_params_tp` (the JAX package's rule of the same name): a weight
+    of at least `min_size` elements whose output features (torch's dim 0 of
+    a Linear or Conv weight, Flax's last kernel dim) divide the model axis
+    is split on them over the model ranks; everything else is replicated.
 """
 
 from __future__ import annotations
@@ -59,6 +71,88 @@ class Mesh:
 
 #: The JAX package's `zero_shard_specs` threshold: smaller tensors replicate.
 ZERO_MIN_SIZE = 1 << 16
+#: The JAX package's `shard_params_tp` threshold.
+TP_MIN_SIZE = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """A group of `size` ranks that a collective runs over, this process
+    `rank` among them; `group` is the process group (None: the default one)."""
+
+    size: int
+    rank: int
+    backend: str
+    group: object = None
+
+
+_GROUPS: dict = {}  # (data, model) -> {("data", model index) | ("model", data index): process group}
+
+
+def axes(mesh: Mesh) -> tuple[Axis, Axis]:
+    """(the data axis, the model axis) of this rank: the data ranks that share
+    its model index and the model ranks that share its data index. Where one
+    axis is the whole world it runs on the default group and the other is
+    this rank alone; otherwise every rank creates every group once, in the
+    same order (the data groups, then the model groups), as
+    `torch.distributed.new_group` asks."""
+    d, m = mesh.data, mesh.model
+    if m == 1 or d == 1:
+        world, alone = Axis(mesh.size, mesh.rank, mesh.backend), Axis(1, 0, mesh.backend)
+        return (world, alone) if m == 1 else (alone, world)
+    if (d, m) not in _GROUPS:
+        groups = {("data", j): dist.new_group([i * m + j for i in range(d)]) for j in range(m)}
+        groups.update({("model", i): dist.new_group([i * m + j for j in range(m)]) for i in range(d)})
+        _GROUPS[d, m] = groups
+    groups = _GROUPS[d, m]
+    model_rank = mesh.rank % m
+    return (Axis(d, mesh.data_rank, mesh.backend, groups["data", model_rank]),
+            Axis(m, model_rank, mesh.backend, groups["model", mesh.data_rank]))
+
+
+def split_sizes(n: int, parts: int) -> list[int]:
+    """`n` items in `parts` contiguous runs, the first `n % parts` one longer."""
+    return [n // parts + (r < n % parts) for r in range(parts)]
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameShard:
+    """This rank's frames [start, stop) of `total`, split over `axis` by
+    `split_sizes`; the spatio-temporal layers take it as `frames=`."""
+
+    axis: Axis
+    total: int
+
+    def __post_init__(self):
+        if self.total < self.axis.size:
+            raise ValueError(f"{self.total} frames cannot be split over {self.axis.size} ranks")
+
+    @property
+    def sizes(self) -> list[int]:
+        return split_sizes(self.total, self.axis.size)
+
+    @property
+    def start(self) -> int:
+        return sum(self.sizes[:self.axis.rank])
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.sizes[self.axis.rank]
+
+    @property
+    def count(self) -> int:
+        return self.sizes[self.axis.rank]
+
+
+def shard_params_tp(module: torch.nn.Module, mesh: Optional[Mesh], min_size: int = TP_MIN_SIZE
+                    ) -> dict[str, Optional[int]]:
+    """{parameter name: the dim it splits on over the model ranks, or None}:
+    dim 0 of a weight with at least two dims and `min_size` elements whose
+    dim 0 the model axis divides (a Linear's or Conv's output features,
+    `models/weights.py::params_from_jax`'s image of Flax's last kernel dim)."""
+    m = mesh.model if mesh is not None else 1
+    return {name: 0 if (m > 1 and p.dim() >= 2 and p.numel() >= min_size and p.shape[0] % m == 0) else None
+            for name, p in module.named_parameters()}
 
 
 def zero_sharded(x: torch.Tensor, mesh: Optional[Mesh], min_size: int = ZERO_MIN_SIZE) -> bool:

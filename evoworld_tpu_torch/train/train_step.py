@@ -30,8 +30,28 @@ gradients then become the global mean, all-reduced (ZeRO-1) or, at
 (`parallel/mesh.py::zero_sharded`) with the rest all-reduced. The optimizer
 keeps Adam's moments only for this rank's piece of each sharded leaf (both
 stages), updates that piece and all-gathers the updated masters, so that
-every rank holds the whole UNet. The frame-sharded step and tensor
-parallelism are not ported.
+every rank holds the whole UNet.
+
+Frame-sharded (`train_step(..., mesh, shard_frames=True)`, the JAX
+package's `make_sharded_train_step(shard_frames=True)`, which constrains the
+frame axis to "data"): every rank is given the same global micro-batches and
+draws and keeps its frames (`parallel/mesh.py::FrameShard` over the data
+axis) of the VAE encodes, the noise, the memory frames' conditioning noise
+and latents, and the Pluecker rays; frame 0's conditioning latent (the
+first-frame latent every frame takes) and CLIP's first frame it computes
+itself. The UNet runs over the frame shard (`models/unet.py`), the loss is
+the rank's part of the global mean, and the trainable gradients, each a
+partial sum of the whole one, are summed over the ranks (then the ZeRO
+stages act as above). Frames with a model axis of more than 1 are refused.
+
+Tensor-parallel (`make_train_state` with `mesh.model > 1`): the weights that
+`parallel/mesh.py::shard_params_tp` splits keep each model rank's slice of
+output features only (`parallel/tensor_parallel.py`: masters, frozen
+compute-dtype copies, and so moments and gradients), and their layers are
+column parallel. Each gradient is averaged over the data ranks of its model
+index (a replicated one is the same on every model rank), ZeRO acts on the
+local slices, and the global norm adds the split slices' squares over the
+model ranks.
 """
 
 from __future__ import annotations
@@ -46,8 +66,18 @@ import torch.nn as nn
 from evoworld_tpu_torch.diffusion.scheduler import edm_loss_weight, edm_precondition
 from evoworld_tpu_torch.models.clip import clip_preprocess
 from evoworld_tpu_torch.ops.resize import resize_antialiased
-from evoworld_tpu_torch.parallel.collectives import all_gather, all_reduce_mean, reduce_scatter_mean
-from evoworld_tpu_torch.parallel.mesh import ZERO_MIN_SIZE, Mesh, shard_batch, zero_sharded
+from evoworld_tpu_torch.parallel.collectives import all_gather, all_reduce_mean, all_reduce_sum, reduce_scatter
+from evoworld_tpu_torch.parallel.mesh import (
+    TP_MIN_SIZE,
+    ZERO_MIN_SIZE,
+    FrameShard,
+    Mesh,
+    axes,
+    shard_batch,
+    shard_params_tp,
+    zero_sharded,
+)
+from evoworld_tpu_torch.parallel.tensor_parallel import column_parallel_
 
 #: A parameter trains when its name contains one of these (lower-cased), the
 #: reference's partial unfreeze.
@@ -130,18 +160,23 @@ class AdamW(torch.optim.Optimizer):
     all-gathers the pieces into every rank's parameter (one collective for
     all of them). `state_dict()` gathers the moments whole, the one-process
     format (a collective: every rank calls it), and `load_state_dict` keeps
-    this rank's pieces of whole moments.
+    this rank's pieces of whole moments. The pieces travel over the data
+    ranks of this rank's model index. `split` flags the parameters that hold
+    a tensor-parallel slice (whose squares the global norm adds over the
+    model ranks).
     """
 
     def __init__(self, params, schedule: Callable[[int], float], b1: float, b2: float, eps: float,
                  weight_decay: float, max_grad_norm: float, mesh: Optional[Mesh] = None,
-                 zero_min_size: int = ZERO_MIN_SIZE):
+                 zero_min_size: int = ZERO_MIN_SIZE, split: Optional[Sequence[bool]] = None):
         super().__init__(list(params), dict(count=0))
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.data_axis, self.model_axis = axes(self.mesh) if self.mesh is not None else (None, None)
         self.sharded = [zero_sharded(p, self.mesh, zero_min_size) for p in self.param_groups[0]["params"]]
+        self.split = list(split) if split is not None else [False] * len(self.sharded)
 
     def _piece(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Parameter i's piece of `x` (its whole shape) where it is sharded, else `x`."""
@@ -149,15 +184,19 @@ class AdamW(torch.optim.Optimizer):
 
     def _global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The norm over every trainable gradient: a sharded leaf's piece (the
-        gradients at ZeRO-2) adds its squares across the data ranks, and a
-        whole gradient counts once."""
+        gradients at ZeRO-2) adds its squares across the data ranks, a
+        tensor-parallel slice across the model ranks, and a whole gradient
+        counts once."""
         norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
         pieces = [i for i, (p, g) in enumerate(zip(self.param_groups[0]["params"], grads)) if g.shape != p.shape]
-        if not pieces:
+        split = [i for i, s in enumerate(self.split) if s]
+        if not pieces and not split:
             return torch.linalg.vector_norm(norms)
         squares = norms.square()
-        # the mean over every rank (model ranks repeating their data peer's pieces) times D: the sum over data ranks
-        squares[pieces] = all_reduce_mean(squares[pieces], self.mesh) * self.mesh.data
+        if pieces:
+            squares[pieces] = all_reduce_sum(squares[pieces], self.data_axis)
+        if split:
+            squares[split] = all_reduce_sum(squares[split], self.model_axis)
         return squares.sum().sqrt()
 
     @torch.no_grad()
@@ -195,13 +234,14 @@ class AdamW(torch.optim.Optimizer):
         return norm
 
     def _gather(self, pieces: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """Every data rank's pieces of the sharded leaves, joined whole (one all-gather)."""
-        mesh = self.mesh
+        """Every data rank's pieces of the sharded leaves, joined whole (one
+        all-gather over the data ranks of this model index)."""
+        data = self.data_axis.size
         flat = torch.cat([t.reshape(-1) for t in pieces])
-        rows = all_gather(flat, mesh).view(mesh.data, mesh.model, -1)[:, 0]  # model ranks repeat their data peer
+        rows = all_gather(flat, self.data_axis).view(data, -1)
         out, start = [], 0
         for t in pieces:
-            out.append(rows[:, start:start + t.numel()].reshape(mesh.data * t.shape[0], *t.shape[1:]))
+            out.append(rows[:, start:start + t.numel()].reshape(data * t.shape[0], *t.shape[1:]))
             start += t.numel()
         return out
 
@@ -224,15 +264,19 @@ class AdamW(torch.optim.Optimizer):
 
 
 def make_optimizer(config: TrainConfig, unet: nn.Module, mesh: Optional[Mesh] = None,
-                   zero_min_size: int = ZERO_MIN_SIZE) -> AdamW:
+                   zero_min_size: int = ZERO_MIN_SIZE, split: Optional[Mapping[str, Optional[int]]] = None
+                   ) -> AdamW:
     """AdamW with clipping over the trainable parameters only; frozen ones
     get no state. With a `mesh` its moments follow the ZeRO rule (tensors of
-    at least `zero_min_size` elements)."""
+    at least `zero_min_size` elements); `split` is the tensor-parallel rule's
+    map, where the UNet holds slices."""
     mask = trainable_mask(unet)
+    names = [name for name, _ in unet.named_parameters() if mask[name]]
     return AdamW(
         [p for name, p in unet.named_parameters() if mask[name]],
         make_lr_schedule(config), config.adam_b1, config.adam_b2, config.adam_eps,
         config.weight_decay, config.max_grad_norm, mesh, zero_min_size,
+        [split is not None and split[n] is not None for n in names],
     )
 
 
@@ -246,14 +290,25 @@ class TrainState:
     optimizer: AdamW
     step: int = 0
     generator: Optional[torch.Generator] = None
+    split: Optional[dict[str, Optional[int]]] = None  # the tensor-parallel rule's map, where the UNet holds slices
 
 
 def make_train_state(config: TrainConfig, unet: nn.Module, compute_dtype: torch.dtype = torch.bfloat16,
-                     mesh: Optional[Mesh] = None, zero_min_size: int = ZERO_MIN_SIZE) -> TrainState:
+                     mesh: Optional[Mesh] = None, zero_min_size: int = ZERO_MIN_SIZE,
+                     tp_min_size: int = TP_MIN_SIZE, tensor_parallel: bool = True) -> TrainState:
     """The state of `unet` cast to the master-weight policy; with a `mesh`,
-    its optimizer shards the moments (`train_step` then takes the same mesh)."""
+    its optimizer shards the moments (`train_step` then takes the same mesh).
+    With `mesh.model > 1` and `tensor_parallel`, the weights that
+    `shard_params_tp(unet, mesh, tp_min_size)` splits keep this model rank's
+    slice (`TrainState.split` holds the rule's map); without
+    `tensor_parallel` the model ranks hold the whole UNet, each repeating its
+    data peer (the training CLI's layout)."""
     freeze_master_cast(unet, compute_dtype)
-    return TrainState(unet, make_optimizer(config, unet, mesh, zero_min_size), 0)
+    split = None
+    if mesh is not None and mesh.model > 1 and tensor_parallel:
+        split = shard_params_tp(unet, mesh, tp_min_size)
+        column_parallel_(unet, split, axes(mesh)[1])
+    return TrainState(unet, make_optimizer(config, unet, mesh, zero_min_size, split), 0, split=split)
 
 
 def edm_loss(
@@ -265,8 +320,14 @@ def edm_loss(
     compute_dtype: torch.dtype = torch.bfloat16,
     draws: Optional[Mapping[str, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    frames: Optional[FrameShard] = None,
 ) -> torch.Tensor:
     """EDM denoising loss for one batch, differentiable in the UNet's trainable parameters.
+
+    With `frames` (a frame shard of the batch's F frames) this rank encodes,
+    noises and denoises its frames only, from the whole batch and draws, and
+    returns its part of the global mean (the sum of its terms over the count
+    of all of them): the parts of the ranks add up to the loss.
 
     batch (the JAX package's channels-last layouts):
       pixel_values: (B, F, H, W, 3) in [-1, 1]
@@ -301,19 +362,24 @@ def edm_loss(
     def log_normal(name, loc, scale):  # (B,) exp(loc + scale * eps)
         return torch.exp(loc + scale * draw(name, (b,)))
 
-    def sample_latents(images, name):  # (B, N, H, W, 3) -> (B, N, 4, h, w) fp32
-        n = images.shape[0] * images.shape[1]
-        eps = draw(name, (n, lh, lw, 4)).permute(0, 3, 1, 2)
+    # This rank's frames, and its conditioning frames (frame 0's, then the memory's).
+    own = torch.arange(f, device=dev) if frames is None else torch.arange(frames.start, frames.stop, device=dev)
+    cond_own = torch.cat([own.new_zeros(1), own + 1])
+    fl = own.numel()
+
+    def sample_latents(images, name, n, rows):  # (B, N, H, W, 3) -> (B, N, 4, h, w) fp32, rows of (B, n) draws
+        eps = draw(name, (b * n, lh, lw, 4)).view(b, n, lh, lw, 4)[:, rows].flatten(0, 1).permute(0, 3, 1, 2)
         z = vae.encode_sample(images.flatten(0, 1).permute(0, 3, 1, 2), eps, config.vae_encode_chunk)
         return z.view(*images.shape[:2], *z.shape[1:])
 
     with torch.no_grad():
-        latents = sample_latents(px, "latent_eps") * config.vae_scaling
-        cond_imgs = torch.cat([px[:, :1], mem], dim=1)
+        latents = sample_latents(px[:, own], "latent_eps", f, own) * config.vae_scaling
+        cond_imgs = torch.cat([px[:, :1], mem[:, own]], dim=1)
         cond_sigma = log_normal("cond_sigma_eps", config.cond_sigma_loc, config.cond_sigma_scale)
-        cond_imgs = cond_imgs + cond_sigma.view(b, 1, 1, 1, 1) * draw("cond_noise", cond_imgs.shape)
-        cond_lat = sample_latents(cond_imgs, "cond_latent_eps")
-        first_lat = cond_lat[:, :1].expand(-1, f, -1, -1, -1)
+        cond_noise = draw("cond_noise", (b, 1 + f, *px.shape[2:]))[:, cond_own]
+        cond_imgs = cond_imgs + cond_sigma.view(b, 1, 1, 1, 1) * cond_noise
+        cond_lat = sample_latents(cond_imgs, "cond_latent_eps", 1 + f, cond_own)
+        first_lat = cond_lat[:, :1].expand(-1, fl, -1, -1, -1)
         mem_lat = cond_lat[:, 1:]
 
         x224 = resize_antialiased(px[:, 0], (224, 224))
@@ -330,14 +396,17 @@ def edm_loss(
     sigma = log_normal("sigma_eps", config.sigma_loc, config.sigma_scale)
     c_in, c_skip, c_out, timesteps = edm_precondition(sigma)
     c_in, c_skip, c_out, sig = (t.view(b, 1, 1, 1, 1) for t in (c_in, c_skip, c_out, sigma))
-    noisy = latents + draw("noise", (b, f, lh, lw, 4)).permute(0, 1, 4, 2, 3) * sig
-    unet_in = torch.cat([noisy * c_in, first_lat, mem_lat, plucker], dim=2)        # (B, F, 18, h, w)
+    noisy = latents + draw("noise", (b, f, lh, lw, 4))[:, own].permute(0, 1, 4, 2, 3) * sig
+    unet_in = torch.cat([noisy * c_in, first_lat, mem_lat, plucker[:, own]], dim=2)    # (B, F, 18, h, w)
     time_ids = torch.stack([torch.full((b,), config.fps_cond, device=dev),
                             torch.full((b,), config.motion_bucket_id, device=dev), cond_sigma], dim=-1)
     with torch.autocast(dev.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32):
-        pred = unet(unet_in.to(compute_dtype), timesteps, context.to(compute_dtype), time_ids).float()
+        pred = unet(unet_in.to(compute_dtype), timesteps, context.to(compute_dtype), time_ids, frames=frames).float()
     denoised = pred * c_out + c_skip * noisy
-    return torch.mean(edm_loss_weight(sig) * (denoised - latents) ** 2)
+    terms = edm_loss_weight(sig) * (denoised - latents) ** 2
+    if frames is None:
+        return torch.mean(terms)
+    return terms.sum() / (terms.numel() // fl * f)
 
 
 def loss_draws(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
@@ -369,10 +438,13 @@ def _rows(tree: Mapping[str, torch.Tensor], b: int, mesh: Mesh) -> dict[str, tor
     return out
 
 
-def _reduce_gradients(optimizer: AdamW, mesh: Mesh, zero_stage: int) -> list[torch.Tensor]:
-    """The trainable gradients as the global mean: each sharded leaf's piece
+def _reduce_gradients(optimizer: AdamW, zero_stage: int, mean: bool = True) -> list[torch.Tensor]:
+    """The trainable gradients reduced over the data ranks of each model
+    index, as their mean (data-parallel rows) or with `mean` False their
+    sum (frame shards' partial sums): each sharded leaf's piece
     (reduce-scattered) at `zero_stage` >= 2, every other gradient whole
     (all-reduced); one collective of each kind. The `.grad`s are released."""
+    axis = optimizer.data_axis
     params = optimizer.param_groups[0]["params"]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     for p in params:
@@ -385,16 +457,16 @@ def _reduce_gradients(optimizer: AdamW, mesh: Mesh, zero_stage: int) -> list[tor
         flat = torch.cat([grads[i].reshape(-1) for i in whole])
         for i in whole:
             grads[i] = None
-        all_reduce_mean(flat, mesh)
+        (all_reduce_mean if mean else all_reduce_sum)(flat, axis)
         for i, g in zip(whole, flat.split([params[i].numel() for i in whole])):
             out[i] = g.view(params[i].shape)
     if pieces:
-        rows = torch.cat([grads[i].reshape(mesh.data, -1) for i in pieces], dim=1)
+        rows = torch.cat([grads[i].reshape(axis.size, -1) for i in pieces], dim=1)
         del grads
-        row = reduce_scatter_mean(rows, mesh)
+        row = reduce_scatter(rows, axis, mean)
         del rows
-        for i, g in zip(pieces, row.split([params[i].numel() // mesh.data for i in pieces])):
-            out[i] = g.view(params[i].shape[0] // mesh.data, *params[i].shape[1:])
+        for i, g in zip(pieces, row.split([params[i].numel() // axis.size for i in pieces])):
+            out[i] = g.view(params[i].shape[0] // axis.size, *params[i].shape[1:])
     return out
 
 
@@ -408,6 +480,7 @@ def train_step(
     draws: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,
     generator: Optional[torch.Generator] = None,
     mesh: Optional[Mesh] = None,
+    shard_frames: bool = False,
 ) -> dict[str, float]:
     """One optimizer update over `micro_batches` (gradient accumulation).
 
@@ -424,22 +497,36 @@ def train_step(
     one-process step's). The gradients become the global mean as
     `config.zero_stage` says, and every rank returns the global loss and
     norm and holds the updated UNet.
+
+    With `shard_frames` the mesh's data axis splits every micro-batch's
+    frames instead of its rows (`FrameShard`; the batch and draws are whole
+    on every rank, as above): each rank's loss and gradients are its parts,
+    summed over the ranks. The mesh's model axis must then be 1.
     """
     if mesh is not None and mesh.size == 1:
         mesh = None
     if (mesh is None) != (state.optimizer.mesh is None):
         raise ValueError("train_step's mesh must be the one its state was made with (make_train_state(mesh=...))")
+    if shard_frames and mesh is not None and mesh.model > 1:
+        raise NotImplementedError(f"shard_frames over a {mesh.data} x {mesh.model} mesh: the frame-sharded step "
+                                  "runs with a model axis of 1 (frames and tensor parallelism together are not "
+                                  "supported)")
+    frame_axis = state.optimizer.data_axis if shard_frames and mesh is not None else None
     state.optimizer.zero_grad(set_to_none=True)
     dev = next(state.unet.parameters()).device
     loss_sum = torch.zeros((), device=dev)
     for i, batch in enumerate(micro_batches):
         micro_draws = draws[i] if draws is not None else None
+        frames = None
         if mesh is not None:
             if micro_draws is None:
                 micro_draws = loss_draws(batch, generator, dev)
-            b = batch["pixel_values"].shape[0]
-            batch, micro_draws = _rows(batch, b, mesh), _rows(micro_draws, b, mesh)
-        loss = edm_loss(state.unet, vae, clip_tower, batch, config, compute_dtype, micro_draws, generator)
+            if frame_axis is not None:
+                frames = FrameShard(frame_axis, batch["pixel_values"].shape[1])
+            else:
+                b = batch["pixel_values"].shape[0]
+                batch, micro_draws = _rows(batch, b, mesh), _rows(micro_draws, b, mesh)
+        loss = edm_loss(state.unet, vae, clip_tower, batch, config, compute_dtype, micro_draws, generator, frames)
         loss.backward()
         loss_sum += loss.detach()
     n = len(micro_batches)
@@ -449,8 +536,11 @@ def train_step(
                 p.grad.div_(n)
     grads = None
     if mesh is not None:
-        grads = _reduce_gradients(state.optimizer, mesh, config.zero_stage)
-        all_reduce_mean(loss_sum, mesh)
+        grads = _reduce_gradients(state.optimizer, config.zero_stage, mean=frame_axis is None)
+        if frame_axis is None:
+            all_reduce_mean(loss_sum, state.optimizer.data_axis)
+        else:
+            all_reduce_sum(loss_sum, frame_axis)
     grad_norm = state.optimizer.step(grads)
     state.step += 1
     return {"loss": float(loss_sum / n), "grad_norm": float(grad_norm)}

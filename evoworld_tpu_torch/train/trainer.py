@@ -230,13 +230,15 @@ def train(
 
     With a `mesh`, `batch_size` is the global batch (the data axis must
     divide it) and every rank runs this same call: see the module's
-    docstring. Validation runs on rank 0 while the others wait.
+    docstring. Validation runs on rank 0 while the others wait. The model
+    ranks hold the whole UNet (its checkpoints are the one-process format);
+    tensor-parallel weights are `make_train_state`'s, for `train_step`.
     """
     tc = trainer_config
     if mesh is not None and mesh.size == 1:
         mesh = None
     writes = mesh is None or mesh.rank == 0
-    state = make_train_state(config, unet, compute_dtype, mesh)
+    state = make_train_state(config, unet, compute_dtype, mesh, tensor_parallel=False)
     device = next(unet.parameters()).device
     state.generator = torch.Generator(device=device).manual_seed(0)
     ckpt = CheckpointManager(os.path.join(tc.output_dir, "checkpoints"), keep=tc.checkpoints_total_limit, mesh=mesh)

@@ -3,8 +3,10 @@ report, on a log shaped like nvcc's, with each kernel's bf16 and fp16
 instantiations paired and the fp32 source's entries found, the fp16 rows'
 pairing with their bf16 twins and the fp32 rows' with their fp16 twins,
 each type's limits, its CLI, training-CLI, evaluation, data-preparation,
-fp16, fp32, tools and multi-GPU training phases at tiny size, its GIF block
-parser, and its kernel timing when the profiler drops a row's records.
+fp16, fp32, tools and multi-GPU training phases at tiny size, the
+model-parallel phase's route gradients at tiny size and its step gate, its
+GIF block parser, and its kernel timing when the profiler drops a row's
+records or one kernel's.
 
 ptxas prints its warning that it serialized an entry's wgmma before the
 entries' own lines, naming the function; the report must attach it to that
@@ -291,6 +293,30 @@ def test_kernel_time_survives_an_empty_trace_only_where_the_kernel_launched(laun
     assert len(traces) == (1 if timed_by == "trace" else chip_smoke.TRACE_TRIES)
 
 
+def test_a_trace_missing_one_served_kernel_is_taken_again():
+    """A backward row's trace that recorded one kernel of its design and not
+    the other (the card's profiler dropped a kernel's records once) is taken
+    again; a full trace then times the row by its records."""
+    import types
+
+    traces = []
+
+    def profiler():
+        traces.append(1)
+        fused = 0.0 if len(traces) == 1 else 9000.0
+        return _Trace([types.SimpleNamespace(key="void flash_bwd_fused<64, __half>(P)", count=3, device_time_total=fused),
+                       types.SimpleNamespace(key="void flash_bwd_store_dq<__half>(P)", count=3,
+                                             device_time_total=300.0)])
+
+    counter = types.SimpleNamespace(launches=0)
+    ms, kinds, how = chip_smoke.kernel_ms_from_trace(
+        lambda: None, ["flash_bwd_fused", "flash_bwd_store_dq", "flash_bwd_wide_dv"],
+        served=("flash_bwd_fused", "flash_bwd_store_dq"), elem="fp16", counter=counter, profiler=profiler,
+        timer=_timer)
+    assert how == "trace" and kinds == ["fp16"] and len(traces) == 2
+    assert ms == pytest.approx({"flash_bwd_fused": 3.0, "flash_bwd_store_dq": 0.1, "flash_bwd_wide_dv": 0.0})
+
+
 TINY = ("--runtime.model_preset=tiny", "--runtime.vggt_tiny=true", "--runtime.compute_dtype=float32",
         "--pipeline.height=64", "--pipeline.width=128", "--pipeline.num_frames=5", "--loop.num_frames=5",
         "--loop.num_target_view=4", "--loop.num_segments=2", "--loop.pers_height=16", "--loop.pers_width=512",
@@ -558,3 +584,52 @@ def test_mesh_gate_runs_on_the_cpu(tmp_path):
     assert gate["flipped_pixels"]["winners_reproduce"]
     for run in gate["teacher_forced"] + gate["flipped_pixels_swapped"]["vs_ranks"]:
         assert min(run["segments"]["share_within_3e_2"]) >= 0.99
+
+
+def test_route_gradients_phase_runs_at_tiny_size_on_the_cpu(tmp_path):
+    """Phase 20(a) at a tiny shape on CPU ranks (the plain versions, no
+    launches): both routes' gradients pass its gate against the plain fp32
+    backward, the short ring block fails the limits, and the gate refuses a
+    route whose rank launched the wrong count or whose ranks disagree."""
+    import copy
+
+    import torch
+
+    result = chip_smoke.route_gradients(torch.device("cpu"), str(tmp_path), 0, shape=(1, 96, 16, 8), min_seq=1)
+    assert [(r["route"], r["world_size"]) for r in result["routes"]] == [("head_sharded", 2), ("ring", 3)]
+    assert not all(chip_smoke.within_limits(e) for e in result["dropped_block_errors"].values())
+    for broken in ("launches", "ranks_equal", "errors"):
+        bad = copy.deepcopy(result)
+        route = bad["routes"][1]
+        if broken == "launches":
+            route["ranks"][2]["launches"] = [0, 1]
+        elif broken == "ranks_equal":
+            route["ranks_equal"] = False
+        else:
+            route["errors"]["dk"] = bad["dropped_block_errors"]["dk"]
+        with pytest.raises(AssertionError):
+            chip_smoke.check_route_gradients(bad)
+
+
+def test_model_parallel_step_gate():
+    """Phase 20(b) and (c)'s gate on a report shaped like the card's: it
+    passes, and fails on a rank's launches, a loss apart, masters or first
+    moments apart, or a second update."""
+    import copy
+
+    rank = dict(loss=1.1757, grad_norm=11.3402, launches=[14, 5])
+    good = dict(target="frame_step_rank", ranks=[rank, dict(rank)], expected_launches=[[14, 5], [14, 5]],
+                one_process=dict(loss=1.1758, grad_norm=11.3407, launches=[18, 5]),
+                expected_one_process_launches=[18, 5], loss_rel=[9e-5, 9e-5], grad_norm_rel=[5e-5, 5e-5],
+                step_agreement=dict(within_tenth_lr=0.994, mu_rel_rms=0.002, counts=[1, 1]))
+    chip_smoke.check_model_parallel_step(good)
+    for path, value in ((("ranks", 1, "launches"), [13, 5]), (("loss_rel", 0), 2e-2),
+                        (("step_agreement", "within_tenth_lr"), 0.9), (("step_agreement", "mu_rel_rms"), 0.2),
+                        (("step_agreement", "counts"), [1, 2]), (("one_process", "launches"), [17, 5])):
+        bad = copy.deepcopy(good)
+        target = bad
+        for key in path[:-1]:
+            target = target[key]
+        target[path[-1]] = value
+        with pytest.raises(AssertionError):
+            chip_smoke.check_model_parallel_step(bad)

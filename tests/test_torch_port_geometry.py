@@ -58,6 +58,29 @@ def test_pose_to_matrix_and_invert(relative, homogeneous):
         tpose.invert_pose(torch.from_numpy(m34)).numpy(), _j(jpose.invert_pose, jnp.asarray(m34)), **TOL)
 
 
+def test_compose_poses():
+    a = _j(jpose.pose_to_matrix, jnp.asarray(_poses(6, seed=3)))
+    b = _j(jpose.pose_to_matrix, jnp.asarray(_poses(6, seed=4)))
+    want = _j(jpose.compose_poses, jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(tpose.compose_poses(torch.from_numpy(a), torch.from_numpy(b)).numpy(), want, **TOL)
+    back = tpose.compose_poses(tpose.invert_pose(torch.from_numpy(a)), torch.from_numpy(a))  # a^-1 a = I
+    np.testing.assert_allclose(back.numpy(), np.broadcast_to(np.eye(3, 4, dtype=np.float32), back.shape), atol=1e-5)
+
+
+@pytest.mark.parametrize("hw, fov", [((48, 64), 90.0), ((576, 1024), 60.0)])
+def test_pinhole_intrinsics(hw, fov):
+    got = trays.pinhole_intrinsics(*hw, fov_x_deg=fov)
+    assert got.dtype == torch.float32 and got.shape == (3, 3)
+    np.testing.assert_allclose(got.numpy(), _j(jrays.pinhole_intrinsics, *hw, fov_x_deg=fov), **TOL)
+    # K maps each ray of the pinhole grid to its pixel centre
+    rays = trays.pinhole_ray_grid(*hw, fov_x_deg=fov)
+    pix = torch.einsum("ij,hwj->hwi", got, rays / rays[..., 2:])
+    ys, xs = torch.meshgrid(torch.arange(hw[0], dtype=torch.float32), torch.arange(hw[1], dtype=torch.float32),
+                            indexing="ij")
+    np.testing.assert_allclose(pix[..., 0].numpy(), xs.numpy(), atol=1e-3)
+    np.testing.assert_allclose(pix[..., 1].numpy(), ys.numpy(), atol=1e-3)
+
+
 def test_rays_and_plucker():
     grid_j = _j(jrays.equirect_ray_grid, 9, 16)
     grid_t = trays.equirect_ray_grid(9, 16).numpy()

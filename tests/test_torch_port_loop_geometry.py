@@ -91,6 +91,34 @@ def test_load_camera_poses_matches(tmp_path):
         np.testing.assert_array_equal(got, want)
 
 
+def test_trajectory_cache_matches_jax(tmp_path):
+    """`dump_trajectories`, `load_trajectory_file` and `trajectory_to_array`
+    write and read the JAX package's camera_trajectories.json byte for
+    byte, either side reading the other's cache."""
+    from evoworld_tpu.data import dataset as jds
+    from evoworld_tpu_torch.data import dataset as tds
+
+    for side in ("port", "jax"):
+        for e, n in (("ep_b", 12), ("ep_a", 5)):
+            rows = _path(n, seed=len(e) + n)
+            lines = "".join(f"{i},{','.join(f'{x:.6f}' for x in r)}\n" for i, r in enumerate(rows))
+            (tmp_path / side / e).mkdir(parents=True)
+            (tmp_path / side / e / "camera_poses.txt").write_text("Frame,PosX,PosY,PosZ,RotX,RotY,RotZ\n" + lines)
+        (tmp_path / side / "no_poses").mkdir()
+    got, want = tds.dump_trajectories(str(tmp_path / "port")), jds.dump_trajectories(str(tmp_path / "jax"))
+    assert list(got) == ["ep_a", "ep_b"] and got == want
+    assert (tmp_path / "port" / "camera_trajectories.json").read_bytes() == \
+        (tmp_path / "jax" / "camera_trajectories.json").read_bytes()
+    for side in ("port", "jax"):
+        cache = str(tmp_path / side / "camera_trajectories.json")
+        assert tds.load_trajectory_file(cache) == jds.load_trajectory_file(cache) == want
+    arrays = [tds.trajectory_to_array(want["ep_b"]), jds.trajectory_to_array(want["ep_b"])]
+    assert arrays[0].dtype == np.float32 and arrays[0].shape == (12, 6)
+    np.testing.assert_array_equal(*arrays)
+    shuffled = dict(reversed(list(want["ep_b"].items())))  # rows ordered by numeric frame id, not by insertion
+    np.testing.assert_array_equal(tds.trajectory_to_array(shuffled), arrays[0])
+
+
 def test_resampling_matches_including_the_seam():
     rng = np.random.default_rng(3)
     pano = rng.uniform(size=(32, 64, 3)).astype(np.float32)

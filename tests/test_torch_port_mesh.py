@@ -72,9 +72,9 @@ def ranks(tmp_path_factory):
     for w, model in ((2, 2), (3, 1)):
         cases = [(name, *_qkv(name)) for name, (world, _) in CASES.items() if world == w]
         jobs[w] = (Ranks("evoworld_tpu_torch.parallel.checks:attention_rank", w, str(root / f"att{w}"),
-                         args=(cases,), mesh_model=model),
+                         device="cpu", args=(cases,), mesh_model=model),
                    Ranks("evoworld_tpu_torch.parallel.checks:render_rank", w, str(root / f"render{w}"),
-                         args=(*_render_inputs(), RENDER["height"], RENDER["width"])))
+                         device="cpu", args=(*_render_inputs(), RENDER["height"], RENDER["width"])))
     return {w: (att.results(), render.results()) for w, (att, render) in jobs.items()}
 
 

@@ -47,9 +47,9 @@ def runs(tmp_path_factory, episode):  # noqa: F811
     cli = {k: root / k for k in ("sharded", "single")}
     argv = [f"--data.root={episode}", *TINY_ARGS]
     jobs = (Ranks("evoworld_tpu_torch.parallel.checks:sharded_serving_rank", W, str(root / "job"),
-                  args=(W, VGGT_FRAMES)),
+                  device="cpu", args=(W, VGGT_FRAMES)),
             Ranks("evoworld_tpu_torch.parallel.checks:cli_rank", W, str(root / "cli_job"),
-                  args=("run_unified", argv + [f"--runtime.save_dir={cli['sharded']}"])))
+                  device="cpu", args=("run_unified", argv + [f"--runtime.save_dir={cli['sharded']}"])))
     ref = {"clip": checks.gate_clip(W), "vggt": checks.gate_reconstruct(W, VGGT_FRAMES),
            "loop": checks.run_composed_loop(W)}
     run_unified.main(argv + [f"--runtime.save_dir={cli['single']}"], device="cpu")

@@ -143,7 +143,8 @@ def runs(tmp_path_factory, episode):  # noqa: F811
                                       [*cli, f"--runtime.save_dir={out['resumed']}", "--train.total_steps=2"]],
                                      str(root))))
     calls.append(("reproject_rank", ([*reproject_argv, f"--data.root={prep}/ranks"],)))
-    job = Ranks("evoworld_tpu_torch.parallel.checks:several_rank", 2, str(root / "job"), args=(calls,))
+    job = Ranks("evoworld_tpu_torch.parallel.checks:several_rank", 2, str(root / "job"), device="cpu",
+                args=(calls,))
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # JAX compiles its step meanwhile
         jax_step = pool.submit(_jax_step, jax_side, batch)
