@@ -207,8 +207,8 @@ mesh routes, the sharded clip, VGGT, render and loop) adds:
      written as PLY and OBJ by `memory/export.py` in one process, seconds
      and bytes;
   18. the multi-GPU serving path on the one card, W ranks spawned by
-     `parallel/launch.py` sharing cuda:0 over gloo: (a) VGGT's 51,009-token
-     global attention in bf16 on the head-sharded route at W = 2 and the
+     `parallel/launch.py` sharing cuda:0 over gloo: (a) VGGT's global
+     attention (ROUTE_GRAD_SHAPE) in bf16 on the head-sharded route at W = 2 and the
      ring at W = 3, each rank within the bf16 limits of the plain fp32
      version and its launches counted (1, and W ring blocks; run in phase
      20(a)'s ranks, before their gradient); the composed loop gate at
@@ -223,7 +223,8 @@ mesh routes, the sharded clip, VGGT, render and loop) adds:
      `sharded_clip_launches` a clip and 24 a rebuild (steps, then segments,
      cut where two ranks run the card out of memory, and the cut
      reported; MESH_EPISODE_SEGMENTS segments, cut for the run's time
-     limit). Two ranks on one card measure nothing of multi-GPU speed.
+     limit: one since phase 21 came, so no rebuild). Two ranks on one card
+     measure nothing of multi-GPU speed.
 The multi-GPU training slice (the data-parallel step with ZeRO-1 and ZeRO-2,
 rank-0 checkpoints, reproject under torchrun, VGGT's host parameter offload) adds:
   3, 3b. a row whose profiler trace holds no device time is traced again, up
@@ -252,20 +253,34 @@ rank-0 checkpoints, reproject under torchrun, VGGT's host parameter offload) add
 The model-parallel half of training (the routes' gradients, the
 frame-sharded step, tensor-parallel weights) adds:
   20. on phase 11's checkpoints, ranks sharing cuda:0 over gloo: (a) the
-     gradient of VGGT's 51,009-token global attention (bf16) through the
+     gradient of VGGT's global attention at ROUTE_GRAD_SHAPE (bf16) through the
      head-sharded route at W = 2 and the ring at W = 3, rank 0's dq, dk, dv
      within the bf16 limits of the plain fp32 backward (which the same
      gradients with one ring block's dK and dV short of a query shard's part
      must fail), every rank's equal, launches a rank [1, 1] and [3, 3]; (b)
-     one full-width bf16 step with the frames sharded over W = 2 (25 frames
-     if both ranks fit, else the first of FRAME_STEP_FRAMES that does, the
-     cut and its reason printed) and (c) one on a 1 x 2 tensor-parallel mesh
+     one full-width bf16 step with the frames sharded over W = 2 (the first
+     of FRAME_STEP_FRAMES at which both ranks fit, each count given up
+     printed with its reason) and (c) one on a 1 x 2 tensor-parallel mesh
      at TP_STEP_FRAMES, each against the same step in this process at the
      same frames, batch and draws (MESH_TRAIN_RTOL, MESH_TRAIN_WITHIN_LR,
      MESH_TRAIN_MU_RMS), each rank's launches `expected_train_launches` at
      its frame count, each rank's peak memory and state bytes beside the
      one-process step's. Ranks sharing a card measure nothing of multi-GPU
      speed.
+The frame-sharded serving denoise (a mesh splits the clip's frames over its
+data axis, both guidance halves on every rank, as the JAX package does) adds:
+  3. rows of the forward at the first rank's level-0 attention of a split
+     clip: (26, 9216, 5, 64) at W = 2 and (14, 9216, 5, 64) at W = 4;
+  18(c). before the episode, its two ranks run phase 5's clip (13 + 12
+     frames), held to phase 5's by the gate's rule (which the clip rolled by
+     a decode chunk must fail), the ranks' clips equal, each rank's
+     launches `sharded_clip_launches`: the clip-only reading at W = 2;
+  21. phase 5's clip with the frames split over W = 4 ranks sharing cuda:0
+     over gloo (7 + 6 + 6 + 6 frames; W = 3 where four run the card out of
+     memory, the cut and its reason printed), by the same rule against phase
+     5's clip, the ranks' clips equal, `sharded_clip_launches` a rank; each
+     rank's seconds and peak memory beside phase 5's. Ranks sharing a card
+     measure nothing of multi-GPU speed.
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card, so that both sides hold the same weights.
 It prints, in order before the last line, the run's wall seconds, the card's
@@ -323,7 +338,7 @@ LSE_ATOL = 1e-3
 FP32_LSE_ATOL = 1e-4
 STEPS = 1  # denoise steps per full-width clip (production: 25), cut for the time limit (4 until phase 20 came)
 SEED = 0
-TRAIN_STEPS = 3  # full-width training steps, the first cold
+TRAIN_STEPS = 2  # full-width training steps, the first cold (3 until phase 21 came; cut for the time limit)
 # Phase 16's training frames, tried in turn while the card runs out of
 # memory: 25, then 22, the most that fit an H100's 79.2 GiB in fp32 (25, 24
 # and 23 ran out of memory, 22 peaked at 74.3 GiB; NVIDIA H100 80GB HBM3,
@@ -442,8 +457,9 @@ CUBE_MAX_FLIPPED = 1e-3
 CUBE_FACE = 1024  # a capture's face size
 CUBE_PANO = (1000, 2000)  # the panoramas' size, the upstream converter's
 # Phase 17 exports the first this many points of phase 10's cloud (of its ~2.5
-# million; cut for the run's time limit once phase 20 came).
-EXPORT_POINTS = 1 << 20
+# million; cut for the run's time limit: 2^20 once phase 20 came, 2^18 once
+# phase 21 came).
+EXPORT_POINTS = 1 << 18
 # Phase 19: two ranks sharing the card. Renders of reproject at W = 2 against
 # one process: at most this many levels of 255 apart, and at least this share
 # equal (bit for bit is predicted). The data-parallel training step: frames a
@@ -453,20 +469,29 @@ EXPORT_POINTS = 1 << 20
 # gradient left out of the mean moves the first moments by a large share of
 # their size and the masters by up to 2 lr in a quarter or more of them).
 MESH_RENDER_ATOL, MESH_RENDER_EQUAL = 1, 0.999
-MESH_TRAIN_FRAMES = 4  # 8 before phase 20 came; cut for the run's time limit
+MESH_TRAIN_FRAMES = 2  # 8 before phase 20 came, 4 before phase 21; cut for the run's time limit
 MESH_TRAIN_RTOL, MESH_TRAIN_WITHIN_LR, MESH_TRAIN_MU_RMS = 1e-2, 0.95, 0.1
-# Phase 20: the routes' gradients at VGGT's 51,009-token global attention
-# (head-sharded at W = 2, the ring at W = 3); the frame-sharded step's frame
-# counts, tried in turn while two ranks run the card out of memory (25, the
-# reference's, first); the tensor-parallel step's frames (cut for the time
-# limit: at 8 frames, 19(b)'s cut, a step took 81.6 s a rank, every split
-# layer's output gathered through host memory on gloo; 23.2-23.8 s at 2).
-ROUTE_GRAD_SHAPE = (1, 51009, 16, 64)
-FRAME_STEP_FRAMES = (25, 21, 17, 13)
+# Phase 20: the routes' gradients at VGGT's global attention over 25 frames,
+# 26,025 tokens (head-sharded at W = 2, the ring at W = 3; 49 frames, 51,009
+# tokens, until phase 21 came: cut for the run's time limit); the
+# frame-sharded step's frame counts, tried in turn while two ranks run the
+# card out of memory (25, the reference's, until phase 21 came: two ranks
+# fit it at 32.96-34.90 GB, PERF.md; cut to 9 for the time limit, where the
+# ranks and the one-process step fit on the card together and run at once); the
+# tensor-parallel step's frames (cut for the time limit: at 8 frames, 19(b)'s
+# cut, a step took 81.6 s a rank, every split layer's output gathered
+# through host memory on gloo; 23.2-23.8 s at 2).
+ROUTE_GRAD_SHAPE = (1, 26025, 16, 64)
+FRAME_STEP_FRAMES = (9,)
 TP_STEP_FRAMES = 1
 # Phase 18(c)'s episode at W = 2: `LoopConfig()`'s 3 segments cut to 2 (one
-# rebuild) for the run's time limit once phase 20 came.
-MESH_EPISODE_SEGMENTS = 2
+# rebuild) once phase 20 came and to 1 (no rebuild; phase 19(a) runs VGGT
+# and the render on the ranks at full width, 18(b) the hand-off between
+# segments) once phase 21 came, for the run's time limit.
+MESH_EPISODE_SEGMENTS = 1
+# Phase 21's rank counts, tried in turn while the ranks run the card out of
+# memory: four ranks share its 80 GB, else three.
+FRAME_CLIP_RANKS = (4, 3)
 
 
 def log(msg: str) -> None:
@@ -584,6 +609,10 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         ("padded_d16", 2, 9216, 9216, 2, 16, 9216, False, False),
         # head dim 128 at the backward's D = 128 row's shape
         ("head_dim_128_fwd", 2, 9216, 9216, 2, 128, 9216, False, False),
+        # the UNet level-0 attention of the first rank of a frame-split clip (both
+        # guidance halves of its frames): 13 frames at W = 2, 7 at W = 4 (phases 18(c), 21)
+        ("unet_l0_spatial_w2", 26, 9216, 9216, 5, 64, 9216, False, False),
+        ("unet_l0_spatial_w4", 14, 9216, 9216, 5, 64, 9216, False, False),
     ]
     shapes = []
     for i, (label, b, sq, skv, h, d, kv_len, use_exp2, with_lse), elem in twin_runs(cases, FP16_FWD_TWINS,
@@ -2986,6 +3015,23 @@ def kept_memory_renders():
         unified.render_memory_panoramas = render
 
 
+@contextlib.contextmanager
+def kept_latents(pipe):
+    """The denoised latents each call of `pipe` decodes, kept on the host in
+    a list while the context is active (the decode itself is unchanged)."""
+    kept = []
+
+    def keeping(latents):
+        kept.append(latents.cpu())
+        return type(pipe).decode(pipe, latents)
+
+    pipe.decode = keeping
+    try:
+        yield kept
+    finally:
+        del pipe.decode
+
+
 def gate_rank_keeping_renders(mesh, n_devices: int) -> dict:
     """`parallel.checks.gate_rank` with its memory renders' inputs kept (a
     rank function of phase 18(b), spawned as `chip_smoke:...`)."""
@@ -3111,10 +3157,100 @@ def segment_agreement(ref, got) -> dict:
 
 def sharded_clip_launches(steps: int, cfg, world: int) -> int:
     """Flash launches of one rank's share of a clip: the UNet's level-0
-    attention (5 a step, on the rank's guidance half), and the VAE's mid-block
+    attention (5 a step, on the rank's frames, both halves), and the VAE's mid-block
     attention once for each of its ceil(chunks / W) encode and decode chunks."""
     encode_chunks, decode_chunks = (cfg.num_frames + 1) // cfg.encode_chunk, cfg.num_frames // cfg.decode_chunk
     return 5 * steps + math.ceil(encode_chunks / world) + math.ceil(decode_chunks / world)
+
+
+def clip_rank(mesh, steps: int, seed: int) -> dict:
+    """Phase 5's clip (full width, bf16, N = `steps`, random weights, inputs
+    and draws from `seed`) with the frames split over `mesh`'s data axis, on
+    this rank: its frames, seconds, stage seconds, peak memory, flash
+    launches (counted from 0 around the clip alone), the clip's shape,
+    finiteness and SHA-256 (the ranks' clips are compared by it), and on rank
+    0 the frames and the denoised latents on the host. A rank function of
+    phases 18(c) and 21."""
+    import hashlib
+
+    import torch
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+    from evoworld_tpu_torch.parallel.checks import _launch_counts, _reset_launch_counts
+    from evoworld_tpu_torch.runtime import build_pipeline
+
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False  # as `main` runs phase 5
+    cfg = PipelineConfig(num_steps=steps)
+    pipe = build_pipeline(cfg, "full", seed=seed, compute_dtype=torch.bfloat16, device=dev, mesh=mesh)
+    image, plucker, memory = clip_inputs(cfg, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with kept_latents(pipe) as latents:
+        frames = pipe(image, plucker, memory, generator=g, timings=timings)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    shard = pipe.frame_shard
+    out = dict(rank=mesh.rank, world_size=mesh.size, data=mesh.data, model=mesh.model,
+               frames=[shard.start, shard.stop], seconds=seconds, stage_seconds=timings,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev), launches=_launch_counts(),
+               shape=list(frames.shape), finite=bool(torch.isfinite(frames).all()),
+               sha256=hashlib.sha256(frames.contiguous().cpu().numpy().tobytes()).hexdigest(),
+               clip=frames.cpu() if mesh.rank == 0 else None, latents=latents[0] if mesh.rank == 0 else None)
+    del pipe, frames
+    torch.cuda.empty_cache()
+    return out
+
+
+def episode_clip_rank(mesh, steps: int, num_segments: int, seed: int, scaled, camera_params) -> dict:
+    """Phase 18(c)'s rank: `clip_rank` (phase 5's clip at this mesh), then
+    `parallel/checks.py::episode_rank`, each with its own pipeline."""
+    from evoworld_tpu_torch.parallel.checks import episode_rank
+
+    clip = clip_rank(mesh, steps, seed)
+    return dict(episode_rank(mesh, steps, num_segments, seed, scaled, camera_params), clip=clip)
+
+
+def clip_reading(one_process: dict, ranks: list, steps: int, expected_launches: list) -> dict:
+    """The ranks' `clip_rank` records against the one-process clip
+    `one_process` (phase 5's frames and latents): the ranks' frames,
+    seconds, peaks and launches, whether every rank's clip is finite and the
+    same (SHA-256), rank 0's clip by `segment_agreement` and the same frames
+    rolled by one decode chunk (which must fail it), and rank 0's denoised
+    latents against the one-process clip's (max and relative RMS error:
+    where the two clips part, before or in the decode)."""
+    import torch
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+
+    got = ranks[0]["clip"]
+    d = (ranks[0]["latents"] - one_process["latents"]).abs()
+    return dict(world_size=ranks[0]["world_size"], steps=steps, expected_launches=expected_launches,
+                ranks=[{k: v for k, v in r.items() if k not in ("clip", "latents", "sha256")} for r in ranks],
+                ranks_equal=len({r["sha256"] for r in ranks}) == 1 and all(r["finite"] for r in ranks),
+                vs_one_process=segment_agreement(one_process["frames"], got),
+                rolled_by_a_decode_chunk=segment_agreement(
+                    one_process["frames"], torch.roll(got, PipelineConfig().decode_chunk, 0)),
+                latents_vs_one_process=dict(max_abs=d.max().item(), rel_rms=(
+                    d.pow(2).mean() / one_process["latents"].pow(2).mean()).sqrt().item()))
+
+
+def check_clip_reading(reading: dict, label: str) -> None:
+    """Phases 18(c) and 21's gate on a `clip_reading`: the ranks' clips
+    finite and equal, every rank's launches as expected, rank 0's clip the
+    one-process clip's by the gate's rule, and the rolled clip not."""
+    launches = [r["launches"] for r in reading["ranks"]]
+    if not reading["ranks_equal"]:
+        raise AssertionError(f"{label}: the ranks' clips are not finite or differ: {reading}")
+    if any(x != reading["expected_launches"] for x in launches):
+        raise AssertionError(f"{label}: the ranks launched {launches}, expected {reading['expected_launches']}")
+    if not (reading["vs_one_process"]["passes"] and not reading["rolled_by_a_decode_chunk"]["passes"]):
+        raise AssertionError(f"{label}: the clip is not the one-process clip by the gate's rule, or the rule "
+                             f"cannot tell a misplaced decode chunk: {reading}")
 
 
 def mesh_gate(dev, workdir: str) -> dict:
@@ -3167,10 +3303,10 @@ def mesh_gate(dev, workdir: str) -> dict:
     return gate
 
 
-def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
+def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment, one_clip) -> dict:
     """Phase 18, the multi-GPU serving path on the one card: W ranks spawned
     by `parallel/launch.py` sharing cuda:0 over gloo (NCCL refuses two ranks
-    on one device). (a) The routes' forward at VGGT's 51,009 tokens
+    on one device). (a) The routes' forward at ROUTE_GRAD_SHAPE
     (`parallel/checks.py::route_rank`) runs in phase 20(a)'s ranks
     (`route_gradients`). (b) The composed loop
     gate at W = 2 against the same episode on one rank in this process (fp32,
@@ -3191,7 +3327,13 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
     image, camera path and N), by `segment_agreement`, which the same
     frames rolled by one decode chunk must fail; if two ranks run the card
     out of memory the steps are cut first, then the segments, the cut is
-    reported, and a cut episode is not compared with phase 10's. VGGT's
+    reported, and a cut episode is not compared with phase 10's. Before the
+    episode the same ranks run phase 5's clip (`clip_rank`, the frames split
+    13 + 12, both guidance halves a rank), held to `one_clip`, phase 5's, by
+    `check_clip_reading` (launches `sharded_clip_launches`; not compared
+    where the steps were cut): the clip-only reading of the split. (c)'s
+    ranks start with (b) and run beside it (the episode's wall and its
+    ranks' seconds take (b)'s share of the card and the host). VGGT's
     frames are split only where W divides their count: the 25 and 49 frames
     here do not, so the frame-sharded VGGT runs in the CPU gate alone."""
     import dataclasses
@@ -3200,32 +3342,48 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
 
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
     from evoworld_tpu_torch.loop.unified import LoopConfig
-    from evoworld_tpu_torch.parallel.launch import spawn
+    from evoworld_tpu_torch.parallel.launch import Ranks
 
     torch.cuda.empty_cache()
-    result = {"gate": mesh_gate(dev, workdir)}
-
     loop_cfg = dataclasses.replace(LoopConfig(), num_segments=MESH_EPISODE_SEGMENTS)
-    cuts = []
-    for steps_, segments in ((steps, loop_cfg.num_segments), (max(1, steps // 2), loop_cfg.num_segments), (1, 2)):
+    tries = [(steps, loop_cfg.num_segments), (max(1, steps // 2), loop_cfg.num_segments), (1, 1)]
+
+    def start(steps_, segments):
         scaled, camera_params = synthetic_path(segments * loop_cfg.num_target_view + loop_cfg.num_frames, seed)
-        t0 = time.perf_counter()
+        return Ranks("chip_smoke:episode_clip_rank", 2, os.path.join(workdir, f"ep{steps_}_{segments}"),
+                     device="cuda", args=(steps_, segments, seed, scaled, camera_params), threads=2, timeout=900)
+
+    t0 = time.perf_counter()
+    job = start(*tries[0])  # (c)'s ranks run beside (b)'s, whose tiny fp32 models take a few GB
+    try:
+        result = {"gate": mesh_gate(dev, workdir)}
+    except BaseException:
+        for proc in job.procs:  # a failed gate leaves no rank of (c) running
+            proc.kill()
+        raise
+    cuts = []
+    for at, (steps_, segments) in enumerate(tries):
         try:
-            ranks = spawn("evoworld_tpu_torch.parallel.checks:episode_rank", 2,
-                          os.path.join(workdir, f"ep{steps_}_{segments}"), device="cuda",
-                          args=(steps_, segments, seed, scaled, camera_params), threads=2, timeout=900)
+            ranks = job.results()
             break
         except RuntimeError as e:  # a cut is reported, and only out of memory makes one
             if "OutOfMemoryError" not in str(e) and "out of memory" not in str(e):
                 raise
             cuts.append(dict(steps=steps_, segments=segments, error="out of memory"))
             log(f"mesh episode at {steps_} steps, {segments} segments: out of memory, cutting")
+            if at + 1 < len(tries):
+                job = start(*tries[at + 1])
     else:
         raise AssertionError(f"the sharded episode ran out of memory at every cut: {cuts}")
     cfg = PipelineConfig(num_steps=steps_)
     want = [segments * sharded_clip_launches(steps_, cfg, 2) + 24 * (segments - 1), 0]
     got = ranks[0]["first_segment"]
     compared = steps_ == steps  # phase 10 ran N steps; a cut episode has nothing to be held to
+    clips = [r.pop("clip") for r in ranks]
+    if compared:
+        result["clip"] = clip_reading(one_clip, clips, steps_, [sharded_clip_launches(steps_, cfg, 2), 0])
+        log("mesh clip " + json.dumps(result["clip"]))
+        check_clip_reading(result["clip"], "phase 18(c)'s clip at W = 2")
     episode = dict(wall_s=time.perf_counter() - t0, cuts=cuts, expected_launches=want,
                    first_segment_vs_one_process=compared and segment_agreement(first_segment, got),
                    rolled_by_a_decode_chunk=compared and segment_agreement(first_segment,
@@ -3243,6 +3401,47 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment) -> dict:
                          and not episode["rolled_by_a_decode_chunk"]["passes"]):
         raise AssertionError("the sharded episode's first segment is not phase 10's by the gate's rule, or the rule "
                              f"cannot tell a misplaced decode chunk: {episode}")
+    return result
+
+
+def frame_clip(dev, steps: int, seed: int, workdir: str, one_clip, one_runs: list,
+               world_sizes: tuple = FRAME_CLIP_RANKS) -> dict:
+    """Phase 21: phase 5's clip (full width, bf16, N = `steps`, seed, inputs
+    and draws) with the frames split over W ranks sharing `dev` over gloo
+    (`clip_rank`), W the first of `world_sizes` at which the ranks fit on the
+    card (each cut printed with its reason), held to `one_clip`, phase 5's
+    one-process clip, by `check_clip_reading`: ranks bit for bit equal,
+    launches `sharded_clip_launches` a rank, the gate's rule passed and the
+    clip rolled by a decode chunk failing it. Prints each rank's frames,
+    seconds and peak memory beside phase 5's runs' (`one_runs`). Ranks
+    sharing a card measure nothing of multi-GPU speed."""
+    import torch
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+    from evoworld_tpu_torch.parallel.launch import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuts = []
+    for world in world_sizes:
+        try:
+            ranks = spawn("chip_smoke:clip_rank", world, os.path.join(workdir, f"frame_clip{world}"),
+                          device=dev.type, args=(steps, seed), threads=2, timeout=420)
+            break
+        except RuntimeError as e:  # only out of memory makes a cut
+            if "OutOfMemoryError" not in str(e) and "out of memory" not in str(e):
+                raise
+            cuts.append(dict(world_size=world, reason=f"{world} ranks ran the card out of memory"))
+            log(f"frame clip at W = {world}: the ranks ran the card out of memory, cutting")
+    else:
+        raise AssertionError(f"the frame-split clip ran out of memory at every rank count: {cuts}")
+    expected = [sharded_clip_launches(steps, PipelineConfig(num_steps=steps), world), 0]
+    result = clip_reading(one_clip, ranks, steps, expected)
+    result.update(wall_s=time.perf_counter() - t0, cuts=cuts,
+                  one_process={r["clip"]: {k: r[k] for k in ("seconds", "stage_seconds", "peak_memory_bytes")}
+                               for r in one_runs})
+    log("frame clip " + json.dumps(result))
+    check_clip_reading(result, f"phase 21's clip at W = {world}")
     return result
 
 
@@ -3454,7 +3653,7 @@ def route_gradients(dev, workdir: str, seed: int, shape: tuple = ROUTE_GRAD_SHAP
     log-sum-exp, the bf16 cotangent) within the bf16 limits, every rank's
     gradients equal to rank 0's (SHA-256), and each rank's launches of the
     routed forward and backward: [1, 1] head-sharded (8 heads a rank),
-    [W, W] on the ring (a block each of 17,003 rows). The limits must fail
+    [W, W] on the ring (a block each of ceil(S / W) rows). The limits must fail
     the plain gradients with one ring block's dK and dV left without one
     query shard's part (a block that did not come home whole). On the card
     each rank first runs phase 18(a)'s forward check of its route
@@ -3610,15 +3809,15 @@ def mesh_model_parallel(dev, workdir: str, seed: int) -> dict:
     over gloo: (a) `route_gradients`; (b) the frame-sharded step at W = 2
     (`frame_step_rank`, FRAME_STEP_FRAMES) and (c) the tensor-parallel step on
     a 1 x 2 mesh at TP_STEP_FRAMES (`tp_step_rank`), each against the
-    one-process step (`model_parallel_step`; (c)'s run while its ranks
-    run); each rank's peak memory beside
+    one-process step (`model_parallel_step`, run while its ranks run); each
+    rank's peak memory beside
     the one-process step's, (c) each rank's bytes of parameters and moments
     beside the one-process state's. Ranks sharing a card measure nothing of
     multi-GPU speed."""
     out = {}
     for name, fn in (("route_gradients", lambda: route_gradients(dev, workdir, seed)),
                      ("frame_step", lambda: model_parallel_step(dev, workdir, seed, "frame_step_rank",
-                                                                FRAME_STEP_FRAMES, 1)),
+                                                                FRAME_STEP_FRAMES, 1, overlap=True)),
                      ("tp_step", lambda: model_parallel_step(dev, workdir, seed, "tp_step_rank",
                                                              (TP_STEP_FRAMES,), 2, overlap=True))):
         t0 = time.perf_counter()
@@ -3675,8 +3874,10 @@ def offload_episode(dev, steps: int, seed: int, offloaded: dict) -> dict:
     return result
 
 
-def full_clips(dev, steps: int, seed: int) -> list[dict]:
-    """Two full-width clips (cold, warm); checks launch counts and outputs."""
+def full_clips(dev, steps: int, seed: int) -> tuple[list[dict], dict]:
+    """Two full-width clips (cold, warm); checks launch counts and outputs.
+    Returns the runs' records and the warm clip's frames and denoised latents
+    on the host (the one-process clip phases 18(c) and 21 are held to)."""
     import torch
 
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
@@ -3698,7 +3899,8 @@ def full_clips(dev, steps: int, seed: int) -> list[dict]:
         timings: dict = {}
         flash_attention.launches = 0
         t0 = time.perf_counter()
-        frames = pipe(image, plucker, memory, generator=g, timings=timings)
+        with kept_latents(pipe) as latents:
+            frames = pipe(image, plucker, memory, generator=g, timings=timings)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         launches = flash_attention.launches
@@ -3716,7 +3918,7 @@ def full_clips(dev, steps: int, seed: int) -> list[dict]:
         log(f"{label} clip output: shape {tuple(frames.shape)}, mean {frames.mean().item():.6f}, "
             f"std {frames.std().item():.6f}")
         runs.append(run)
-    return runs
+    return runs, dict(frames=frames.cpu(), latents=latents[0])
 
 
 def main() -> int:
@@ -3766,7 +3968,7 @@ def main() -> int:
     flash_bwd = check_flash_backward(dev, power_limit_w)
     vae_grad = check_vae_mid_gradient(dev)
     check_small_clip_against_cpu(dev, SEED)
-    runs = full_clips(dev, STEPS, SEED)
+    runs, one_clip = full_clips(dev, STEPS, SEED)
     torch.cuda.empty_cache()
     check_small_loop_against_cpu(dev, SEED)
     loop_run = full_loop(dev, STEPS, SEED)
@@ -3796,9 +3998,13 @@ def main() -> int:
         del cloud
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        mesh_run = full_mesh(dev, STEPS, SEED, workdir, first_segment)
+        mesh_run = full_mesh(dev, STEPS, SEED, workdir, first_segment, one_clip)
         del first_segment
         log(f"mesh phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        frame_clip_run = frame_clip(dev, STEPS, SEED, workdir, one_clip, runs)
+        del one_clip
+        log(f"frame clip phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
         mesh_prep_run = mesh_reproject(dev, workdir)
         log(f"mesh reproject phase wall seconds {time.perf_counter() - t0:.3f}")
@@ -3841,11 +4047,15 @@ def main() -> int:
         raise AssertionError(f"an fp32 kernel was not launched on phase 16's paths: {fp32_fwd_paths}, "
                              f"{fp32_bwd_paths}")
     fp32_keys = twin_keys + ("split_bound_ms", "kernel_ms", "max_rel_err", "mean_rel_err")
-    # Phases 17 and 18: launches summed over the runs and ranks of each path, each read with its counts set to 0.
+    # Phases 17, 18 and 21: launches summed over the runs and ranks of each path, each read with its counts set to 0.
     mesh_paths = {"validate_parity": sum(r["launches"][0] for r in tools_run["validate_parity"].values()),
                   **{f"mesh_{run['route']}": sum(f["launches"][0] for f in run["forward"])
                      for run in mp_run["route_gradients"]["routes"]},
-                  "mesh_episode": sum(r["launches"][0] for r in mesh_run["episode"]["ranks"])}
+                  "mesh_episode": sum(r["launches"][0] for r in mesh_run["episode"]["ranks"]),
+                  f"frame_clip_w{frame_clip_run['world_size']}": sum(r["launches"][0]
+                                                                    for r in frame_clip_run["ranks"])}
+    if "clip" in mesh_run:  # phase 18(c)'s clip, read where its steps were not cut
+        mesh_paths["mesh_clip_w2"] = sum(r["launches"][0] for r in mesh_run["clip"]["ranks"])
     # Phase 19: each path's launches summed over its ranks (and steps), each read with its counts set to 0.
     train_steps_19 = [st for r in mesh_train_run["ranks"] for x in r["runs"] for st in x["steps"]] + \
         [st for run in mesh_train_run["one_process"].values() for st in run["steps"]]
@@ -3862,7 +4072,7 @@ def main() -> int:
         mesh_paths[k] = sum(r["launches"][0] for r in mp_run[k]["ranks"])
         mesh_bwd_paths[k] = sum(r["launches"][1] for r in mp_run[k]["ranks"])
     if not all(mesh_paths.values()) or not all(mesh_bwd_paths.values()):
-        raise AssertionError(f"a kernel was not launched on phase 17's, 18's, 19's or 20's paths: {mesh_paths}, "
+        raise AssertionError(f"a kernel was not launched on phase 17's, 18's, 19's, 20's or 21's paths: {mesh_paths}, "
                              f"{mesh_bwd_paths}")
     fp32_fwd_paths["mesh_gate"] = sum(r[0] for r in mesh_run["gate"]["launches"])
     kernels = [{

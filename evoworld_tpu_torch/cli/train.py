@@ -63,10 +63,10 @@ class AutocastUNet(nn.Module):
         super().__init__()
         self.unet, self.dtype = unet, dtype
 
-    def forward(self, *args):
+    def forward(self, *args, **kwargs):
         dev = next(self.unet.parameters()).device
         with torch.autocast(dev.type, dtype=self.dtype, enabled=self.dtype != torch.float32):
-            return self.unet(*args)
+            return self.unet(*args, **kwargs)
 
 
 def main(argv=None, device: str | torch.device = "cuda"):

@@ -13,12 +13,14 @@ Latent math runs in fp32, model compute in `compute_dtype`.
 
 With a mesh (a multi-GPU run, one process per rank, every rank given the
 same inputs and draws) the three stages are split over the ranks and every
-rank returns the whole clip: the conditioning encode by chunks of frames,
-the denoise by guidance half (rank r runs the UNet on half r mod 2, the
-unconditional or the conditional, and one all-gather a step forms the
-guided prediction; ranks past the first two repeat a half, so more than two
-ranks make the denoise no faster), and the decode by chunks. The JAX package
-shards the same stages over its mesh by frame (GSPMD).
+rank returns the whole clip, as the JAX package's pipeline does on its mesh:
+the conditioning encode by chunks of frames, the denoise by frames (the
+mesh's data axis splits the clip's frames by `parallel/mesh.py::FrameShard`,
+13 + 12 at W = 2; every rank runs both guidance halves on its frames, the
+UNet's cross-frame layers reaching the other ranks, and the latents are
+joined once, after the last step; the model ranks of one data rank hold the
+same frames), and the decode by chunks. A clip of fewer frames than data
+ranks is refused when the pipeline is built.
 
 Public layouts are the JAX package's: image (H, W, 3) in [-1, 1], plucker
 (F, 6, h, w), memory (F, H, W, 3), latents (F, h, w, 4), output
@@ -47,6 +49,8 @@ from evoworld_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
 from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
 from evoworld_tpu_torch.models.weights import init_random_
 from evoworld_tpu_torch.ops.resize import resize_antialiased
+from evoworld_tpu_torch.parallel.collectives import all_gather, gather_frames
+from evoworld_tpu_torch.parallel.mesh import FrameShard, axes, shard_bounds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +81,8 @@ class PipelineConfig:
 class PanoDiffusionPipeline:
     """The three models plus the clip's stages; `__call__` generates one clip.
 
-    The models are expected on one device, already in `compute_dtype`.
+    The models are expected on one device, already in `compute_dtype`. With
+    a mesh, `frame_shard` is this rank's share of the denoise (None without one).
     """
 
     def __init__(
@@ -97,6 +102,9 @@ class PanoDiffusionPipeline:
         self.compute_dtype = compute_dtype
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = next(unet.parameters()).device
+        self.frame_shard = None
+        if self.mesh is not None:
+            self.frame_shard = FrameShard(axes(self.mesh)[0], c.num_frames)  # raises on fewer frames than data ranks
 
     def _sharded(self, fn, chunks: list) -> torch.Tensor:
         """torch.cat of fn(chunk) over `chunks` (all of one size). With a mesh
@@ -105,9 +113,6 @@ class PanoDiffusionPipeline:
         all-gather joins them, cut back to the chunks' rows."""
         if self.mesh is None:
             return torch.cat([fn(c) for c in chunks])
-        from evoworld_tpu_torch.parallel.collectives import all_gather
-        from evoworld_tpu_torch.parallel.mesh import shard_bounds
-
         start, stop, _ = shard_bounds(len(chunks), self.mesh)
         mine = torch.cat([fn(chunks[min(i, len(chunks) - 1)]) for i in range(start, stop)])
         return all_gather(mine, self.mesh)[: sum(c.shape[0] for c in chunks)]
@@ -195,31 +200,40 @@ class PanoDiffusionPipeline:
         uncond = torch.cat([torch.zeros_like(first_lat), torch.zeros_like(mem_lat), pl], 1)
         return context_cfg, torch.stack([uncond, cond], 0)
 
+    def frame_guidance(self) -> torch.Tensor:
+        """(1, F_r, 1, 1, 1): the guidance scale of each frame this rank
+        denoises, linspace(min, max) over the clip's F frames taken at their
+        frame indices (F_r = F without a mesh)."""
+        c = self.config
+        guidance = torch.linspace(c.min_guidance, c.max_guidance, c.num_frames, device=self.device)
+        if self.frame_shard is not None:
+            guidance = guidance[self.frame_shard.start:self.frame_shard.stop]
+        return guidance.view(1, -1, 1, 1, 1)
+
     @torch.no_grad()
     def denoise(self, init_noise, context_cfg, cond_cfg):
-        """(F, h, w, 4) standard-normal noise -> (F, 4, h, w) fp32 denoised latents."""
+        """(F, h, w, 4) standard-normal noise -> (F, 4, h, w) fp32 denoised
+        latents. With a mesh this rank denoises its frames, both guidance
+        halves a UNet call, and every rank ends with the whole clip's
+        latents, the same bit for bit."""
         c = self.config
-        dev, dtype = self.device, self.compute_dtype
-        f = c.num_frames
+        dev, dtype, frames = self.device, self.compute_dtype, self.frame_shard
         time_ids = torch.tensor([[c.fps - 1, c.motion_bucket_id, c.noise_aug_strength]] * 2,
                                 dtype=torch.float32, device=dev)
         sigmas = karras_sigmas(c.num_steps, c.schedule, device=dev)
-        guidance = torch.linspace(c.min_guidance, c.max_guidance, f, device=dev).view(1, f, 1, 1, 1)
+        guidance = self.frame_guidance()
 
-        half = slice(None) if self.mesh is None else slice(self.mesh.rank % 2, self.mesh.rank % 2 + 1)
         lat = init_noise.to(dev, torch.float32).permute(0, 3, 1, 2) * sigmas[0]  # (F, 4, h, w)
+        if frames is not None:
+            lat, cond_cfg = lat[frames.start:frames.stop], cond_cfg[:, frames.start:frames.stop]
         for i in range(c.num_steps):
             sigma, sigma_next = sigmas[i], sigmas[i + 1]
             lat_in = scale_model_input(lat, sigma)[None].expand(2, -1, -1, -1, -1)
-            unet_in = torch.cat([lat_in, cond_cfg], dim=2)[half]               # (2 or 1, F, 18, h, w)
-            out = self.unet(unet_in.to(dtype), sigma_to_timestep(sigma), context_cfg[half], time_ids[half]).float()
-            if self.mesh is not None:  # rank 0 ran the unconditional half, rank 1 the conditional
-                from evoworld_tpu_torch.parallel.collectives import all_gather
-
-                out = all_gather(out, self.mesh)[:2]
+            unet_in = torch.cat([lat_in, cond_cfg], dim=2)                     # (2, F_r, 18, h, w)
+            out = self.unet(unet_in.to(dtype), sigma_to_timestep(sigma), context_cfg, time_ids, frames=frames).float()
             pred = out[0:1] + guidance * (out[1:2] - out[0:1])
             lat = euler_step(pred[0], lat, sigma, sigma_next)
-        return lat
+        return lat if frames is None else gather_frames(lat, frames)
 
     @torch.no_grad()
     def decode(self, latents):

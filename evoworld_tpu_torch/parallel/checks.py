@@ -2,14 +2,14 @@
 sharded checks (counterpart of `evoworld_tpu/parallel/checks.py`).
 
 One tiny episode of the evolving-memory loop with the mesh in all three
-stages at once (the CFG-parallel clip, VGGT with frames split and its global
-attention on the head-sharded route, the view-sharded render), held to the
-same episode run in one process by `assert_episode_close`: at least 99% of
-pixels within 3e-2, and no segment pixel more than 0.2 away (a splatted
-point that a reordered sum moves across a pixel edge, or past another at a
-z-buffer tie, changes a memory pixel outright, so the memories get the
-share alone). The configurations are the JAX gate's:
-`tiny_gate_pipeline_setup`, `tiny_gate_vggt`.
+stages at once (the clip with its denoise split by frames, VGGT with frames
+split and its global attention on the head-sharded route, the view-sharded
+render), held to the same episode run in one process by
+`assert_episode_close`: at least 99% of pixels within 3e-2, and no segment
+pixel more than 0.2 away (a splatted point that a reordered sum moves
+across a pixel edge, or past another at a z-buffer tie, changes a memory
+pixel outright, so the memories get the share alone). The configurations
+are the JAX gate's: `tiny_gate_pipeline_setup`, `tiny_gate_vggt`.
 
 The rank functions take the rank's `parallel.mesh.Mesh` first, as
 `parallel/launch.py::spawn` calls them, and return CPU tensors.
@@ -160,6 +160,57 @@ def gate_clip(n_devices: int, mesh=None, device: str | torch.device = "cpu") -> 
     cond_noise = torch.randn((f + 1, cfg.height, cfg.width, 3), generator=g)
     return pipe(*(t.to(dev) for t in (image, plucker, memory)), latents=latents.to(dev),
                 cond_noise=cond_noise.to(dev)).cpu()
+
+
+def serving_clip_rank(mesh, models: dict, frames: int, inputs: dict, control: bool = False) -> dict:
+    """One clip of the gate's tiny pipeline at `frames` frames, its weights
+    `models` ({"unet" | "vae" | "clip": state dict}), on the numpy `inputs`
+    (image, plucker, memory_frames, latents, cond_noise), sharded over `mesh`
+    (None: one process). Returns the clip, each UNet call's [batch, frames,
+    first frame, last frame + 1] (the shard's; None for the frames of a
+    call without one) and, with `control`, the clip of a pipeline whose
+    ranks read guidance from their own first frame: the clip's first
+    frames' guidance, not their own (a wrong split the checks must catch)."""
+    from evoworld_tpu_torch.diffusion.pipeline import PanoDiffusionPipeline, empty_model
+    from evoworld_tpu_torch.models.clip import CLIPVisionTower
+    from evoworld_tpu_torch.models.unet import UNetSpatioTemporal
+    from evoworld_tpu_torch.models.vae import AutoencoderKLTemporal
+
+    dev = torch.device("cpu") if mesh is None else mesh.device
+    _, cfg, kwargs = tiny_gate_pipeline_setup(frames)
+    built = {}
+    for name, cls, key in (("unet", UNetSpatioTemporal, "unet_config"), ("vae", AutoencoderKLTemporal, "vae_config"),
+                           ("clip", CLIPVisionTower, "clip_config")):
+        built[name] = empty_model(cls, kwargs[key], dev, torch.float32)
+        built[name].load_state_dict(models[name])
+    args = [torch.as_tensor(inputs[k]).to(dev) for k in ("image", "plucker", "memory_frames")]
+    draws = {k: torch.as_tensor(inputs[k]).to(dev) for k in ("latents", "cond_noise")}
+
+    def clip(cls):
+        pipe = cls(built["unet"], built["vae"], built["clip"], cfg, torch.float32, mesh)
+        calls = []
+
+        def record(module, call_args, call_kwargs):
+            shard = call_kwargs.get("frames")
+            calls.append([*call_args[0].shape[:2], *((shard.start, shard.stop) if shard else (None, None))])
+
+        hook = pipe.unet.register_forward_pre_hook(record, with_kwargs=True)
+        try:
+            return pipe(*args, **draws).cpu(), calls
+        finally:
+            hook.remove()
+
+    class LocalGuidance(PanoDiffusionPipeline):
+        def frame_guidance(self):  # the clip's first F_r frames' guidance, whichever frames the rank holds
+            c, count = self.config, super().frame_guidance().shape[1]
+            whole = torch.linspace(c.min_guidance, c.max_guidance, c.num_frames, device=self.device)
+            return whole[:count].view(1, -1, 1, 1, 1)
+
+    out, calls = clip(PanoDiffusionPipeline)
+    result = {"clip": out, "unet_calls": calls}
+    if control:
+        result["control"] = clip(LocalGuidance)[0]
+    return result
 
 
 def gate_reconstruct(n_devices: int, frames: int, mesh=None, device: str | torch.device = "cpu") -> dict:

@@ -1,7 +1,9 @@
 """The collectives of the port's sharded paths, over the default process
 group (a `Mesh`: every rank) or one axis of the mesh (an `Axis`, from
 `parallel/mesh.py::axes`): `all_gather` (joined along the leading axis),
-`RingExchange` (send to the next rank, receive from the previous), and the
+`RingExchange` (send to the next rank, receive from the previous),
+`gather_frames` (a clip's frame shards joined in frame order, the serving
+denoise's one collective after its last step), and the
 training step's `all_reduce_mean`, `all_reduce_sum` and `reduce_scatter`
 (the mean or sum over the ranks, whole or this rank's row of it).
 
@@ -67,6 +69,20 @@ def all_gather(x: torch.Tensor, ranks: Mesh | Axis) -> torch.Tensor:
         dist.all_gather(list(out.unbind(0)), src, group=_group(ranks))
     out = out.view(x.dtype).reshape(ranks.size * x.shape[0], *x.shape[1:])
     return out.to(x.device, non_blocking=True) if out.device != x.device else out
+
+
+def gather_frames(x: torch.Tensor, frames: FrameShard) -> torch.Tensor:
+    """Every rank's run of a clip's frames (`x`: this rank's, along dim 0)
+    joined in frame order over `frames.axis`: the short runs padded to the
+    longest for one all-gather and cut after it, so that every rank holds
+    the same bytes."""
+    if frames.axis.size == 1:
+        return x
+    most = max(frames.sizes)
+    if x.shape[0] < most:
+        x = torch.cat([x, x.new_zeros(most - x.shape[0], *x.shape[1:])])
+    whole = all_gather(x, frames.axis)
+    return torch.cat([whole[r * most:r * most + n] for r, n in enumerate(frames.sizes)])
 
 
 class RingExchange:

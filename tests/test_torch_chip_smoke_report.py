@@ -4,8 +4,9 @@ instantiations paired and the fp32 source's entries found, the fp16 rows'
 pairing with their bf16 twins and the fp32 rows' with their fp16 twins,
 each type's limits, its CLI, training-CLI, evaluation, data-preparation,
 fp16, fp32, tools and multi-GPU training phases at tiny size, the
-model-parallel phase's route gradients at tiny size and its step gate, its
-GIF block parser, and its kernel timing when the profiler drops a row's
+model-parallel phase's route gradients at tiny size and its step gate, the
+frame-split clip phase's record, cut and gate on stand-in ranks, its GIF
+block parser, and its kernel timing when the profiler drops a row's
 records or one kernel's.
 
 ptxas prints its warning that it serialized an entry's wgmma before the
@@ -514,13 +515,15 @@ def test_mesh_train_phase_runs_at_tiny_size_on_the_cpu(prepped):
 
 
 def test_sharded_clip_launches_follow_the_chunks():
-    """Each rank's share of a full clip's flash launches at W = 2: 5 a step,
-    7 of the 13 encode chunks (the last rank repeating one), 3 of the 5
-    decode chunks; one process is the single clip's 5N + 18."""
+    """Each rank's share of a full clip's flash launches at W = 2: 5 a step
+    (its frames, both guidance halves), 7 of the 13 encode chunks (the last
+    rank repeating one), 3 of the 5 decode chunks; one process is the single
+    clip's 5N + 18; at W = 4, 4 encode and 2 decode chunks."""
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
 
     assert chip_smoke.sharded_clip_launches(4, PipelineConfig(), 2) == 5 * 4 + 7 + 3
     assert chip_smoke.sharded_clip_launches(4, PipelineConfig(), 1) == 5 * 4 + 18
+    assert chip_smoke.sharded_clip_launches(1, PipelineConfig(), 4) == 5 + 4 + 2  # phase 21's ranks
 
 
 def test_memory_flip_reading_names_each_kind_of_flip():
@@ -633,3 +636,83 @@ def test_model_parallel_step_gate():
         target[path[-1]] = value
         with pytest.raises(AssertionError):
             chip_smoke.check_model_parallel_step(bad)
+
+
+def _frame_clip_spawn(broken: str):
+    """A stand-in for `spawn` in phase 21: four ranks run the card out of
+    memory, three return `clip_rank` records of a small clip (rank 0's within
+    1e-3 of the one-process clip), broken as `broken` says."""
+    import torch
+
+    from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
+
+    g = torch.Generator().manual_seed(0)
+    one = dict(frames=torch.rand((10, 8, 16, 3), generator=g), latents=torch.randn((10, 4, 1, 2), generator=g))
+    got = one["frames"] + 1e-3 * torch.randn(one["frames"].shape, generator=g)
+    want = chip_smoke.sharded_clip_launches(1, PipelineConfig(num_steps=1), 3)
+    calls = []
+
+    def spawn(target, world_size, workdir, device, args=(), **kwargs):
+        calls.append((target, world_size, args))
+        if world_size == 4 or broken == "every_count_out_of_memory":
+            raise RuntimeError("spawned ranks failed:\nrank 2:\ntorch.OutOfMemoryError: CUDA out of memory.")
+        if broken == "other_error":
+            raise RuntimeError("spawned ranks failed:\nrank 0:\nValueError: something else")
+        ranks = [dict(rank=r, world_size=3, data=3, model=1, frames=[0, 9], seconds=20.0 + r,
+                      stage_seconds={"denoise": 9.0}, peak_memory_bytes=14e9, launches=[want, 0], shape=[10, 8, 16, 3],
+                      finite=True, sha256="a", clip=got if r == 0 else None,
+                      latents=one["latents"] * 1.01 if r == 0 else None) for r in range(3)]
+        if broken == "launches":
+            ranks[2]["launches"] = [want - 5, 0]  # a rank whose UNet never reached the kernel
+        elif broken == "ranks_differ":
+            ranks[1]["sha256"] = "b"
+        elif broken == "rolled":
+            ranks[0]["clip"] = torch.roll(got, 5, 0)  # decode chunks joined out of order
+        return ranks
+
+    return one, spawn, calls
+
+
+def test_frame_clip_phase_cuts_on_out_of_memory_and_prints_its_record(monkeypatch, tmp_path, capsys):
+    """Phase 21 on stand-in ranks: four run out of memory, so three run, the
+    cut and its reason recorded; the printed record holds the ranks' launches,
+    seconds and peaks beside the one-process runs', the gate's reading and
+    the rolled clip's failing one."""
+    import json
+
+    import torch
+
+    from evoworld_tpu_torch.parallel import launch
+
+    one, spawn, calls = _frame_clip_spawn("none")
+    monkeypatch.setattr(launch, "spawn", spawn)
+    one_runs = [dict(clip="cold", seconds=5.1, stage_seconds={}, peak_memory_bytes=34e9),
+                dict(clip="warm", seconds=4.9, stage_seconds={}, peak_memory_bytes=34e9)]
+    result = chip_smoke.frame_clip(torch.device("cpu"), 1, 0, str(tmp_path), one, one_runs)
+    assert [(c[0], c[1], c[2]) for c in calls] == [("chip_smoke:clip_rank", 4, (1, 0)), ("chip_smoke:clip_rank", 3, (1, 0))]
+    assert result["world_size"] == 3 and result["cuts"] == [dict(world_size=4, reason="4 ranks ran the card out of memory")]
+    line = next(x for x in capsys.readouterr().out.splitlines() if x.startswith("frame clip {"))
+    printed = json.loads(line[len("frame clip "):])
+    assert printed["expected_launches"] == [5 + 5 + 2, 0]  # a step, 5 of 13 encode and 2 of 5 decode chunks at W = 3
+    assert [r["launches"] for r in printed["ranks"]] == [printed["expected_launches"]] * 3
+    assert [r["seconds"] for r in printed["ranks"]] == [20.0, 21.0, 22.0]
+    assert printed["one_process"]["warm"]["peak_memory_bytes"] == 34e9
+    assert printed["vs_one_process"]["passes"] and not printed["rolled_by_a_decode_chunk"]["passes"]
+    assert printed["ranks_equal"] and "clip" not in printed["ranks"][0] and "latents" not in printed["ranks"][0]
+    assert printed["latents_vs_one_process"]["rel_rms"] == pytest.approx(0.01)
+
+
+@pytest.mark.parametrize("broken", ["launches", "ranks_differ", "rolled", "every_count_out_of_memory", "other_error"])
+def test_frame_clip_phase_fails(monkeypatch, tmp_path, broken):
+    """Phase 21 fails on a rank's launch count, ranks whose clips differ, a
+    clip whose decode chunks are out of order, every rank count out of
+    memory, or an error other than out of memory (which makes no cut)."""
+    import torch
+
+    from evoworld_tpu_torch.parallel import launch
+
+    one, spawn, _ = _frame_clip_spawn(broken)
+    monkeypatch.setattr(launch, "spawn", spawn)
+    error = RuntimeError if broken == "other_error" else AssertionError
+    with pytest.raises(error):
+        chip_smoke.frame_clip(torch.device("cpu"), 1, 0, str(tmp_path), one, [])

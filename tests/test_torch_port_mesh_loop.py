@@ -6,8 +6,11 @@ the mesh in them while this process runs the same calls without it; the
 one-process port is what the other `test_torch_port_*` files hold against
 the JAX package (whose own sharding tests are slow-tier for their compiles).
 
-- The clip: the CFG-parallel denoise, the encode and decode split by chunk;
-  every rank's frames within atol 1e-4 of the one-process clip.
+- The clip: the denoise split by frames over the ranks (both guidance
+  halves on each), the encode and decode split by chunk; every rank's
+  frames within atol 1e-4 of the one-process clip
+  (`tests/test_torch_port_mesh_serving.py` holds the split at uneven frame
+  counts and against the JAX package's mesh pipeline).
 - VGGT on four 16x512 crops: frames split two a rank, the global attention
   on the head-sharded route from 16 tokens; points, confidence and
   extrinsics within rtol 2e-3 / atol 5e-4 (the layers' tolerance), colours
