@@ -188,8 +188,8 @@ three-part bf16 split of each fp32 operand) adds:
      TF32 flags (printed): at `--runtime.compute_dtype=float32`
      `cli.run_single_segment.main` from phase 15's `svd_fp32/` (5N + 18
      launches at N = STEPS), `cli.train.main` for 2 steps from phase 11's
-     checkpoints (25 frames or, where they run the card
-     out of memory, the next of FP32_TRAIN_FRAMES, each count given up
+     checkpoints (the first of FP32_TRAIN_FRAMES that does not run the
+     card out of memory, 22 of the configuration's 25, each count given up
      reported as the cut; `expected_train_launches` a step) and
      `cli.reproject.main` on a fresh copy of phase 14's episode (24
      launches); seconds, peak memory. The kernels line gets an entry for the
@@ -258,10 +258,10 @@ frame-sharded step, tensor-parallel weights) adds:
      within the bf16 limits of the plain fp32 backward (which the same
      gradients with one ring block's dK and dV short of a query shard's part
      must fail), every rank's equal, launches a rank [1, 1] and [3, 3]; (b)
-     one full-width bf16 step with the frames sharded over W = 2 (the first
-     of FRAME_STEP_FRAMES at which both ranks fit, each count given up
-     printed with its reason) and (c) one on a 1 x 2 tensor-parallel mesh
-     at TP_STEP_FRAMES, each against the same step in this process at the
+     one full-width bf16 step with the frames sharded over W = 2 at
+     FRAME_STEP_FRAMES and (c) one on a 1 x 2 tensor-parallel mesh at
+     TP_STEP_FRAMES, the four ranks at once, each against the same step in
+     this process at the
      same frames, batch and draws (MESH_TRAIN_RTOL, MESH_TRAIN_WITHIN_LR,
      MESH_TRAIN_MU_RMS), each rank's launches `expected_train_launches` at
      its frame count, each rank's peak memory and state bytes beside the
@@ -271,18 +271,42 @@ The frame-sharded serving denoise (a mesh splits the clip's frames over its
 data axis, both guidance halves on every rank, as the JAX package does) adds:
   3. rows of the forward at the first rank's level-0 attention of a split
      clip: (26, 9216, 5, 64) at W = 2 and (14, 9216, 5, 64) at W = 4;
-  18(c). before the episode, its two ranks run phase 5's clip (13 + 12
-     frames), held to phase 5's by the gate's rule (which the clip rolled by
-     a decode chunk must fail), the ranks' clips equal, each rank's
-     launches `sharded_clip_launches`: the clip-only reading at W = 2;
+  18(c). the episode's clip splits its frames 13 + 12 (phase 21 holds a
+     split clip alone to phase 5's);
   21. phase 5's clip with the frames split over W = 4 ranks sharing cuda:0
      over gloo (7 + 6 + 6 + 6 frames; W = 3 where four run the card out of
      memory, the cut and its reason printed), by the same rule against phase
      5's clip, the ranks' clips equal, `sharded_clip_launches` a rank; each
      rank's seconds and peak memory beside phase 5's. Ranks sharing a card
      measure nothing of multi-GPU speed.
+The MP4 slice (the scoring of video files, the MP4 export) adds:
+  2c. the port's MPEG-4 Part 2 decoder (csrc/video.cpp, built with g++ beside
+     the other builds) on the `mp4v` fixtures committed under
+     tests/torch_port_data/ (FFmpeg's default `mpeg4` encode: I- and
+     P-VOPs, half-pel vectors, a size that is no multiple of 16): every byte
+     within MP4_MAX_LEVELS of the PNG strip stored beside each, OpenCV's
+     decode of it (this machine has no OpenCV), MP4_MEAN_LEVELS on average;
+     decode seconds and frames a second printed;
+  22. after phase 13, on phase 11's files: `utils.video.export_mp4` writes
+     navigated.mp4 and original.mp4 (1024x576, 25 frames) for two pairs,
+     `run_unified`'s last segment against its episode frames and
+     `run_single_segment`'s clip against its GT; the port's decode of each
+     file within ENCODE_LUMA_MAE of the frames written; then, with TF32
+     switched on, `cli.calculate_scores.main` on the card with metric nets
+     made sensitive to the frames it scores (so that FVD runs): every score
+     finite, the feature scores above EVAL_FEATURE_FLOOR, no flash launch;
+     the encode, decode, resize and per-metric seconds printed. Files of
+     each clip's last SCORES_CPU_FRAMES frames are scored by `main` on the
+     card and by `main(..., device="cpu")`, held to each other within
+     phase 13's tolerances (the CPU's FVD over the 25-frame files' 16 clip
+     lengths would take twice the phase's budget).
 The fp32 card-against-CPU checks (4, 7, 9) build on the CPU and move a copy to
 the card, so that both sides hold the same weights.
+For the run's time limit, the ranks of phases 18, 20 and 21 start during the
+phase before theirs (`prestart`: imports, the card's context and the group
+come up meanwhile), 19(a) and 19(b) run together, as do 20(a)'s two spawns and 20(b)'s
+and 20(c)'s ranks, and finished checkpoints are deleted in a thread.
+Every record's head goes to stderr after the run's seconds so far.
 It prints, in order before the last line, the run's wall seconds, the card's
 name and power limit, a JSON line of the kernels, and ends with the JSON line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
@@ -340,10 +364,11 @@ STEPS = 1  # denoise steps per full-width clip (production: 25), cut for the tim
 SEED = 0
 TRAIN_STEPS = 2  # full-width training steps, the first cold (3 until phase 21 came; cut for the time limit)
 # Phase 16's training frames, tried in turn while the card runs out of
-# memory: 25, then 22, the most that fit an H100's 79.2 GiB in fp32 (25, 24
-# and 23 ran out of memory, 22 peaked at 74.3 GiB; NVIDIA H100 80GB HBM3,
-# PERF.md), then PERF.md §2's cut of 14.
-FP32_TRAIN_FRAMES = (None, 22, 14)
+# memory: 22, the most that fit an H100's 79.2 GiB in fp32 (25, 24 and 23
+# ran out of memory, 22 peaked at 74.3 GiB; NVIDIA H100 80GB HBM3, PERF.md),
+# then PERF.md §2's cut of 14. The configuration's 25 is not tried: it ran
+# out of memory in every run and cost ~28 s of the time limit doing so.
+FP32_TRAIN_FRAMES = (22, 14)
 # Kernel route against the plain route through a whole level-0 block, and
 # the card against the CPU for a tiny fp32 step: relative RMS error limits
 # (||a - b|| / ||b|| per tensor). The two bf16 routes round P, dS and the
@@ -422,6 +447,27 @@ FP32_BWD_TWINS = ("unet_l0_train", "head_dim_128", "vae_mid_d512", "ragged_padde
 # (tests/torch_port_data/make_jpeg_fixtures.py).
 JPEG_FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_data")
 JPEG_FIXTURES = ("baseline_420", "restart_422", "progressive_420", "grey")
+# Phase 2c: `mp4v` files with OpenCV's decode of each stored beside it as a PNG
+# strip (tests/torch_port_data/make_mp4_fixtures.py), held to the CPU test's
+# limits (tests/test_torch_port_video.py): every byte within MP4_MAX_LEVELS,
+# the mean under MP4_MEAN_LEVELS. The decoder works in FFmpeg's arithmetic
+# and meets them with every byte equal on the CPU.
+MP4_FIXTURES = {"mp4v_64": (14, 64, 64), "mp4v_200x120": (26, 120, 200)}  # name -> (frames, height, width)
+MP4_MAX_LEVELS, MP4_MEAN_LEVELS = 2, 0.5
+# Phase 22: the port's decode of a file `export_mp4` wrote, against the
+# frames written, as the mean absolute error of their BT.601 luma (4:2:0
+# halves the chroma each way, whose error the content sets). Intra-only at
+# a quantiser of 2 (a DCT step of 4): 1.0 on flat frames, 1.33 on noise,
+# 1.36 on noisy smooth fields at 1024x576 (the CPU).
+ENCODE_LUMA_MAE = 1.5
+SCORES_FPS = 10  # export_mp4's default
+# Phase 22 holds the card to `calculate_scores.main(..., device="cpu")` on
+# files of each clip's last SCORES_CPU_FRAMES frames (phase 13's cut, the
+# fewest that score FVD): on the 25-frame files FVD runs at 16 clip lengths,
+# which took 39.9 s on the card machine's CPU (I3D at 224 px), twice the
+# phase's budget, and 651 s on 4 threads beside phases 14-21, which it
+# slowed (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+SCORES_CPU_FRAMES = 10
 FILL_MS = 20.0  # a timing repeats a call until about this much device time has passed
 TRACE_TRIES = 3  # profiler traces of a row before it is timed by events (its launch count checked)
 STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5  # a tenth of one update at lr 1e-4
@@ -474,15 +520,14 @@ MESH_TRAIN_RTOL, MESH_TRAIN_WITHIN_LR, MESH_TRAIN_MU_RMS = 1e-2, 0.95, 0.1
 # Phase 20: the routes' gradients at VGGT's global attention over 25 frames,
 # 26,025 tokens (head-sharded at W = 2, the ring at W = 3; 49 frames, 51,009
 # tokens, until phase 21 came: cut for the run's time limit); the
-# frame-sharded step's frame counts, tried in turn while two ranks run the
-# card out of memory (25, the reference's, until phase 21 came: two ranks
-# fit it at 32.96-34.90 GB, PERF.md; cut to 9 for the time limit, where the
-# ranks and the one-process step fit on the card together and run at once); the
-# tensor-parallel step's frames (cut for the time limit: at 8 frames, 19(b)'s
-# cut, a step took 81.6 s a rank, every split layer's output gathered
-# through host memory on gloo; 23.2-23.8 s at 2).
+# frame-sharded step's frames (25, the reference's, until phase 21 came: two
+# ranks fit it at 32.96-34.90 GB, PERF.md; cut to 9 for the time limit, where
+# its ranks, the tensor-parallel step's and one process's step fit on the
+# card together and run at once); the tensor-parallel step's frames (cut for
+# the time limit: at 8 frames, 19(b)'s cut, a step took 81.6 s a rank, every
+# split layer's output gathered through host memory on gloo; 23.2-23.8 s at 2).
 ROUTE_GRAD_SHAPE = (1, 26025, 16, 64)
-FRAME_STEP_FRAMES = (9,)
+FRAME_STEP_FRAMES = 9
 TP_STEP_FRAMES = 1
 # Phase 18(c)'s episode at W = 2: `LoopConfig()`'s 3 segments cut to 2 (one
 # rebuild) once phase 20 came and to 1 (no rebuild; phase 19(a) runs VGGT
@@ -494,13 +539,60 @@ MESH_EPISODE_SEGMENTS = 1
 FRAME_CLIP_RANKS = (4, 3)
 
 
+_LOG_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """A line of the record on stdout; its head on stderr after the run's
+    seconds so far, the timeline of every phase."""
     print(msg, flush=True)
+    print(f"[{time.perf_counter() - _LOG_T0:8.1f} s] {msg[:100]}", file=sys.stderr, flush=True)
+
+
+_REMOVALS: list = []
+
+
+def remove_later(path: str) -> None:
+    """Remove the directory `path` in a thread while the next phases run
+    (deleting a full-width checkpoint takes seconds): renamed at once, so
+    that its name is free, then deleted; `wait_removals` joins the threads."""
+    import shutil
+    import threading
+
+    trash = f"{path}.removing"
+    os.rename(path, trash)
+    thread = threading.Thread(target=shutil.rmtree, args=(trash,), name=f"remove {trash}")
+    thread.start()
+    _REMOVALS.append(thread)
+
+
+def wait_removals() -> None:
+    """Wait for every `remove_later` thread."""
+    while _REMOVALS:
+        _REMOVALS.pop().join()
+
+
+def plain_call(fn) -> tuple:
+    """(`fn()`, the device milliseconds of a call of it): a plain version's
+    reference output and its time, the first call's where it fills FILL_MS
+    (a slow call's time is its own, not its warm-up's), else `cuda_ms` of
+    one call after it."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    return out, ms if ms >= FILL_MS else cuda_ms(fn, reps=1)
 
 
 def cuda_ms(fn, reps: int | None) -> float:
     """Mean device milliseconds of `fn` over `reps` launches, after one warm-up;
-    with `reps` None, over as many launches as fill FILL_MS (at least 3)."""
+    with `reps` None, over as many launches as fill FILL_MS (at least 3), or
+    the one call that sized them where it filled FILL_MS alone."""
     import torch
 
     fn()
@@ -511,6 +603,8 @@ def cuda_ms(fn, reps: int | None) -> float:
         fn()
         end.record()
         end.synchronize()
+        if start.elapsed_time(end) >= FILL_MS:
+            return start.elapsed_time(end)
         reps = max(3, math.ceil(FILL_MS / max(start.elapsed_time(end), 1e-3)))
     start.record()
     for _ in range(reps):
@@ -610,7 +704,7 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         # head dim 128 at the backward's D = 128 row's shape
         ("head_dim_128_fwd", 2, 9216, 9216, 2, 128, 9216, False, False),
         # the UNet level-0 attention of the first rank of a frame-split clip (both
-        # guidance halves of its frames): 13 frames at W = 2, 7 at W = 4 (phases 18(c), 21)
+        # guidance halves of its frames): 13 frames at W = 2, 7 at W = 4 (phases 18(c)'s episode, 21)
         ("unet_l0_spatial_w2", 26, 9216, 9216, 5, 64, 9216, False, False),
         ("unet_l0_spatial_w4", 14, 9216, 9216, 5, 64, 9216, False, False),
     ]
@@ -630,7 +724,7 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
         out, lse = run()
         torch.cuda.synchronize()
         qf, kf, vf = q.float(), k.float(), v.float()
-        ref, ref_lse = _plain_forward(qf, kf, vf, scale, kv_len, use_exp2)
+        (ref, ref_lse), plain_ms = plain_call(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2))
         err = errors(out, ref)
         cut = errors(_plain_forward(qf, kf, vf, scale, kv_len - DROPPED_KEYS, use_exp2)[0], ref)
         lse_err = (lse - ref_lse).abs().max().item() if with_lse else None
@@ -657,7 +751,6 @@ def check_flash_kernel(dev, power_limit_w: float) -> dict:
             run, sorted({*FWD_KERNELS.values(), FP32_FWD_KERNEL}), served=(served_by,), elem=elem,
             counter=flash_attention)
         served = [n for n, t in traced.items() if t is None or t > 0]  # None: launched, timed by events
-        plain_ms = cuda_ms(lambda: _plain_forward(qf, kf, vf, scale, kv_len, use_exp2), reps=1)
         qt, kt, vt = q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=None)
         ms_line = FWD_MS_LINES.get(label)
@@ -717,6 +810,37 @@ def check_jpeg_fixtures() -> list[dict]:
     bad = [r for r in rows if r["differing_pixels"]]
     if bad:
         raise AssertionError(f"the port's JPEG decode differs from libjpeg's: {bad}")
+    return rows
+
+
+def check_mp4_fixtures() -> list[dict]:
+    """Phase 2c: each committed `mp4v` fixture decoded by the port against
+    the PNG strip of OpenCV's decode stored beside it (read by the port's
+    PNG decoder), within MP4_MAX_LEVELS a byte and MP4_MEAN_LEVELS on
+    average; the decode timed."""
+    import numpy as np
+
+    from evoworld_tpu_torch.data import native_io, native_video
+
+    rows = []
+    for name, (frames, height, width) in MP4_FIXTURES.items():
+        mp4, png = (os.path.join(JPEG_FIXTURE_DIR, f"{name}.{ext}") for ext in ("mp4", "png"))
+        strip = native_io.load_image_batch([png], frames * height, width, minus1_1=False, n_threads=1)[0]
+        want = np.rint(strip * 255).astype(np.int16).reshape(frames, height, width, 3)
+        t0 = time.perf_counter()
+        got = native_video.read_mp4(mp4)
+        seconds = time.perf_counter() - t0
+        row = dict(name=name, shape=list(got.shape), decode_s=seconds, frames_per_s=len(got) / seconds)
+        if got.shape == want.shape:
+            err = np.abs(got.astype(np.int16) - want)
+            row.update(max_abs_diff=int(err.max()), mean_abs_diff=float(err.mean()),
+                       differing_bytes=int((err > 0).sum()))
+        rows.append(row)
+    log("mp4 fixtures " + json.dumps(rows))
+    bad = [r for r, want in zip(rows, MP4_FIXTURES.values())
+           if r["shape"] != [*want, 3] or r["max_abs_diff"] > MP4_MAX_LEVELS or r["mean_abs_diff"] >= MP4_MEAN_LEVELS]
+    if bad:
+        raise AssertionError(f"the port's MPEG-4 decode differs from OpenCV's: {bad}")
     return rows
 
 
@@ -818,7 +942,7 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
         cut_lse_err = (_plain_forward(q, k, v, scale, kv_len - DROPPED_KEYS, False)[1] - ref_lse).abs().max().item()
         f32 = [t.float() for t in (q, k, v, ref_out, do)]
         del ref_out
-        ref = flash_attention_backward_plain(*f32, ref_lse, scale, kv_len)
+        ref, plain_ms = plain_call(lambda: flash_attention_backward_plain(*f32, ref_lse, scale, kv_len))
         errs = {n: errors(a, r) for n, a, r in zip(("dq", "dk", "dv"), grads, ref)}
         cut = flash_attention_backward_plain(*f32, ref_lse, scale, kv_len - DROPPED_KEYS)
         cut_errs = {n: errors(a, r) for n, a, r in zip(("dq", "dk", "dv"), cut, ref)}
@@ -834,7 +958,6 @@ def check_flash_backward(dev, power_limit_w: float) -> dict:
                                                               counter=flash_attention_backward)
         split = {n: traced[n] for n in names}
         strays = [n for n, t in traced.items() if n not in names and t > 0]
-        plain_ms = cuda_ms(lambda: flash_attention_backward_plain(*f32, ref_lse, scale, kv_len), reps=1)
         del f32, ref_lse
         torch.cuda.empty_cache()
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k[:, :kv_len], v[:, :kv_len]))
@@ -2136,7 +2259,7 @@ def full_train_cli(dev, steps: int, seed: int, workdir: str, overrides: tuple = 
     result["clip"] = (frames.numpy(), gt)
     # Nothing after this phase reads its checkpoints (22 GB). The card's machine counts every
     # byte a run writes to its disk; blocks freed here can take the later phases' writes.
-    shutil.rmtree(os.path.join(out, "checkpoints"))
+    remove_later(os.path.join(out, "checkpoints"))
     return result
 
 
@@ -2170,11 +2293,12 @@ def sensitive_metric_net_(model, *inputs) -> dict:
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
 
 
-def sensitive_metric_weights(gen, gt, dev, i3d_size: int = 224) -> dict:
+def sensitive_metric_weights(gen, gt, dev, i3d_size: int = 224,
+                             names: tuple = ("lpips", "inception_v4", "i3d")) -> dict:
     """{"lpips" | "inception_v4" [| "i3d"]: state dict}: the harness's
-    random nets (seeded 0) made sensitive, on `dev`, to the (N, F, H, W, 3)
-    [0, 1] videos they will score as the harness preprocesses them; I3D only
-    where the videos are long enough for FVD."""
+    random nets (seeded 0) among `names` made sensitive, on `dev`, to the
+    (N, F, H, W, 3) [0, 1] videos they will score as the harness
+    preprocesses them; I3D only where the videos are long enough for FVD."""
     import numpy as np
     import torch
 
@@ -2188,7 +2312,165 @@ def sensitive_metric_weights(gen, gt, dev, i3d_size: int = 224) -> dict:
     if videos.shape[1] >= 10:
         inputs["i3d"] = lambda: (i3d_preprocess(videos, i3d_size),)
     with full_fp32():
-        return {name: sensitive_metric_net_(nets.net(name), *make()) for name, make in inputs.items()}
+        return {name: sensitive_metric_net_(nets.net(name), *make()) for name, make in inputs.items()
+                if name in names}
+
+
+def eval_tolerance(metric: str, cpu_value: float) -> float:
+    """Phase 13's limit on a metric's value on the card at one timestamp
+    against the CPU's: SSIM 1e-5, PSNR 1e-5 + 2e-6 relative, the feature
+    metrics EVAL_FEATURE_RTOL relative."""
+    if metric == "ssim":
+        return 1e-5
+    if metric == "psnr":
+        return 1e-5 + 2e-6 * abs(cpu_value)
+    return EVAL_FEATURE_RTOL * abs(cpu_value)
+
+
+def full_scores(dev, workdir: str, cli_out: str, overrides: tuple = ()) -> dict:
+    """Phase 22: `export_mp4` writes navigated.mp4 and original.mp4 for two
+    pairs under `<workdir>/scores` from phase 11's PNGs (the last segment of
+    `run_unified` against its episode frames, the clip of
+    `run_single_segment` against its GT), each decoded back by the port
+    within ENCODE_LUMA_MAE of the frames written; with TF32 switched on,
+    `calculate_scores.main` scores them on the card with metric nets made
+    sensitive to the 64x64 frames it scores (`sensitive_metric_weights`,
+    loaded by the CLI from `--runtime.metric_weights_dir`), each metric
+    timed inside the CLI's own run; every score finite, the feature scores
+    above EVAL_FEATURE_FLOOR, no flash launch. Then the last SCORES_CPU_FRAMES
+    frames of each clip are written as files of their own (phase 13's cut),
+    which `main` scores on the card and `main(..., device="cpu")` on the
+    CPU, held to each other within phase 13's tolerances (SSIM 1e-5, PSNR
+    1e-5 + 2e-6 relative, FVD and LPIPS EVAL_FEATURE_RTOL relative, per
+    timestamp)."""
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from evoworld_tpu_torch.cli import calculate_metrics, calculate_scores
+    from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
+    from evoworld_tpu_torch.data.native_video import read_mp4, resize_linear_u8
+    from evoworld_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from evoworld_tpu_torch.utils.video import export_mp4
+
+    config = apply_overrides(EvoWorldConfig(), list(overrides))
+    last = config.loop.num_segments - 1
+    root, cut_root = os.path.join(workdir, "scores"), os.path.join(workdir, "scores_cut")
+    layout = {"pair_000": (f"predictions_{last}", f"predictions_gt_{last}"),
+              "pair_001": ("predictions", "predictions_gt")}
+    files, seconds = [], dict(read_png=0.0, encode=0.0, decode=0.0, resize=0.0)
+    decoded = {}
+    for pair, subs in layout.items():
+        os.makedirs(os.path.join(root, pair))
+        os.makedirs(os.path.join(cut_root, pair))
+        for name, sub in zip(("navigated.mp4", "original.mp4"), subs):
+            t0 = time.perf_counter()
+            frames = calculate_metrics.read_video_dir(os.path.join(cli_out, sub), config.pipeline.num_frames)
+            frames = np.rint(frames * 255).astype(np.uint8)
+            seconds["read_png"] += time.perf_counter() - t0
+            path = os.path.join(root, pair, name)
+            t0 = time.perf_counter()
+            export_mp4(frames, path, fps=SCORES_FPS)
+            seconds["encode"] += time.perf_counter() - t0
+            export_mp4(frames[-SCORES_CPU_FRAMES:], os.path.join(cut_root, pair, name), fps=SCORES_FPS)
+            t0 = time.perf_counter()
+            back = read_mp4(path)
+            seconds["decode"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            decoded[pair, name] = resize_linear_u8(back, 64, 64).astype(np.float32) / 255.0
+            seconds["resize"] += time.perf_counter() - t0
+            row = dict(file=f"{pair}/{name}", shape=list(back.shape), bytes=os.path.getsize(path))
+            if back.shape == frames.shape:
+                luma = np.array([0.299, 0.587, 0.114])
+                row.update(luma_mae=float(np.abs((back.astype(np.float64) - frames) @ luma).mean()),
+                           rgb_mae=float(np.abs(back.astype(np.int16) - frames).mean()))
+            files.append(row)
+    bad = [r for r in files if "luma_mae" not in r or r["luma_mae"] > ENCODE_LUMA_MAE]
+    if bad:
+        raise AssertionError(f"the port's decode of export_mp4's files misses the frames written: {bad}")
+    n = min(v.shape[0] for v in decoded.values())  # as the CLI cuts them
+    gen, gt = (np.stack([decoded[p, name][:n] for p in layout]) for name in ("navigated.mp4", "original.mp4"))
+    t0 = time.perf_counter()
+    weights = sensitive_metric_weights(gen, gt, dev, names=("lpips", "i3d"))  # the nets calculate_scores runs
+    weights_dir = os.path.join(workdir, "scores_weights")
+    os.makedirs(weights_dir)
+    for name, sd in weights.items():
+        torch.save(sd, os.path.join(weights_dir, f"{name}.pt"))
+    weights_s = time.perf_counter() - t0
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    metric_s = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            metric_s[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    def score(data_root, device):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI prints its scores.json
+            out = calculate_scores.main([f"--data.root={data_root}", f"--runtime.metric_weights_dir={weights_dir}"],
+                                        device=device)
+        sync()
+        return out, time.perf_counter() - t0
+
+    names = {"fvd": "calculate_fvd_batch", "ssim": "calculate_ssim", "psnr": "calculate_psnr",
+             "lpips": "calculate_lpips"}
+    kept = {k: getattr(calculate_scores, f) for k, f in names.items()}
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    flash_attention.launches = flash_attention_backward.launches = 0
+    try:
+        for k, f in names.items():
+            setattr(calculate_scores, f, timed(k, kept[k]))
+        on_dev, cli_s = score(root, dev)
+    finally:
+        for k, f in names.items():
+            setattr(calculate_scores, f, kept[k])
+    try:
+        cut_dev, cut_s = score(cut_root, dev)
+        launches = [flash_attention.launches, flash_attention_backward.launches]
+        flags_kept = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    cut_cpu, cpu_s = score(cut_root, "cpu")
+
+    compared = {}
+    for metric, ref in cut_cpu.items():
+        got = cut_dev.get(metric, {"value": {}})["value"]
+        errs = {t: abs(got.get(t, math.nan) - v) for t, v in ref["value"].items()}
+        compared[metric] = dict(card=cut_dev.get(metric, {}).get("value_mean"), cpu=ref["value_mean"],
+                                max_abs_err=max(errs.values()),
+                                worst_rel_err=max(e / max(abs(ref["value"][t]), 1e-30) for t, e in errs.items()),
+                                ok=all(e <= eval_tolerance(metric, ref["value"][t]) for t, e in errs.items()))
+    result = dict(files=files, seconds=seconds, weights_seconds=weights_s, cli_seconds=cli_s,
+                  metric_seconds=metric_s, videos=list(gen.shape), launches=launches,
+                  scores={k: v["value_mean"] for k, v in on_dev.items()},
+                  weights={k: v.get("weights") for k, v in on_dev.items()}, tf32_flags_kept=flags_kept,
+                  cut_frames=SCORES_CPU_FRAMES, cut_card_seconds=cut_s, cut_cpu_seconds=cpu_s, compared=compared)
+    log("scores " + json.dumps(result))
+    want = {"fvd", "ssim", "psnr", "lpips"}
+    finite = all(math.isfinite(r[k]["value_mean"]) for r in (on_dev, cut_dev) for k in r)
+    if set(on_dev) != want or set(cut_dev) != want or set(cut_cpu) != want or not finite:
+        raise AssertionError(f"scores.json holds {result['scores']} (the cut's {sorted(cut_dev)} on the card, "
+                             f"{sorted(cut_cpu)} on the CPU), expected finite {sorted(want)}")
+    if not all(abs(r[k]["value_mean"]) > EVAL_FEATURE_FLOOR for r in (on_dev, cut_dev) for k in ("fvd", "lpips")) or \
+            {r[k]["weights"] for r in (on_dev, cut_dev) for k in ("fvd", "lpips")} != {"converted"}:
+        raise AssertionError(f"feature scores {result['scores']} are not above {EVAL_FEATURE_FLOOR}, or the nets "
+                             f"were not the sensitive ones ({result['weights']})")
+    if not all(c["ok"] for c in compared.values()):
+        raise AssertionError(f"calculate_scores on the card differs from the CPU: {compared}")
+    if launches != [0, 0] or not flags_kept:
+        raise AssertionError(f"the scoring launched the flash kernels {launches} times or changed the caller's "
+                             f"TF32 flags")
+    return result
 
 
 def full_eval(dev, workdir: str, cli_out: str, clip, overrides: tuple = ()) -> dict:
@@ -2328,14 +2610,8 @@ def full_eval(dev, workdir: str, cli_out: str, clip, overrides: tuple = ()) -> d
         raise AssertionError(f"feature metrics {unresolved} are not above {EVAL_FEATURE_FLOOR}, or the nets were "
                              f"not the sensitive ones ({result['weights']})")
     for metric, c in compared.items():
-        if metric == "ssim":
-            ok = c["max_abs_err"] <= 1e-5
-        elif metric == "psnr":
-            ok = all(abs(on_dev[metric]["value"][t] - v) <= 1e-5 + 2e-6 * abs(v)
-                     for t, v in on_cpu[metric]["value"].items())
-        else:
-            ok = c["worst_rel_err"] <= EVAL_FEATURE_RTOL
-        if not ok:
+        if not all(abs(on_dev[metric]["value"][t] - v) <= eval_tolerance(metric, v)
+                   for t, v in on_cpu[metric]["value"].items()):
             raise AssertionError(f"{metric} on the card differs from the CPU: {c}")
     for variant, d in dreamsim.items():
         if not (d["score"] > EVAL_FEATURE_FLOOR and abs(d["score"] - d["cpu_score"]) <= DREAMSIM_ATOL):
@@ -2704,7 +2980,7 @@ def full_fp16(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
         raise AssertionError(f"the converter's halve or validate: {conv}")
     paths = cli_paths(dev, steps, seed, workdir, (*overrides, "--runtime.compute_dtype=float16"), svd16, "fp16")
     for d in (svd16, bad):  # read by nothing after this phase (phase 12's checkpoints: the same reason)
-        shutil.rmtree(d)
+        remove_later(d)
     return dict(convert=conv, **paths)
 
 
@@ -2714,10 +2990,10 @@ def full_fp32(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
     15's `svd_fp32/` (phase 11's checkpoints as fp32 safetensors), every
     attention of 4096 tokens or more on the fp32 kernels. It runs under
     torch's default TF32 flags, the state a user of the CLIs gets (matmuls in
-    full fp32, cuDNN convolutions in TF32), printed and restored after. The
-    training step tries the configuration's frames (25 at full width) and, if
-    the card runs out of memory, the next count of FP32_TRAIN_FRAMES, the
-    frames given up reported as the cut."""
+    full fp32, cuDNN convolutions in TF32), printed and restored after. On
+    the card the training step tries FP32_TRAIN_FRAMES in turn while the
+    card runs out of memory, the frames given up reported as the cut; on the
+    CPU it takes the configuration's frames."""
     import torch
 
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -2727,7 +3003,8 @@ def full_fp32(dev, steps: int, seed: int, workdir: str, overrides: tuple = ()) -
     log("fp32 tf32 flags " + json.dumps(tf32))
     try:
         paths = cli_paths(dev, steps, seed, workdir, (*overrides, "--runtime.compute_dtype=float32"),
-                          os.path.join(workdir, "svd_fp32"), "fp32", train_frames=FP32_TRAIN_FRAMES)
+                          os.path.join(workdir, "svd_fp32"), "fp32",
+                          train_frames=FP32_TRAIN_FRAMES if dev.type == "cuda" else (None,))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     return dict(tf32=tf32, **paths)
@@ -2855,7 +3132,7 @@ def cli_paths(dev, steps: int, seed: int, workdir: str, flags: tuple, clip_dir: 
     expected_step = expected_train_launches(train_frame_count, config.train.vae_encode_chunk, layers) \
         if on_card else (0, 0)
     del state
-    shutil.rmtree(os.path.join(out, "checkpoints"))  # the final save's, which nothing reads
+    remove_later(os.path.join(out, "checkpoints"))  # the final save's, which nothing reads
 
     # 3. reproject on a fresh copy of phase 14's episode (its renders left out)
     src_ep = os.path.join(workdir, "prep", "ep_1")
@@ -3169,8 +3446,8 @@ def clip_rank(mesh, steps: int, seed: int) -> dict:
     this rank: its frames, seconds, stage seconds, peak memory, flash
     launches (counted from 0 around the clip alone), the clip's shape,
     finiteness and SHA-256 (the ranks' clips are compared by it), and on rank
-    0 the frames and the denoised latents on the host. A rank function of
-    phases 18(c) and 21."""
+    0 the frames and the denoised latents on the host. Phase 21's rank
+    function."""
     import hashlib
 
     import torch
@@ -3206,13 +3483,15 @@ def clip_rank(mesh, steps: int, seed: int) -> dict:
     return out
 
 
-def episode_clip_rank(mesh, steps: int, num_segments: int, seed: int, scaled, camera_params) -> dict:
-    """Phase 18(c)'s rank: `clip_rank` (phase 5's clip at this mesh), then
-    `parallel/checks.py::episode_rank`, each with its own pipeline."""
+def episode_rank_tf32_off(mesh, *args) -> dict:
+    """Phase 18(c)'s rank: `parallel/checks.py::episode_rank` with TF32 off,
+    as `main` runs phase 10, whose first segment it is held to."""
+    import torch
+
     from evoworld_tpu_torch.parallel.checks import episode_rank
 
-    clip = clip_rank(mesh, steps, seed)
-    return dict(episode_rank(mesh, steps, num_segments, seed, scaled, camera_params), clip=clip)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return episode_rank(mesh, *args)
 
 
 def clip_reading(one_process: dict, ranks: list, steps: int, expected_launches: list) -> dict:
@@ -3240,7 +3519,7 @@ def clip_reading(one_process: dict, ranks: list, steps: int, expected_launches: 
 
 
 def check_clip_reading(reading: dict, label: str) -> None:
-    """Phases 18(c) and 21's gate on a `clip_reading`: the ranks' clips
+    """Phase 21's gate on a `clip_reading`: the ranks' clips
     finite and equal, every rank's launches as expected, rank 0's clip the
     one-process clip's by the gate's rule, and the rolled clip not."""
     launches = [r["launches"] for r in reading["ranks"]]
@@ -3253,14 +3532,24 @@ def check_clip_reading(reading: dict, label: str) -> None:
                              f"cannot tell a misplaced decode chunk: {reading}")
 
 
-def mesh_gate(dev, workdir: str) -> dict:
+def prestart(workdir: str, name: str, world: int, mesh_model: int = 1):
+    """`world` ranks of a later phase on the card started now, with no call
+    (`parallel/launch.py::Ranks`): they import torch and the port and bring
+    their group up while this process still runs an earlier phase (~0.5 GB
+    of the card each meanwhile), and wait for the phase's `call`."""
+    from evoworld_tpu_torch.parallel.launch import Ranks
+
+    return Ranks(None, world, os.path.join(workdir, name), device="cuda", mesh_model=mesh_model, threads=2)
+
+
+def mesh_gate(dev, workdir: str, ranks=None) -> dict:
     """Phase 18(b): the composed loop gate's episode on two ranks sharing
     `dev` (over gloo) against one rank in this process, teacher-forced at the
     memory and free-running, with the reading of the free runs' parting
     (`memory_flip_reading`, and the one-rank episode fed its own memory with
     only the flipped pixels taken from the ranks'); the teacher-forced and
     the swapped episodes must pass the gate. Runs on the CPU too (no flash
-    launches there)."""
+    launches there). `ranks`: two ranks started ahead (`prestart`)."""
     import torch
 
     from evoworld_tpu_torch.parallel import checks
@@ -3268,8 +3557,11 @@ def mesh_gate(dev, workdir: str) -> dict:
     from evoworld_tpu_torch.parallel.mesh import make_mesh
 
     t0 = time.perf_counter()
-    ranks = Ranks("chip_smoke:gate_rank_keeping_renders", 2, os.path.join(workdir, "gate"), device=dev.type,
-                  args=(2,), threads=2 if dev.type == "cuda" else 1, timeout=600)
+    if ranks is None:
+        ranks = Ranks("chip_smoke:gate_rank_keeping_renders", 2, os.path.join(workdir, "gate"), device=dev.type,
+                      args=(2,), threads=2 if dev.type == "cuda" else 1, timeout=600)
+    else:
+        ranks.call("chip_smoke:gate_rank_keeping_renders", (2,), timeout=600)
     one = make_mesh(dev)  # W = 1: the same routes on one rank (the flash kernel on every head)
     with kept_memory_renders() as one_renders:
         free = checks.run_composed_loop(2, one, dev)
@@ -3303,7 +3595,7 @@ def mesh_gate(dev, workdir: str) -> dict:
     return gate
 
 
-def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment, one_clip) -> dict:
+def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment, ranks=None) -> dict:
     """Phase 18, the multi-GPU serving path on the one card: W ranks spawned
     by `parallel/launch.py` sharing cuda:0 over gloo (NCCL refuses two ranks
     on one device). (a) The routes' forward at ROUTE_GRAD_SHAPE
@@ -3327,15 +3619,15 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment, one_clip)
     image, camera path and N), by `segment_agreement`, which the same
     frames rolled by one decode chunk must fail; if two ranks run the card
     out of memory the steps are cut first, then the segments, the cut is
-    reported, and a cut episode is not compared with phase 10's. Before the
-    episode the same ranks run phase 5's clip (`clip_rank`, the frames split
-    13 + 12, both guidance halves a rank), held to `one_clip`, phase 5's, by
-    `check_clip_reading` (launches `sharded_clip_launches`; not compared
-    where the steps were cut): the clip-only reading of the split. (c)'s
+    reported, and a cut episode is not compared with phase 10's. Its clip's
+    frames are split 13 + 12, both guidance halves a rank (phase 21 holds a
+    split clip alone to phase 5's). (c)'s
     ranks start with (b) and run beside it (the episode's wall and its
-    ranks' seconds take (b)'s share of the card and the host). VGGT's
-    frames are split only where W divides their count: the 25 and 49 frames
-    here do not, so the frame-sharded VGGT runs in the CPU gate alone."""
+    ranks' seconds take (b)'s share of the card and the host). `ranks`:
+    {"gate": ..., "episode": ...}, two ranks each started ahead
+    (`prestart`), (c)'s for its first try. VGGT's frames are split only
+    where W divides their count: the 25 and 49 frames here do not, so the
+    frame-sharded VGGT runs in the CPU gate alone."""
     import dataclasses
 
     import torch
@@ -3348,15 +3640,19 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment, one_clip)
     loop_cfg = dataclasses.replace(LoopConfig(), num_segments=MESH_EPISODE_SEGMENTS)
     tries = [(steps, loop_cfg.num_segments), (max(1, steps // 2), loop_cfg.num_segments), (1, 1)]
 
-    def start(steps_, segments):
+    def start(steps_, segments, ahead=None):
         scaled, camera_params = synthetic_path(segments * loop_cfg.num_target_view + loop_cfg.num_frames, seed)
-        return Ranks("chip_smoke:episode_clip_rank", 2, os.path.join(workdir, f"ep{steps_}_{segments}"),
-                     device="cuda", args=(steps_, segments, seed, scaled, camera_params), threads=2, timeout=900)
+        args = (steps_, segments, seed, scaled, camera_params)
+        if ahead is not None:
+            return ahead.call("chip_smoke:episode_rank_tf32_off", args, timeout=900)
+        return Ranks("chip_smoke:episode_rank_tf32_off", 2, os.path.join(workdir, f"ep{steps_}_{segments}"),
+                     device="cuda", args=args, threads=2, timeout=900)
 
+    ranks = ranks or {}
     t0 = time.perf_counter()
-    job = start(*tries[0])  # (c)'s ranks run beside (b)'s, whose tiny fp32 models take a few GB
+    job = start(*tries[0], ahead=ranks.get("episode"))  # beside (b)'s, whose tiny fp32 models take a few GB
     try:
-        result = {"gate": mesh_gate(dev, workdir)}
+        result = {"gate": mesh_gate(dev, workdir, ranks=ranks.get("gate"))}
     except BaseException:
         for proc in job.procs:  # a failed gate leaves no rank of (c) running
             proc.kill()
@@ -3379,11 +3675,6 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment, one_clip)
     want = [segments * sharded_clip_launches(steps_, cfg, 2) + 24 * (segments - 1), 0]
     got = ranks[0]["first_segment"]
     compared = steps_ == steps  # phase 10 ran N steps; a cut episode has nothing to be held to
-    clips = [r.pop("clip") for r in ranks]
-    if compared:
-        result["clip"] = clip_reading(one_clip, clips, steps_, [sharded_clip_launches(steps_, cfg, 2), 0])
-        log("mesh clip " + json.dumps(result["clip"]))
-        check_clip_reading(result["clip"], "phase 18(c)'s clip at W = 2")
     episode = dict(wall_s=time.perf_counter() - t0, cuts=cuts, expected_launches=want,
                    first_segment_vs_one_process=compared and segment_agreement(first_segment, got),
                    rolled_by_a_decode_chunk=compared and segment_agreement(first_segment,
@@ -3405,7 +3696,7 @@ def full_mesh(dev, steps: int, seed: int, workdir: str, first_segment, one_clip)
 
 
 def frame_clip(dev, steps: int, seed: int, workdir: str, one_clip, one_runs: list,
-               world_sizes: tuple = FRAME_CLIP_RANKS) -> dict:
+               world_sizes: tuple = FRAME_CLIP_RANKS, ranks=None) -> dict:
     """Phase 21: phase 5's clip (full width, bf16, N = `steps`, seed, inputs
     and draws) with the frames split over W ranks sharing `dev` over gloo
     (`clip_rank`), W the first of `world_sizes` at which the ranks fit on the
@@ -3413,8 +3704,9 @@ def frame_clip(dev, steps: int, seed: int, workdir: str, one_clip, one_runs: lis
     one-process clip, by `check_clip_reading`: ranks bit for bit equal,
     launches `sharded_clip_launches` a rank, the gate's rule passed and the
     clip rolled by a decode chunk failing it. Prints each rank's frames,
-    seconds and peak memory beside phase 5's runs' (`one_runs`). Ranks
-    sharing a card measure nothing of multi-GPU speed."""
+    seconds and peak memory beside phase 5's runs' (`one_runs`). `ranks`:
+    the first rank count's ranks started ahead (`prestart`). Ranks sharing a
+    card measure nothing of multi-GPU speed."""
     import torch
 
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
@@ -3423,10 +3715,14 @@ def frame_clip(dev, steps: int, seed: int, workdir: str, one_clip, one_runs: lis
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cuts = []
+    ahead = ranks
     for world in world_sizes:
         try:
-            ranks = spawn("chip_smoke:clip_rank", world, os.path.join(workdir, f"frame_clip{world}"),
-                          device=dev.type, args=(steps, seed), threads=2, timeout=420)
+            if ahead is not None and world == world_sizes[0]:
+                ranks = ahead.call("chip_smoke:clip_rank", (steps, seed), timeout=420).results()
+            else:
+                ranks = spawn("chip_smoke:clip_rank", world, os.path.join(workdir, f"frame_clip{world}"),
+                              device=dev.type, args=(steps, seed), threads=2, timeout=420)
             break
         except RuntimeError as e:  # only out of memory makes a cut
             if "OutOfMemoryError" not in str(e) and "out of memory" not in str(e):
@@ -3539,7 +3835,30 @@ def step_agreement(a: dict, b: dict, lr: float, dev) -> dict:
                 counts=[c["opt_state"]["param_groups"][0]["count"] for c in (a, b)])
 
 
-def mesh_train(dev, workdir: str, seed: int, overrides: tuple = (), frames: int = MESH_TRAIN_FRAMES) -> dict:
+def mesh_train_argv(workdir: str, seed: int, overrides: tuple, frames: int) -> tuple[list, list, str]:
+    """Phase 19(b)'s flags: the one-process runs' common argv, the ranks'
+    two runs' argv and the ranks' save directory."""
+    out = os.path.join(workdir, "train_mesh")
+    base = [f"--data.root={os.path.join(workdir, 'episode_000')}", f"--runtime.checkpoint_dir={workdir}/svd",
+            "--runtime.allow_random_weights=false", f"--runtime.seed={seed}", "--train.warmup_steps=0",
+            "--trainer.log_steps=1", *overrides, f"--data.sequence_length={frames}"]
+    runs = [[*base, f"--runtime.save_dir={out}", "--train.total_steps=1"],
+            [*base, f"--runtime.save_dir={out}", "--train.total_steps=2", "--train.zero_stage=2"]]
+    return base, runs, out
+
+
+def mesh_train_ranks(dev, workdir: str, seed: int, overrides: tuple = (), frames: int = MESH_TRAIN_FRAMES):
+    """Phase 19(b)'s two ranks started (`parallel/launch.py::Ranks`), for a
+    caller that runs other work while they run (phase 19(a) in `main`)."""
+    from evoworld_tpu_torch.parallel.launch import Ranks
+
+    _, runs, out = mesh_train_argv(workdir, seed, overrides, frames)
+    return Ranks("evoworld_tpu_torch.parallel.checks:train_cli_rank", 2, os.path.join(workdir, "mesh_train"),
+                 device=dev.type, args=(runs, out), threads=2 if dev.type == "cuda" else 1, timeout=900)
+
+
+def mesh_train(dev, workdir: str, seed: int, overrides: tuple = (), frames: int = MESH_TRAIN_FRAMES,
+               job=None) -> dict:
     """Phase 19(b): `cli.train.main` on W = 2 ranks sharing `dev` (gloo),
     per-device batch 1 (global 2), from phase 11's checkpoints and episode,
     cut to `frames` frames so that two ranks fit on one card: a ZeRO-1 step
@@ -3554,42 +3873,41 @@ def mesh_train(dev, workdir: str, seed: int, overrides: tuple = (), frames: int 
     under the run's directory, and each step against the one-process one:
     loss and gradient norm within MESH_TRAIN_RTOL, the masters and moments
     by `step_agreement` (at least MESH_TRAIN_WITHIN_LR of the masters
-    within 0.1 lr, the first moments within MESH_TRAIN_MU_RMS)."""
+    within 0.1 lr, the first moments within MESH_TRAIN_MU_RMS). The fresh
+    one-process step runs while the ranks run (12.7 GB each, 14.9 GB); `job`:
+    the ranks already started by `mesh_train_ranks`."""
     import shutil
 
     import torch
 
     from evoworld_tpu_torch.config import EvoWorldConfig, apply_overrides
     from evoworld_tpu_torch.parallel.checks import probed_train_cli
-    from evoworld_tpu_torch.parallel.launch import spawn
     from evoworld_tpu_torch.runtime import PRESETS
     from evoworld_tpu_torch.train import trainer
 
     on_card = dev.type == "cuda"
-    out, one_out = os.path.join(workdir, "train_mesh"), os.path.join(workdir, "train_mesh_one")
-    base = [f"--data.root={os.path.join(workdir, 'episode_000')}", f"--runtime.checkpoint_dir={workdir}/svd",
-            "--runtime.allow_random_weights=false", f"--runtime.seed={seed}", "--train.warmup_steps=0",
-            "--trainer.log_steps=1", *overrides, f"--data.sequence_length={frames}"]
-    runs = [[*base, f"--runtime.save_dir={out}", "--train.total_steps=1"],
-            [*base, f"--runtime.save_dir={out}", "--train.total_steps=2", "--train.zero_stage=2"]]
+    base, runs, out = mesh_train_argv(workdir, seed, overrides, frames)
+    one_out = os.path.join(workdir, "train_mesh_one")
     config = apply_overrides(EvoWorldConfig(), runs[0])
-    if on_card:
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn("evoworld_tpu_torch.parallel.checks:train_cli_rank", 2, os.path.join(workdir, "mesh_train"),
-                  device=dev.type, args=(runs, out), threads=2 if on_card else 1, timeout=900)
-    ranks_s = time.perf_counter() - t0
+    if job is None:
+        if on_card:
+            torch.cuda.empty_cache()
+        job = mesh_train_ranks(dev, workdir, seed, overrides, frames)
 
-    os.makedirs(os.path.join(one_out, "checkpoints"))
-    os.link(os.path.join(out, "checkpoints", "1.pt"), os.path.join(one_out, "checkpoints", "1.pt"))
-    agreement, one_runs = {}, {}
+    agreement, one_runs, ranks = {}, {}, None
     save = trainer.CheckpointManager.save
     trainer.CheckpointManager.save = lambda *args, **kwargs: None  # a check's runs, compared in memory
     try:
         for zero, step, save_dir in (("zero1", 1, os.path.join(workdir, "train_mesh_fresh")), ("zero2", 2, one_out)):
+            if zero == "zero2":  # resumed from the ranks' step-1 checkpoint
+                os.makedirs(os.path.join(one_out, "checkpoints"))
+                os.link(os.path.join(out, "checkpoints", "1.pt"), os.path.join(one_out, "checkpoints", "1.pt"))
             one_runs[zero], one_state = probed_train_cli(
                 [*base, f"--runtime.save_dir={save_dir}", f"--train.total_steps={step}",
                  "--trainer.per_device_batch_size=2"], dev)
+            if ranks is None:
+                ranks = job.results()
+                ranks_s = time.monotonic() - job.started
             t1 = time.perf_counter()
             agreement[zero] = step_agreement(
                 torch.load(os.path.join(out, "checkpoints", f"{step}.pt"), map_location="cpu", weights_only=True,
@@ -3602,6 +3920,7 @@ def mesh_train(dev, workdir: str, seed: int, overrides: tuple = (), frames: int 
                 torch.cuda.empty_cache()
     finally:
         trainer.CheckpointManager.save = save
+        job.kill()  # a failed one-process run leaves no rank running
 
     with open(os.path.join(out, "train_metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -3640,11 +3959,11 @@ def mesh_train(dev, workdir: str, seed: int, overrides: tuple = (), frames: int 
                 and a["frozen_equal"] and a["counts"] == [i + 1, i + 1]):
             raise AssertionError(f"step {i + 1} ({zero}) on two ranks is not the one-process step: {result}")
     for d in (out, one_out):  # ~7 GB a checkpoint at full width, read by nothing after this phase
-        shutil.rmtree(os.path.join(d, "checkpoints"))
+        remove_later(os.path.join(d, "checkpoints"))
     return result
 
 
-def route_gradients(dev, workdir: str, seed: int, shape: tuple = ROUTE_GRAD_SHAPE, min_seq=None) -> dict:
+def route_gradients(dev, workdir: str, seed: int, shape: tuple = ROUTE_GRAD_SHAPE, min_seq=None, ranks=None) -> dict:
     """Phase 20(a): the gradient of sum(out * cotangent) through the mesh
     routes at `shape` in bf16, the head-sharded route at W = 2 and the ring
     at W = 3 (H must split over 2 and not over 3), on ranks sharing `dev`
@@ -3659,21 +3978,28 @@ def route_gradients(dev, workdir: str, seed: int, shape: tuple = ROUTE_GRAD_SHAP
     each rank first runs phase 18(a)'s forward check of its route
     (`route_rank`: within the bf16 limits of the plain fp32 forward, its
     launches [1, 0] or [W, 0], its milliseconds). Runs on the CPU too (no
-    launches there: the plain versions; no forward check)."""
+    launches there: the plain versions; no forward check). The two routes'
+    ranks run at the same time (their tensors take a few hundred MB), so
+    each route's wall is the two spawns' together. `ranks`: {2: ..., 3: ...},
+    the ranks of each W started ahead (`prestart`)."""
     import torch
 
     from evoworld_tpu_torch.ops.flash_attention import _plain_forward, flash_attention_backward_plain
     from evoworld_tpu_torch.parallel.checks import route_inputs
-    from evoworld_tpu_torch.parallel.launch import spawn
+    from evoworld_tpu_torch.parallel.launch import Ranks
 
-    runs = []
-    for world in (2, 3):
-        t0 = time.perf_counter()
-        ranks = spawn("evoworld_tpu_torch.parallel.checks:route_grad_rank", world,
-                      os.path.join(workdir, f"route_grad{world}"), device=dev.type,
-                      args=(shape, "bfloat16", seed, min_seq),
-                      threads=2 if dev.type == "cuda" else 1, timeout=600)
-        runs.append(dict(wall_s=time.perf_counter() - t0, ranks=ranks))
+    t0 = time.perf_counter()
+    target, args = "evoworld_tpu_torch.parallel.checks:route_grad_rank", (shape, "bfloat16", seed, min_seq)
+    jobs = [ranks[world].call(target, args, timeout=600) if ranks else
+            Ranks(target, world, os.path.join(workdir, f"route_grad{world}"), device=dev.type, args=args,
+                  threads=2 if dev.type == "cuda" else 1, timeout=600) for world in (2, 3)]
+    try:
+        runs = [dict(ranks=job.results()) for job in jobs]
+    finally:
+        for job in jobs:  # a failed route leaves no rank of the other running
+            job.kill()
+    for run in runs:
+        run["wall_s"] = time.perf_counter() - t0
     q, k, v, cot = route_inputs(shape, "bfloat16", seed, dev)
     scale = 1.0 / shape[-1] ** 0.5
     qf, kf, vf, dof = q.float(), k.float(), v.float(), cot.to(torch.bfloat16).float()
@@ -3723,19 +4049,21 @@ def check_route_gradients(result: dict) -> None:
                 raise AssertionError(f"the {f['route']} route on rank {f['rank']} of {f['world_size']}: {f}")
 
 
-def model_parallel_step(dev, workdir: str, seed: int, target: str, frame_counts: tuple, mesh_model: int,
-                        overlap: bool = False) -> dict:
-    """Phase 20(b) or (c): one full-width bf16 step (`parallel/checks.py::
+def model_parallel_steps(dev, workdir: str, seed: int, ranks=None) -> dict:
+    """Phase 20(b) and (c): one full-width bf16 step (`parallel/checks.py::
     _card_step`, ZeRO-1) from phase 11's checkpoints on two ranks sharing
-    `dev` (gloo), `target` the rank function (`frame_step_rank`: frames over
-    the data axis; `tp_step_rank`: a 1 x 2 tensor-parallel mesh), at the
-    first of `frame_counts` at which the two ranks fit on the card (each cut
-    reported with its reason); then the same step in this process at the same
-    frames, batch and draws (with `overlap`, while the ranks run: where the
-    three fit on the card together). The ranks' step against it: loss and gradient
-    norm within MESH_TRAIN_RTOL, the masters and moments by `step_agreement`
-    (MESH_TRAIN_WITHIN_LR, MESH_TRAIN_MU_RMS); each rank's launches those of a
-    step at its frame count (`expected_train_launches`)."""
+    `dev` (gloo) for each of (b) `frame_step_rank` (the frames over the
+    data axis, FRAME_STEP_FRAMES) and (c) `tp_step_rank` (a 1 x 2
+    tensor-parallel mesh, TP_STEP_FRAMES), the four ranks at once (16.8,
+    14.8 and twice 6.0 GB); then each against the same step in this process
+    at the same frames, batch and draws, (c)'s run while the ranks run
+    (10.3 GB) and (b)'s after them (25.4 GB). The ranks' step against it: loss
+    and gradient norm within MESH_TRAIN_RTOL, the masters and moments by
+    `step_agreement` (MESH_TRAIN_WITHIN_LR, MESH_TRAIN_MU_RMS); each rank's
+    launches those of a step at its frame count (`expected_train_launches`).
+    Each record's `ranks_s` is the two groups' wall together. `ranks`:
+    {"frame_step": ..., "tp_step": ...}, each group started ahead
+    (`prestart`, the tensor-parallel one on a 1 x 2 mesh)."""
     import torch
 
     from evoworld_tpu_torch.parallel.checks import _card_step
@@ -3744,48 +4072,48 @@ def model_parallel_step(dev, workdir: str, seed: int, target: str, frame_counts:
     from evoworld_tpu_torch.train.train_step import TrainConfig
 
     ckpt = os.path.join(workdir, "svd")
-    cuts = []
+    specs = {"frame_step": ("frame_step_rank", FRAME_STEP_FRAMES, 1),
+             "tp_step": ("tp_step_rank", TP_STEP_FRAMES, 2)}
+    saves = {name: os.path.join(workdir, f"{target}_{frames}.pt") for name, (target, frames, _) in specs.items()}
     torch.cuda.empty_cache()
-    for frames in frame_counts:
-        save = os.path.join(workdir, f"{target}_{frames}.pt")
-        t0 = time.perf_counter()
-        job = Ranks(f"evoworld_tpu_torch.parallel.checks:{target}", 2, os.path.join(workdir, f"{target}{frames}"),
-                    device="cuda", args=(ckpt, frames, seed, save), mesh_model=mesh_model, threads=2, timeout=600)
-        one, one_s = None, None
-        if overlap:
-            t1 = time.perf_counter()
-            one = _card_step(None, ckpt, frames, seed, None, shard_frames=False)
-            one_s = time.perf_counter() - t1
-        try:
-            ranks = job.results()
-            break
-        except RuntimeError as e:  # only out of memory makes a cut
-            if "OutOfMemoryError" not in str(e) and "out of memory" not in str(e):
-                raise
-            cuts.append(dict(frames=frames, reason="two ranks ran the card out of memory"))
-            log(f"{target} at {frames} frames: two ranks ran the card out of memory, cutting")
-    else:
-        raise AssertionError(f"{target} ran out of memory at every frame count: {cuts}")
-    ranks_s = time.perf_counter() - t0
-    if one is None:
+    t0 = time.perf_counter()
+    jobs = {name: ranks[name].call(f"evoworld_tpu_torch.parallel.checks:{target}", (ckpt, frames, seed, saves[name]),
+                                   timeout=600) if ranks else
+            Ranks(f"evoworld_tpu_torch.parallel.checks:{target}", 2, os.path.join(workdir, f"{target}{frames}"),
+                  device="cuda", args=(ckpt, frames, seed, saves[name]), mesh_model=mesh_model, threads=2, timeout=600)
+            for name, (target, frames, mesh_model) in specs.items()}
+    one, one_s = {}, {}
+    try:
         t1 = time.perf_counter()
-        one = _card_step(None, ckpt, frames, seed, None, shard_frames=False)
-        one_s = time.perf_counter() - t1
+        one["tp_step"] = _card_step(None, ckpt, TP_STEP_FRAMES, seed, None, shard_frames=False)
+        one_s["tp_step"] = time.perf_counter() - t1
+        ranks = {name: job.results() for name, job in jobs.items()}
+    finally:
+        for job in jobs.values():  # a failed group leaves no rank of the other running
+            job.kill()
+    ranks_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    one["frame_step"] = _card_step(None, ckpt, FRAME_STEP_FRAMES, seed, None, shard_frames=False)
+    one_s["frame_step"] = time.perf_counter() - t1
     lr = TrainConfig(warmup_steps=0).learning_rate
-    agreement = step_agreement(torch.load(save, map_location="cpu", weights_only=True, mmap=True), one.pop("state"),
-                               lr, dev)
-    os.remove(save)
-    torch.cuda.empty_cache()
-    local = split_sizes(frames, 2) if target == "frame_step_rank" else [frames, frames]
-    expected = [list(expected_train_launches(f, 8, 2)) for f in local]
-    result = dict(target=target, frames=frames, cuts=cuts, ranks_s=ranks_s, one_process_s=one_s,
-                  expected_launches=expected, ranks=ranks, one_process=one, step_agreement=agreement,
-                  loss_rel=[abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in ranks],
-                  grad_norm_rel=[abs(r["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"]) for r in ranks])
-    result["expected_one_process_launches"] = list(expected_train_launches(frames, 8, 2))
-    log(f"{target} " + json.dumps(result))
-    check_model_parallel_step(result)
-    return result
+    out = {}
+    for name, (target, frames, _) in specs.items():
+        agreement = step_agreement(torch.load(saves[name], map_location="cpu", weights_only=True, mmap=True),
+                                   one[name].pop("state"), lr, dev)
+        os.remove(saves[name])
+        torch.cuda.empty_cache()
+        local = split_sizes(frames, 2) if target == "frame_step_rank" else [frames, frames]
+        expected = [list(expected_train_launches(f, 8, 2)) for f in local]
+        result = dict(target=target, frames=frames, ranks_s=ranks_s, one_process_s=one_s[name],
+                      expected_launches=expected, ranks=ranks[name], one_process=one[name], step_agreement=agreement,
+                      loss_rel=[abs(r["loss"] - one[name]["loss"]) / abs(one[name]["loss"]) for r in ranks[name]],
+                      grad_norm_rel=[abs(r["grad_norm"] - one[name]["grad_norm"]) / abs(one[name]["grad_norm"])
+                                     for r in ranks[name]])
+        result["expected_one_process_launches"] = list(expected_train_launches(frames, 8, 2))
+        log(f"{target} " + json.dumps(result))
+        check_model_parallel_step(result)
+        out[name] = result
+    return out
 
 
 def check_model_parallel_step(result: dict) -> None:
@@ -3804,30 +4132,28 @@ def check_model_parallel_step(result: dict) -> None:
         raise AssertionError(f"{result['target']} on two ranks is not the one-process step: {result}")
 
 
-def mesh_model_parallel(dev, workdir: str, seed: int) -> dict:
+def mesh_model_parallel(dev, workdir: str, seed: int, ranks=None) -> dict:
     """Phase 20, the model-parallel half of training on ranks sharing `dev`
     over gloo: (a) `route_gradients`; (b) the frame-sharded step at W = 2
-    (`frame_step_rank`, FRAME_STEP_FRAMES) and (c) the tensor-parallel step on
-    a 1 x 2 mesh at TP_STEP_FRAMES (`tp_step_rank`), each against the
-    one-process step (`model_parallel_step`, run while its ranks run); each
-    rank's peak memory beside
+    and (c) the tensor-parallel step on a 1 x 2 mesh, both against the
+    one-process step (`model_parallel_steps`); each rank's peak memory beside
     the one-process step's, (c) each rank's bytes of parameters and moments
-    beside the one-process state's. Ranks sharing a card measure nothing of
-    multi-GPU speed."""
-    out = {}
-    for name, fn in (("route_gradients", lambda: route_gradients(dev, workdir, seed)),
-                     ("frame_step", lambda: model_parallel_step(dev, workdir, seed, "frame_step_rank",
-                                                                FRAME_STEP_FRAMES, 1, overlap=True)),
-                     ("tp_step", lambda: model_parallel_step(dev, workdir, seed, "tp_step_rank",
-                                                             (TP_STEP_FRAMES,), 2, overlap=True))):
-        t0 = time.perf_counter()
-        out[name] = fn()
-        out[name]["seconds"] = time.perf_counter() - t0
+    beside the one-process state's. `ranks`: {"route": {2: ..., 3: ...},
+    "steps": {"frame_step": ..., "tp_step": ...}}, every group started ahead
+    (`prestart`). Ranks sharing a card measure nothing of multi-GPU speed."""
+    ranks = ranks or {}
+    t0 = time.perf_counter()
+    out = {"route_gradients": route_gradients(dev, workdir, seed, ranks=ranks.get("route"))}
+    out["route_gradients"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.update(model_parallel_steps(dev, workdir, seed, ranks=ranks.get("steps")))
+    for k in ("frame_step", "tp_step"):
+        out[k]["seconds"] = time.perf_counter() - t0  # the two steps' phase together
     summary = dict(
         seconds={k: v["seconds"] for k, v in out.items()},
         route_launches={f"{r['route']}_w{r['world_size']}": [x["launches"] for x in r["ranks"]]
                         for r in out["route_gradients"]["routes"]},
-        **{k: dict(frames=out[k]["frames"], cuts=out[k]["cuts"],
+        **{k: dict(frames=out[k]["frames"],
                    peak_memory_bytes=dict(ranks=[r["peak_memory_bytes"] for r in out[k]["ranks"]],
                                           one_process=out[k]["one_process"]["peak_memory_bytes"]),
                    state_bytes=dict(ranks=[r["param_bytes"] + r["moment_bytes"] for r in out[k]["ranks"]],
@@ -3877,7 +4203,7 @@ def offload_episode(dev, steps: int, seed: int, offloaded: dict) -> dict:
 def full_clips(dev, steps: int, seed: int) -> tuple[list[dict], dict]:
     """Two full-width clips (cold, warm); checks launch counts and outputs.
     Returns the runs' records and the warm clip's frames and denoised latents
-    on the host (the one-process clip phases 18(c) and 21 are held to)."""
+    on the host (the one-process clip phase 21 is held to)."""
     import torch
 
     from evoworld_tpu_torch.diffusion.pipeline import PipelineConfig
@@ -3927,7 +4253,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA card", file=sys.stderr)
         return 1
-    from evoworld_tpu_torch.data import native_io
+    from evoworld_tpu_torch.data import native_io, native_video
     from evoworld_tpu_torch.ops import _build
     from evoworld_tpu_torch.ops.flash_attention import BWD_SOURCE, FP32_SOURCE, SOURCE
 
@@ -3948,10 +4274,11 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:  # one compiler per source, started together
-        list(pool.map(_build.load, (SOURCE, BWD_SOURCE, FP32_SOURCE, native_io.SOURCE)))
+    with ThreadPoolExecutor(5) as pool:  # one compiler per source, started together
+        list(pool.map(_build.load, (SOURCE, BWD_SOURCE, FP32_SOURCE, native_io.SOURCE, native_video.SOURCE)))
     build_s = time.perf_counter() - t0
-    log(f"nvcc build of {SOURCE}, {BWD_SOURCE} and {FP32_SOURCE}, g++ build of {native_io.SOURCE}: {build_s:.3f} s")
+    log(f"nvcc build of {SOURCE}, {BWD_SOURCE} and {FP32_SOURCE}, g++ build of {native_io.SOURCE} and "
+        f"{native_video.SOURCE}: {build_s:.3f} s")
     for source in (SOURCE, BWD_SOURCE, FP32_SOURCE):
         check_ptxas(source, ptxas_report(_build.build_log(source)), fp32=source == FP32_SOURCE)
     from evoworld_tpu_torch.compare_kernels import sass_entries
@@ -3961,6 +4288,7 @@ def main() -> int:
     check_fp32_sass(fp32_sass)
 
     check_jpeg_fixtures()
+    check_mp4_fixtures()
 
     watts = re.search(r",\s*([\d.]+) W", smi)  # "[N/A]" where the limit cannot be read
     power_limit_w = float(watts.group(1)) if watts else 0.0
@@ -3973,7 +4301,8 @@ def main() -> int:
     check_small_loop_against_cpu(dev, SEED)
     loop_run = full_loop(dev, STEPS, SEED)
     cloud, first_segment, loop_kept = loop_run.pop("cloud"), loop_run.pop("first_segment"), loop_run.pop("kept")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:  # phases 11-14 share it
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")  # phases 11-22 share it
+    try:
         t0 = time.perf_counter()
         cli_run = full_cli(dev, STEPS, SEED, workdir=workdir)
         log(f"cli phase wall seconds {time.perf_counter() - t0:.3f}")
@@ -3984,6 +4313,9 @@ def main() -> int:
         eval_run = full_eval(dev, workdir, cli_run["out_dir"], train_cli_run.pop("clip"))
         log(f"eval phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
+        scores_run = full_scores(dev, workdir, cli_run["out_dir"])
+        log(f"scores phase wall seconds {time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
         prep_run = full_prep(dev, workdir, SEED)
         log(f"prep phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
@@ -3993,27 +4325,44 @@ def main() -> int:
         fp32_run = full_fp32(dev, STEPS, SEED, workdir)
         log(f"fp32 phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
+        # The ranks of phases 18, 20 and 21 start during the phase before theirs: their imports,
+        # the card's context and the group come up meanwhile (~0.5 GB of the card a rank).
+        mesh_ranks = {"gate": prestart(workdir, "gate", 2), "episode": prestart(workdir, "episode", 2)}
         tools_run = full_tools(dev, STEPS, SEED, workdir, cloud)
         log(f"tools phase wall seconds {time.perf_counter() - t0:.3f}")
         del cloud
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        mesh_run = full_mesh(dev, STEPS, SEED, workdir, first_segment, one_clip)
+        clip_ranks = prestart(workdir, "frame_clip", FRAME_CLIP_RANKS[0])
+        mesh_run = full_mesh(dev, STEPS, SEED, workdir, first_segment, ranks=mesh_ranks)
         del first_segment
         log(f"mesh phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
-        frame_clip_run = frame_clip(dev, STEPS, SEED, workdir, one_clip, runs)
+        frame_clip_run = frame_clip(dev, STEPS, SEED, workdir, one_clip, runs, ranks=clip_ranks)
         del one_clip
         log(f"frame clip phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
-        mesh_prep_run = mesh_reproject(dev, workdir)
+        torch.cuda.empty_cache()
+        # 19(b)'s ranks run beside 19(a)'s (12.7 and 17.9 GB each); none start during phase 21,
+        # whose four ranks (15.6 GB each) leave too little of the card (four waiting ranks ran one out of it)
+        train_ranks = mesh_train_ranks(dev, workdir, SEED)
+        try:
+            mesh_prep_run = mesh_reproject(dev, workdir)
+        except BaseException:
+            train_ranks.kill()
+            raise
         log(f"mesh reproject phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
-        mesh_train_run = mesh_train(dev, workdir, SEED)
+        ranks_20 = {"route": {w: prestart(workdir, f"route_grad{w}", w) for w in (2, 3)},
+                    "steps": {"frame_step": prestart(workdir, "frame_step", 2),
+                              "tp_step": prestart(workdir, "tp_step", 2, mesh_model=2)}}
+        mesh_train_run = mesh_train(dev, workdir, SEED, job=train_ranks)
         log(f"mesh train phase wall seconds {time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
-        mp_run = mesh_model_parallel(dev, workdir, SEED)
+        mp_run = mesh_model_parallel(dev, workdir, SEED, ranks=ranks_20)
         log(f"model parallel phase wall seconds {time.perf_counter() - t0:.3f}")
+    finally:
+        remove_later(workdir)  # deleted while the last phases run
     t0 = time.perf_counter()
     offload_run = offload_episode(dev, STEPS, SEED, dict(loop_run, kept=loop_kept))
     del loop_kept
@@ -4054,8 +4403,6 @@ def main() -> int:
                   "mesh_episode": sum(r["launches"][0] for r in mesh_run["episode"]["ranks"]),
                   f"frame_clip_w{frame_clip_run['world_size']}": sum(r["launches"][0]
                                                                     for r in frame_clip_run["ranks"])}
-    if "clip" in mesh_run:  # phase 18(c)'s clip, read where its steps were not cut
-        mesh_paths["mesh_clip_w2"] = sum(r["launches"][0] for r in mesh_run["clip"]["ranks"])
     # Phase 19: each path's launches summed over its ranks (and steps), each read with its counts set to 0.
     train_steps_19 = [st for r in mesh_train_run["ranks"] for x in r["runs"] for st in x["steps"]] + \
         [st for run in mesh_train_run["one_process"].values() for st in run["steps"]]
@@ -4087,7 +4434,7 @@ def main() -> int:
                              "cli_single_segment": cli_run["single"]["launches"][0],
                              "cli_unified": cli_run["unified"]["launches"][0],
                              "cli_train": cli_train[0], "eval": eval_run["launches"][0],
-                             "reproject": prep_run["launches"][0],
+                             "scores": scores_run["launches"][0], "reproject": prep_run["launches"][0],
                              "fp16_single_segment": fp16_run["single"]["launches"][0],
                              "fp16_train": fp16_train[0], "fp16_reproject": fp16_run["reproject"]["launches"][0],
                              **mesh_paths},
@@ -4118,7 +4465,7 @@ def main() -> int:
                              "cli_single_segment": cli_run["single"]["launches"][1],
                              "cli_unified": cli_run["unified"]["launches"][1],
                              "cli_train": cli_train[1], "eval": eval_run["launches"][1],
-                             "reproject": prep_run["launches"][1],
+                             "scores": scores_run["launches"][1], "reproject": prep_run["launches"][1],
                              "fp16_single_segment": fp16_run["single"]["launches"][1],
                              "fp16_train": fp16_train[1], "fp16_reproject": fp16_run["reproject"]["launches"][1],
                              **mesh_bwd_paths},
@@ -4177,6 +4524,7 @@ def main() -> int:
                  for r in flash_bwd["shapes"] if r["dtype"] == "fp32"],
         "ok": True,
     }]
+    wait_removals()
     log(f"wall seconds {time.perf_counter() - wall0:.3f}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -4185,4 +4533,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        wait_removals()

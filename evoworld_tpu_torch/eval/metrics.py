@@ -51,19 +51,26 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> torch.Tensor:
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """SSIM of (..., H, W, C) [0, 1] images -> (...) fp32: per channel the
-    mean of the cropped SSIM map, then the mean over channels."""
+    mean of the cropped SSIM map, then the mean over channels.
+
+    The filtered moments are taken of the images less 0.5 (the variances
+    do not move; the means get 0.5 back): E[x^2] - E[x]^2 of values near
+    0.5 cancels most of its digits, and oneDNN's fp32 convolution on the
+    CPU then left SSIM 2e-5 from its float64 value on noisy 8-bit frames
+    (the JAX package's, 1e-6)."""
     lead, (h, w, c) = img1.shape[:-3], img1.shape[-3:]
-    x = img1.float().reshape(-1, h, w, c).permute(0, 3, 1, 2).reshape(-1, 1, h, w)
-    y = img2.float().reshape(-1, h, w, c).permute(0, 3, 1, 2).reshape(-1, 1, h, w)
+    x = img1.float().reshape(-1, h, w, c).permute(0, 3, 1, 2).reshape(-1, 1, h, w) - 0.5
+    y = img2.float().reshape(-1, h, w, c).permute(0, 3, 1, 2).reshape(-1, 1, h, w) - 0.5
     window = _gaussian_window().to(x.device)
     k = window.shape[0]
     maps = torch.cat([x, y, x * x, y * y, x * y], dim=1)                 # (N*C, 5, H, W)
     with full_fp32():
         maps = F.pad(maps, (k // 2,) * 4, mode="reflect")
         filtered = F.conv2d(maps, window.expand(5, 1, k, k).contiguous(), groups=5)
-    mu1, mu2, e11, e22, e12 = filtered[:, :, 5:-5, 5:-5].unbind(1)
+    m1, m2, e11, e22, e12 = filtered[:, :, 5:-5, 5:-5].unbind(1)
+    s1, s2, s12 = e11 - m1**2, e22 - m2**2, e12 - m1 * m2
+    mu1, mu2 = m1 + 0.5, m2 + 0.5
     mu1_sq, mu2_sq, mu12 = mu1**2, mu2**2, mu1 * mu2
-    s1, s2, s12 = e11 - mu1_sq, e22 - mu2_sq, e12 - mu12
     c1, c2 = 0.01**2, 0.03**2
     ssim_map = ((2 * mu12 + c1) * (2 * s12 + c2)) / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
     return ssim_map.mean(dim=(-2, -1)).reshape(-1, c).mean(-1).reshape(lead)

@@ -600,6 +600,7 @@ def _card_step(mesh, checkpoint_dir: str, frames: int, seed: int, save: str, sha
     from evoworld_tpu_torch.parallel.mesh import axes, split_sizes
     from evoworld_tpu_torch.runtime import build_trainer
     from evoworld_tpu_torch.train.train_step import TrainConfig, loss_draws, make_train_state, train_step
+    from evoworld_tpu_torch.train.trainer import save_without_crc32
 
     dev = mesh.device if mesh is not None else torch.device("cuda", 0)
     mesh = mesh if mesh is not None and mesh.size > 1 else None
@@ -645,7 +646,7 @@ def _card_step(mesh, checkpoint_dir: str, frames: int, seed: int, save: str, sha
     if save is None:
         result["state"] = kept
     elif mesh is None or mesh.rank == 0:
-        torch.save(kept, save)
+        save_without_crc32(kept, save)
     return result
 
 

@@ -77,6 +77,18 @@ def _barrier(mesh: Optional[Mesh]) -> None:
         torch.distributed.barrier()
 
 
+def save_without_crc32(obj, path: str) -> None:
+    """`torch.save` with the zip records' CRC-32s left out (written as 0):
+    `torch.load` never reads them, and summing them cost a full-width
+    checkpoint's save a large share of its seconds."""
+    was = torch.serialization.get_crc32_options()
+    torch.serialization.set_crc32_options(False)
+    try:
+        torch.save(obj, path)
+    finally:
+        torch.serialization.set_crc32_options(was)
+
+
 class CheckpointManager:
     """`torch.save` checkpoints `<directory>/<step>.pt` with keep-limit and resume-latest.
 
@@ -114,8 +126,8 @@ class CheckpointManager:
         if self.writes:
             tmp = self._path(step) + ".tmp"
             rng = state.generator.get_state() if state.generator is not None else None
-            torch.save({"step": step, "params": state.unet.state_dict(), "opt_state": opt_state, "ema": ema,
-                        "rng": rng}, tmp)
+            save_without_crc32({"step": step, "params": state.unet.state_dict(), "opt_state": opt_state, "ema": ema,
+                                "rng": rng}, tmp)
             os.replace(tmp, self._path(step))
             for old in self.all_steps()[:-self.keep]:
                 os.remove(self._path(old))

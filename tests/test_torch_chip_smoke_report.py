@@ -614,6 +614,21 @@ def test_route_gradients_phase_runs_at_tiny_size_on_the_cpu(tmp_path):
             chip_smoke.check_route_gradients(bad)
 
 
+def test_route_gradients_phase_takes_ranks_started_ahead(tmp_path):
+    """Phase 20(a) on ranks started before it (`Ranks` with no call, as
+    `chip_smoke.prestart` starts them on the card): the same routes, in the
+    same order, pass its gate."""
+    import torch
+
+    from evoworld_tpu_torch.parallel.launch import Ranks
+
+    ahead = {w: Ranks(None, w, str(tmp_path / f"ahead{w}"), device="cpu") for w in (2, 3)}
+    result = chip_smoke.route_gradients(torch.device("cpu"), str(tmp_path), 0, shape=(1, 96, 16, 8), min_seq=1,
+                                        ranks=ahead)
+    assert [(r["route"], r["world_size"]) for r in result["routes"]] == [("head_sharded", 2), ("ring", 3)]
+    assert all(job.called and all(p.poll() == 0 for p in job.procs) for job in ahead.values())
+
+
 def test_model_parallel_step_gate():
     """Phase 20(b) and (c)'s gate on a report shaped like the card's: it
     passes, and fails on a rank's launches, a loss apart, masters or first
