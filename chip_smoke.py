@@ -286,7 +286,13 @@ The MP4 slice (the scoring of video files, the MP4 export) adds:
      P-VOPs, half-pel vectors, a size that is no multiple of 16): every byte
      within MP4_MAX_LEVELS of the PNG strip stored beside each, OpenCV's
      decode of it (this machine has no OpenCV), MP4_MEAN_LEVELS on average;
-     decode seconds and frames a second printed;
+     decode seconds and frames a second printed; since the H.264 slice also
+     the port's H.264 decoder (csrc/h264.h, in the same library) on the
+     three H.264 fixtures (H264_FIXTURES: CABAC with a B-pyramid, CAVLC with
+     temporal direct and long-term references cropped to 200x120,
+     Constrained Baseline in avc3), held the same way (every byte equal on
+     the CPU), their frames a second printed beside the card's name and
+     power limit;
   22. after phase 13, on phase 11's files: `utils.video.export_mp4` writes
      navigated.mp4 and original.mp4 (1024x576, 25 frames) for two pairs,
      `run_unified`'s last segment against its episode frames and
@@ -453,6 +459,8 @@ JPEG_FIXTURES = ("baseline_420", "restart_422", "progressive_420", "grey")
 # the mean under MP4_MEAN_LEVELS. The decoder works in FFmpeg's arithmetic
 # and meets them with every byte equal on the CPU.
 MP4_FIXTURES = {"mp4v_64": (14, 64, 64), "mp4v_200x120": (26, 120, 200)}  # name -> (frames, height, width)
+# ... and the H.264 ones (tests/torch_port_data/make_h264_fixtures.py).
+H264_FIXTURES = {"h264_cabac_64": (17, 64, 64), "h264_cavlc_200x120": (26, 120, 200), "h264_baseline_64": (12, 64, 64)}
 MP4_MAX_LEVELS, MP4_MEAN_LEVELS = 2, 0.5
 # Phase 22: the port's decode of a file `export_mp4` wrote, against the
 # frames written, as the mean absolute error of their BT.601 luma (4:2:0
@@ -813,17 +821,17 @@ def check_jpeg_fixtures() -> list[dict]:
     return rows
 
 
-def check_mp4_fixtures() -> list[dict]:
-    """Phase 2c: each committed `mp4v` fixture decoded by the port against
-    the PNG strip of OpenCV's decode stored beside it (read by the port's
-    PNG decoder), within MP4_MAX_LEVELS a byte and MP4_MEAN_LEVELS on
-    average; the decode timed."""
+def check_mp4_fixtures(fixtures: dict = MP4_FIXTURES) -> list[dict]:
+    """Phase 2c: each committed `mp4v` fixture (or H.264 one, with
+    H264_FIXTURES) decoded by the port against the PNG strip of OpenCV's
+    decode stored beside it (read by the port's PNG decoder), within
+    MP4_MAX_LEVELS a byte and MP4_MEAN_LEVELS on average; the decode timed."""
     import numpy as np
 
     from evoworld_tpu_torch.data import native_io, native_video
 
     rows = []
-    for name, (frames, height, width) in MP4_FIXTURES.items():
+    for name, (frames, height, width) in fixtures.items():
         mp4, png = (os.path.join(JPEG_FIXTURE_DIR, f"{name}.{ext}") for ext in ("mp4", "png"))
         strip = native_io.load_image_batch([png], frames * height, width, minus1_1=False, n_threads=1)[0]
         want = np.rint(strip * 255).astype(np.int16).reshape(frames, height, width, 3)
@@ -837,10 +845,10 @@ def check_mp4_fixtures() -> list[dict]:
                        differing_bytes=int((err > 0).sum()))
         rows.append(row)
     log("mp4 fixtures " + json.dumps(rows))
-    bad = [r for r, want in zip(rows, MP4_FIXTURES.values())
+    bad = [r for r, want in zip(rows, fixtures.values())
            if r["shape"] != [*want, 3] or r["max_abs_diff"] > MP4_MAX_LEVELS or r["mean_abs_diff"] >= MP4_MEAN_LEVELS]
     if bad:
-        raise AssertionError(f"the port's MPEG-4 decode differs from OpenCV's: {bad}")
+        raise AssertionError(f"the port's video decode differs from OpenCV's: {bad}")
     return rows
 
 
@@ -4289,6 +4297,8 @@ def main() -> int:
 
     check_jpeg_fixtures()
     check_mp4_fixtures()
+    h264_rows = check_mp4_fixtures(H264_FIXTURES)
+    log(f"h264 fixtures on {smi}: " + ", ".join(f"{r['name']} {r['frames_per_s']:.1f} frames/s" for r in h264_rows))
 
     watts = re.search(r",\s*([\d.]+) W", smi)  # "[N/A]" where the limit cannot be read
     power_limit_w = float(watts.group(1)) if watts else 0.0

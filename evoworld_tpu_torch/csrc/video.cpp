@@ -21,9 +21,11 @@
 // VideoCapture asks for: each chroma sample serves its 2x2 luma samples,
 // and the products are taken in 16-bit fixed point (`frame_to_rgb`).
 //
-// Every tool outside that set is refused by name (the status codes below,
-// one per reason of native_video.py's _REASONS): H.264 and HEVC tracks, any
-// sample entry but mp4v, B-VOPs and S-VOPs (low_delay 0, sprites, GMC),
+// H.264 tracks (avc1, avc3) go to the decoder of h264.h. Every tool outside
+// these sets is refused by name (the status codes below, one per reason of
+// native_video.py's _REASONS): HEVC, VP9 and AV1 tracks, any other sample
+// entry, an edit list that drops or repeats frames, a `colr` box OpenCV
+// converts otherwise than BT.601 at limited range, B-VOPs and S-VOPs (low_delay 0, sprites, GMC),
 // quarter-pel, interlace, data partitioning and reversible VLCs,
 // non-rectangular shape, not-8-bit video, scalability, MPEG quantisation,
 // AC prediction, four vectors a macroblock, resync markers, and truncated
@@ -35,11 +37,14 @@
 // threads.
 
 #include <algorithm>
+#include <array>
 #include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <functional>
+#include <memory>
 #include <string>
 #include <thread>
 #include <vector>
@@ -68,6 +73,25 @@ enum Status : int {
   kCorrupt = 18,
   kUnwritable = 19,
   kOtherTool = 20,
+  kH264Interlaced = 21,
+  kH264Chroma = 22,
+  kH264BitDepth = 23,
+  kH264SeparatePlanes = 24,
+  kH264Profile = 25,
+  kH264Bypass = 26,
+  kH264Partitioned = 27,
+  kH264SpSi = 28,
+  kH264SliceGroups = 29,
+  kH264Redundant = 30,
+  kH264FrameGap = 31,
+  kH264Svc = 32,
+  kColour = 33,
+  kH264Mmco5 = 34,
+  kH264NoIdr = 35,
+  kEditList = 36,
+  kVp9 = 37,
+  kAv1 = 38,
+  kH264LeftCrop = 39,
 };
 
 struct Fail {
@@ -396,6 +420,21 @@ constexpr int kUGreen = -((25675 * 8192 + (1 << 15)) >> 16);  // -3209
 constexpr int kVGreen = -((53279 * 8192 + (1 << 15)) >> 16);  // -6660
 
 inline int mulhi(int a, int b) { return (a * b) >> 16; }
+
+// Whether OpenCV converts video of this colour description (ITU-T H.273
+// code points, as an H.264 VUI or an MP4 `colr` box gives them) exactly as
+// it converts one with none: BT.601 at limited range, `frame_to_rgb`. Its
+// swscale honours the description (BT.709 or FCC matrices, full range,
+// BT.2020 and wider primaries, log, PQ and HLG transfers all convert
+// otherwise); these are the code points a written stream showed to make no
+// difference, reserved values left out.
+bool converts_as_bt601(int primaries, int transfer, int matrix, bool full_range) {
+  const bool p = primaries == 1 || primaries == 2 || (primaries >= 4 && primaries <= 7);
+  const bool t = transfer == 1 || transfer == 2 || (transfer >= 4 && transfer <= 8) ||
+                 (transfer >= 11 && transfer <= 15) || transfer == 17;
+  const bool m = matrix == 2 || matrix == 5 || matrix == 6;
+  return p && t && m && !full_range;
+}
 
 void frame_to_rgb(const Frame& f, int width, int height, uint8_t* out) {
   for (int y = 0; y < height; ++y) {
@@ -870,15 +909,67 @@ std::vector<uint8_t> esds_config(const Box& esds) {
   return std::vector<uint8_t>(p, p + len);
 }
 
+#include "h264.h"
+
 struct Track {
   std::vector<uint8_t> file;
-  std::vector<uint8_t> config;
+  std::vector<uint8_t> config;  // the VOL headers of mp4v, or the avcC record of avc1 / avc3
+  uint32_t format = 0;
   std::vector<std::pair<uint64_t, uint32_t>> samples;  // offset, size
   uint32_t timescale = 0;
   uint64_t duration = 0;   // in timescale units, over the samples
   uint32_t first_delta = 0;
   size_t stts_entries = 0;
 };
+
+// An edit list as FFmpeg's mov demuxer reads it: empty edits only shift the
+// timeline, and one edit that starts no later than the first presented
+// sample (what FFmpeg's muxer writes for B-frames: the first composition
+// offset) hands every sample to the decoder and every frame out. Any other
+// edit list drops or repeats frames, which is refused.
+void check_edits(const Track& t, const std::vector<Box>& trak, const std::vector<Box>& stbl) {
+  const Box* edts = child(trak, "edts");
+  if (!edts) return;
+  auto eb = children(edts->body, edts->size);
+  const Box* elst = child(eb, "elst");
+  if (!elst || elst->size < 8) return;
+  const int version = elst->body[0];
+  const uint32_t entries = be32(elst->body + 4);
+  const size_t entry = version == 1 ? 20 : 12;
+  if (elst->size < 8 + entry * entries) fail(kCorrupt);
+  // the earliest composition time: decode times plus ctts offsets
+  int64_t first_cts = 0;
+  if (const Box* ctts = child(stbl, "ctts")) {
+    if (ctts->size < 8) fail(kCorrupt);
+    const bool signed_offsets = ctts->body[0] == 1;
+    const uint32_t n = be32(ctts->body + 4);
+    if (ctts->size < 8 + 8 * size_t(n)) fail(kCorrupt);
+    const Box* stts = child(stbl, "stts");
+    std::vector<int64_t> dts;
+    int64_t clock = 0;
+    if (stts && stts->size >= 8)
+      for (uint32_t i = 0, m = be32(stts->body + 4); i < m && 8 + 8 * size_t(i + 1) <= stts->size; ++i)
+        for (uint32_t k = 0, c = be32(stts->body + 8 + 8 * i); k < c && dts.size() < t.samples.size(); ++k) {
+          dts.push_back(clock);
+          clock += be32(stts->body + 12 + 8 * i);
+        }
+    size_t s = 0;
+    first_cts = INT64_MAX;
+    for (uint32_t i = 0; i < n; ++i) {
+      const uint32_t count = be32(ctts->body + 8 + 8 * i), raw = be32(ctts->body + 12 + 8 * i);
+      const int64_t off = signed_offsets ? int64_t(int32_t(raw)) : int64_t(raw);
+      for (uint32_t k = 0; k < count && s < dts.size(); ++k, ++s) first_cts = std::min(first_cts, dts[s] + off);
+    }
+    if (first_cts == INT64_MAX) first_cts = 0;
+  }
+  int used = 0;
+  for (uint32_t i = 0; i < entries; ++i) {
+    const uint8_t* e = elst->body + 8 + entry * i;
+    const int64_t media_time = version == 1 ? int64_t(be64(e + 8)) : int64_t(int32_t(be32(e + 4)));
+    if (media_time == -1) continue;  // an empty edit
+    if (++used > 1 || media_time > first_cts) fail(kEditList);
+  }
+}
 
 Track open_mp4(const char* path) {
   Track t;
@@ -913,6 +1004,7 @@ Track open_mp4(const char* path) {
     fail(any_moov || child(top, "mdat") || top.empty() ? kCorrupt : kNotMp4);
   }
   Box stbl{}, mdhd{};
+  std::vector<Box> trak_boxes;
   bool found = false;
   for (const Box& trak : children(moov->body, moov->size)) {
     if (trak.type != fourcc("trak")) continue;
@@ -928,6 +1020,7 @@ Track open_mp4(const char* path) {
     const Box* h = child(md, "mdhd");
     if (s && h) {
       stbl = *s, mdhd = *h, found = true;
+      trak_boxes = tk;
       break;
     }
   }
@@ -936,13 +1029,31 @@ Track open_mp4(const char* path) {
   const Box* stsd = child(st, "stsd");
   if (!stsd || stsd->size < 16) fail(kCorrupt);
   uint32_t format = be32(stsd->body + 12);
-  if (format == fourcc("avc1") || format == fourcc("avc3") || format == fourcc("hvc1") || format == fourcc("hev1"))
-    fail(kAvc);
-  if (format != fourcc("mp4v")) fail(kOtherCodec);
+  const bool avc = format == fourcc("avc1") || format == fourcc("avc3");
+  if (format == fourcc("hvc1") || format == fourcc("hev1")) fail(kAvc);
+  if (format == fourcc("vp09") || format == fourcc("vp08")) fail(kVp9);
+  if (format == fourcc("av01")) fail(kAv1);
+  if (format != fourcc("mp4v") && !avc) fail(kOtherCodec);
+  t.format = format;
   size_t entry_size = be32(stsd->body + 8);
   if (entry_size < 8 + 78 || entry_size > stsd->size - 8) fail(kCorrupt);
   auto entry = children(stsd->body + 8 + 8 + 78, entry_size - 8 - 78);
-  if (const Box* esds = child(entry, "esds")) t.config = esds_config(*esds);
+  if (const Box* colr = child(entry, "colr"); colr && colr->size >= 10) {
+    const uint32_t kind = be32(colr->body);
+    const uint8_t* c = colr->body + 4;
+    if (kind == fourcc("nclx") && colr->size < 11) fail(kCorrupt);
+    if ((kind == fourcc("nclx") || kind == fourcc("nclc")) &&
+        !converts_as_bt601(c[0] << 8 | c[1], c[2] << 8 | c[3], c[4] << 8 | c[5], kind == fourcc("nclx") && (c[6] & 0x80)))
+      fail(kColour);  // FFmpeg's demuxer hands the box's description to the frames OpenCV converts
+  }
+  if (avc) {
+    const Box* avcc = child(entry, "avcC");
+    if (!avcc && format == fourcc("avc1")) fail(kAvc);  // avc1 keeps its parameter sets in avcC
+    if (!avcc) fail(kCorrupt);
+    t.config.assign(avcc->body, avcc->body + avcc->size);
+  } else if (const Box* esds = child(entry, "esds")) {
+    t.config = esds_config(*esds);
+  }
 
   const uint8_t* mh = mdhd.body;
   if (mdhd.size < 24) fail(kCorrupt);
@@ -989,6 +1100,7 @@ Track open_mp4(const char* path) {
       t.duration += uint64_t(c) * delta;
     }
   }
+  check_edits(t, trak_boxes, st);
   return t;
 }
 
@@ -1017,6 +1129,58 @@ Vol find_vol(const Track& t) {
     v = scan(t.file.data() + t.samples[s].first, t.samples[s].second);
   if (!v.have) fail(kCorrupt);
   return v;
+}
+
+// ---------------------------------------------------------------- H.264 tracks
+
+bool is_avc(const Track& t) { return t.format == fourcc("avc1") || t.format == fourcc("avc3"); }
+
+// The cropped size of an H.264 track: from its first SPS, in avcC or, for
+// avc3, in band.
+void avc_size(const Track& t, int* height, int* width) {
+  h264::Decoder d;
+  h264::read_avcc(d, t.config);
+  for (size_t s = 0; d.first_sps < 0 && s < t.samples.size(); ++s)
+    h264::for_each_nal(t.file.data() + t.samples[s].first, t.samples[s].second, d.length_size,
+                 [&](const uint8_t* p, size_t n) {
+                   if ((p[0] & 31) == 7 && d.first_sps < 0) d.nal(p, n);
+                 });
+  if (d.first_sps < 0) fail(kCorrupt);
+  *height = d.sps_table[d.first_sps].height();
+  *width = d.sps_table[d.first_sps].width();
+}
+
+// Decodes an H.264 track into the buffers of evt_read_mp4, frames in the
+// order FFmpeg outputs them, each cropped to the SPS's window.
+void read_avc(const Track& t, uint8_t* rgb, uint8_t* y, uint8_t* u, uint8_t* v, int max_frames, int H, int W,
+              int* produced) {
+  h264::Decoder d;
+  h264::read_avcc(d, t.config);
+  const int cw = (W + 1) / 2, ch = (H + 1) / 2;
+  Frame crop;
+  crop.y.resize(W, H);
+  crop.u.resize(cw, ch);
+  crop.v.resize(cw, ch);
+  d.sink = [&](const h264::Picture& p) {
+    if (*produced >= max_frames) fail(kCorrupt);
+    const h264::Sps& q = *d.sps;
+    if (q.width() != W || q.height() != H) fail(kCorrupt);  // not the size mp4_info read
+    for (int r = 0; r < H; ++r) std::memcpy(crop.y.at(0, r), p.f.y.at(q.crop_left, q.crop_top + r), size_t(W));
+    for (int r = 0; r < ch; ++r) {
+      std::memcpy(crop.u.at(0, r), p.f.u.at(q.crop_left / 2, q.crop_top / 2 + r), size_t(cw));
+      std::memcpy(crop.v.at(0, r), p.f.v.at(q.crop_left / 2, q.crop_top / 2 + r), size_t(cw));
+    }
+    const size_t k = size_t(*produced);
+    if (rgb) frame_to_rgb(crop, W, H, rgb + k * W * H * 3);
+    if (y) std::memcpy(y + k * W * H, crop.y.px.data(), size_t(W) * H);
+    if (u && v) {
+      std::memcpy(u + k * cw * ch, crop.u.px.data(), size_t(cw) * ch);
+      std::memcpy(v + k * cw * ch, crop.v.px.data(), size_t(cw) * ch);
+    }
+    ++*produced;
+  };
+  for (const auto& s : t.samples) d.sample(t.file.data() + s.first, s.second);
+  d.flush();
 }
 
 // ---------------------------------------------------------------- encoder
@@ -1433,15 +1597,19 @@ int write_mp4(const char* path, const std::vector<std::vector<uint8_t>>& samples
 
 extern "C" {
 
-// Frames (samples), size (from the VOL) and frames a second of the video
-// track of an mp4v MP4; a status (0 = ok).
+// Frames (samples), size (from the VOL, or the H.264 SPS's cropping window)
+// and frames a second of the video track of an MP4; a status (0 = ok).
 int evt_mp4_info(const char* path, int* frames, int* height, int* width, double* fps) {
   try {
     Track t = open_mp4(path);
-    Vol v = find_vol(t);
+    if (is_avc(t)) {
+      avc_size(t, height, width);
+    } else {
+      Vol v = find_vol(t);
+      *height = v.height;
+      *width = v.width;
+    }
     *frames = static_cast<int>(t.samples.size());
-    *height = v.height;
-    *width = v.width;
     *fps = track_fps(t);
     return kOk;
   } catch (const Fail& e) {
@@ -1451,7 +1619,7 @@ int evt_mp4_info(const char* path, int* frames, int* height, int* width, double*
   }
 }
 
-// Decodes up to `max_frames` frames of the MP4, whose VOL must give
+// Decodes up to `max_frames` frames of the MP4, whose VOL or SPS must give
 // height x width (the buffers' size), into rgb (frames x H x W x 3), and,
 // where given, their planes into y (frames x H x W) and u, v (frames x
 // ceil(H / 2) x ceil(W / 2)); *produced gets the frame count.
@@ -1460,6 +1628,10 @@ int evt_read_mp4(const char* path, uint8_t* rgb, uint8_t* y, uint8_t* u, uint8_t
   *produced = 0;
   try {
     Track t = open_mp4(path);
+    if (is_avc(t)) {
+      read_avc(t, rgb, y, u, v, max_frames, height, width, produced);
+      return kOk;
+    }
     Decoder dec;
     if (!t.config.empty()) dec.decode_sample(t.config.data(), t.config.size());
     if (!dec.vol.have) dec.set_vol(find_vol(t));

@@ -2,15 +2,18 @@
 and the video export (`cli/calculate_scores.py`, `utils/video.py`).
 
 `csrc/video.cpp`, built at first use with g++ into the git-ignored `build/`
-(`ops/_build.py`), reads MP4 (ISO BMFF) files and decodes their MPEG-4 Part
-2 Simple Profile video (`mp4v`, what OpenCV's `mp4v` writer and FFmpeg's
-default `mpeg4` encode make) in FFmpeg's own arithmetic: its integer
-"simple" IDCT, and swscale's conversion of 4:2:0 limited-range BT.601 to
-RGB. It writes MP4 files of intra-only MPEG-4 Part 2 video (every frame an
-I-VOP at one quantiser) that OpenCV and FFmpeg read. The machine the port
-runs on has no video library (no FFmpeg, OpenCV or PyAV), so nothing else
-is used. What the decoder refuses, H.264 first, raises an error naming the
-file and the reason (`_REASONS`). The C calls release the GIL (ctypes).
+(`ops/_build.py`), reads MP4 (ISO BMFF) files and decodes their video: MPEG-4
+Part 2 Simple Profile (`mp4v`, what OpenCV's `mp4v` writer and FFmpeg's
+default `mpeg4` encode make) in FFmpeg's own arithmetic (its integer "simple"
+IDCT), and H.264 (`avc1`, `avc3`: the progressive 8-bit 4:2:0 Baseline, Main
+and High profiles, what libx264 and most cameras make; `csrc/h264.h`), which
+is exact by the standard; then swscale's conversion of 4:2:0 limited-range
+BT.601 to RGB. It writes MP4 files of intra-only MPEG-4 Part 2 video (every
+frame an I-VOP at one quantiser) that OpenCV and FFmpeg read. The machine
+the port runs on has no video library (no FFmpeg, OpenCV or PyAV), so
+nothing else is used. What the decoders refuse (HEVC, VP9, AV1, interlaced
+or 10-bit H.264, ...) raises an error naming the file and the reason
+(`_REASONS`). The C calls release the GIL (ctypes).
 
 `resize_linear_u8` is OpenCV's `cv2.resize(..., INTER_LINEAR)` of uint8
 frames in OpenCV's fixed-point arithmetic (see its docstring).
@@ -30,8 +33,9 @@ _REASONS = {
     1: "cannot be read",
     2: "is not an MP4 (ISO base media) file",
     3: "has no video track",
-    4: "holds H.264 or HEVC video (avc1, avc3, hvc1, hev1): the decoder takes MPEG-4 Part 2 (mp4v) only",
-    5: "holds video other than MPEG-4 Part 2 (its sample entry is not mp4v)",
+    4: "holds HEVC video (hvc1, hev1), or H.264 in an avc1 sample entry without its avcC box: the decoders take "
+       "MPEG-4 Part 2 (mp4v) and H.264 (avc1, avc3)",
+    5: "holds video other than MPEG-4 Part 2 or H.264 (its sample entry is not mp4v, avc1 or avc3)",
     6: "holds B-VOPs, or may (low_delay = 0): the decoder takes I- and P-VOPs only",
     7: "uses S-VOPs (sprites or global motion compensation)",
     8: "uses quarter-pel motion vectors",
@@ -48,6 +52,28 @@ _REASONS = {
     19: "cannot be written",
     20: "uses an MPEG-4 Part 2 tool the decoder does not take (OBMC, complexity estimation, newpred, "
         "reduced-resolution VOPs, or chroma other than 4:2:0)",
+    21: "holds interlaced H.264 video (frame_mbs_only_flag = 0: field pictures or MBAFF)",
+    22: "holds H.264 video with chroma other than 4:2:0 (monochrome, 4:2:2 or 4:4:4)",
+    23: "holds H.264 video of more than 8 bits a sample",
+    24: "holds H.264 video with separately coded colour planes (separate_colour_plane_flag)",
+    25: "holds H.264 video of a profile the decoder does not take (High 10, High 4:2:2, High 4:4:4, or another "
+        "outside Baseline, Main, Extended and High)",
+    26: "uses H.264's lossless transform bypass (qpprime_y_zero_transform_bypass_flag)",
+    27: "uses H.264 data partitioning (NAL unit types 2-4)",
+    28: "holds H.264 SP or SI slices",
+    29: "uses H.264 slice groups (FMO)",
+    30: "may hold H.264 redundant pictures (redundant_pic_cnt_present_flag)",
+    31: "has a gap in H.264 frame_num (a reference picture is missing)",
+    32: "holds SVC or MVC (scalable or multiview H.264) NAL units",
+    33: "has a colour description (H.264 VUI or MP4 colr box) that OpenCV converts otherwise than BT.601 at "
+        "limited range (BT.709 or FCC matrix, full range, BT.2020 primaries, a log, PQ or HLG transfer, ...)",
+    34: "uses H.264 memory management operation 5",
+    35: "holds H.264 video that does not start at an IDR picture",
+    36: "has an edit list that drops, delays or repeats frames",
+    37: "holds VP9 or VP8 video (vp09, vp08)",
+    38: "holds AV1 video (av01)",
+    39: "is cropped on its left edge by other than a multiple of 64 samples (FFmpeg cannot cut it exactly, "
+        "and OpenCV rescales the frame)",
 }
 
 
@@ -76,8 +102,9 @@ def _u8(a: np.ndarray | None):
 def mp4_info(path: str) -> dict:
     """{"frames", "fps", "height", "width"} of an MP4's video track: its
     sample count, its frame rate as FFmpeg's demuxer reads it from the
-    sample durations, and the size its VOL header gives. Raises IOError
-    naming the file for one the decoder refuses."""
+    sample durations, and the size its VOL header (or H.264 SPS, after its
+    cropping window) gives. Raises IOError naming the file for one the
+    decoder refuses."""
     frames, height, width, fps = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_double()
     _check(path, _lib().evt_mp4_info(os.fsencode(path), ctypes.byref(frames), ctypes.byref(height),
                                      ctypes.byref(width), ctypes.byref(fps)))
@@ -97,11 +124,12 @@ def _decode(path: str, planes: bool):
 
 
 def read_mp4(path: str) -> np.ndarray:
-    """(T, H, W, 3) uint8 RGB: every frame of an MP4's MPEG-4 Part 2 video,
-    as OpenCV's `VideoCapture` reads it (BGR) turned to RGB. A VOP marked
-    not coded gives no frame, as in FFmpeg, so T may fall short of
-    `mp4_info`'s sample count. Raises IOError naming the file and the reason
-    for one the decoder refuses."""
+    """(T, H, W, 3) uint8 RGB: every frame of an MP4's MPEG-4 Part 2 or
+    H.264 video, as OpenCV's `VideoCapture` reads it (BGR) turned to RGB:
+    H.264 frames in display order, as FFmpeg outputs them. A VOP marked not
+    coded gives no frame, as in FFmpeg, so T may fall short of `mp4_info`'s
+    sample count. Raises IOError naming the file and the reason for one the
+    decoder refuses."""
     return _decode(path, planes=False)[0]
 
 
